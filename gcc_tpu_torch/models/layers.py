@@ -1,0 +1,90 @@
+"""Shared model building blocks: masked BatchNorm, degree embedding,
+torch-default initialization from an explicit generator.
+
+Counterpart of ``gcc_tpu/models/layers.py``. Padded nodes must not
+pollute batch statistics, so BatchNorm normalizes over real nodes only.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+
+def init_linear_(layer: nn.Linear, gen: torch.Generator | None) -> None:
+    """torch's nn.Linear default — U(±1/sqrt(fan_in)) for weight and bias
+    (kaiming_uniform(a=sqrt(5))) — drawn from ``gen``."""
+    bound = 1.0 / math.sqrt(layer.in_features)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=gen)
+        if layer.bias is not None:
+            layer.bias.uniform_(-bound, bound, generator=gen)
+
+
+class MaskedBatchNorm(nn.Module):
+    """BatchNorm1d over the flat node axis with padding masked out
+    (``gcc_tpu/models/layers.py:75-126``).
+
+    Train mode normalizes by the masked batch mean and biased variance
+    and updates the running buffers as (1-m)·running + m·batch with
+    m = 0.1, the variance unbiased by count/(count-1). Eval mode uses the
+    running buffers. Input (..., N, F) with mask (..., N) of 1.0/0.0.
+    """
+
+    def __init__(self, num_features: int, momentum: float = 0.1,
+                 eps: float = 1e-5):
+        super().__init__()
+        self.momentum = momentum
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
+        self.register_buffer("running_mean", torch.zeros(num_features))
+        self.register_buffer("running_var", torch.ones(num_features))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            y = (x - self.running_mean) * torch.rsqrt(self.running_var
+                                                      + self.eps)
+            return y * self.weight + self.bias
+        dims = tuple(range(x.dim() - 1))
+        m = mask[..., None]
+        count = torch.clamp_min(mask.sum(), 1.0)
+        mean = (x * m).sum(dim=dims) / count
+        diff = (x - mean) * m
+        var = (diff * diff).sum(dim=dims) / count
+        with torch.no_grad():
+            unbias = count / torch.clamp_min(count - 1.0, 1.0)
+            self.running_mean.mul_(1 - self.momentum).add_(
+                self.momentum * mean.detach())
+            self.running_var.mul_(1 - self.momentum).add_(
+                self.momentum * var.detach() * unbias)
+        y = (x - mean) * torch.rsqrt(var + self.eps)
+        return y * self.weight + self.bias
+
+
+class DegreeEmbedding(nn.Module):
+    """Degree-bucket embedding, N(0, 1) init, with the reference's
+    clamp(deg, 0, max_degree) (graph_encoder.py:158-161)."""
+
+    def __init__(self, max_degree: int, features: int):
+        super().__init__()
+        self.max_degree = max_degree
+        self.embedding = nn.Embedding(max_degree + 1, features)
+
+    def reset_parameters(self, gen: torch.Generator | None) -> None:
+        with torch.no_grad():
+            self.embedding.weight.normal_(0.0, 1.0, generator=gen)
+
+    def forward(self, degrees: torch.Tensor) -> torch.Tensor:
+        return self.embedding(torch.clamp(degrees, 0, self.max_degree).long())
+
+
+def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None,
+            training: bool) -> torch.Tensor:
+    """Inverted dropout drawing its mask from ``gen``."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    return x * keep / (1.0 - p)
