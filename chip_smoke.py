@@ -16,7 +16,12 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    featurize at N = 128 and 256 (4096 graphs), the PE subspace
    iteration at (4096, 128, 128, k=32) and (4096, 256, 256, 32), the
    Jacobi Rayleigh-Ritz finish at (4096, 32, 32), 3 sweeps (beside
-   torch.linalg.eigh on the same batch).
+   torch.linalg.eigh on the same batch). Also, untimed in the kernels
+   line: the PE iteration at k=48 on the N=256 batch (its largest
+   shared-memory shape) and on 1037 graphs (a batch that is no multiple
+   of the card's SM count), and Jacobi at n=48. Each time is printed
+   beside the first port's time for the same shape and as a share of
+   its bound.
 4. Runs the main path at full width — MoCo, batch 32, queue 16384, GIN
    5x64, PE 32, rw_hops 256, routed buckets n_small 128 / n_max 256,
    e_max 2048, 64 steps per dispatch: three routed dispatches in bucket
@@ -53,6 +58,15 @@ PEAK_BYTES = 3.35e12
 BATCH, NCE_K, RW_HOPS = 32, 16384, 256
 N_SMALL, N_MAX, E_MAX, STEPS = 128, 256, 2048, 64
 RR_SWEEPS = 3
+ODD_BATCH = 1037  # no multiple of the 132 SMs, nor of a block's 4 warps
+
+# Times of the port's first kernels at the same shapes (PE: one block per
+# graph on the CUDA cores; Jacobi: one block per matrix; featurize is
+# unchanged since), for the lines that print a time beside its
+# predecessor's.
+EARLIER = "the port's first kernels, H100 80GB HBM3, 700 W"
+EARLIER_MS = {("pe", 128): 20.28, ("pe", 256): 66.61, ("jacobi", 32): 0.951,
+              ("featurize", 128): 0.1915, ("featurize", 256): 0.8022}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 
@@ -135,7 +149,8 @@ def check_featurize(edges, meta, n_max, check):
     ops = 3 * g * n_max * n_max
     bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
     print(f"featurize N={n_max} graphs={g}: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bound {bound:.4f} ms (bytes)", flush=True)
+          f"{ms_p:.4f} ms, bound {bound:.4f} ms (bytes)"
+          + versus("featurize", n_max, ms_k, bound), flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, max_abs_err=err,
                 bound_by="bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32
                 else "operations", shape=f"({g}, {n_max}, {n_max})"), \
@@ -156,7 +171,16 @@ def pe_flops(n: int, k: int, iters=16, orth_every=4, ns_steps=4, polish=2,
     return bf16, f32
 
 
-def check_pe(m_shift, n_nodes, k, check):
+def versus(name, key, ms, bound) -> str:
+    """' — x.x% of its bound[; earlier t ms (which), s.sx faster]'."""
+    out = f" — {100 * bound / ms:.1f}% of its bound"
+    old = EARLIER_MS.get((name, key))
+    if old is not None:
+        out += f"; {old} ms with {EARLIER}: {old / ms:.2f}x"
+    return out
+
+
+def check_pe(m_shift, n_nodes, k, check, timed=True):
     """Kernel 2 vs its plain version on every graph of the batch.
 
     f32 rounds: the same arithmetic with the f32 sums in another order —
@@ -196,7 +220,7 @@ def check_pe(m_shift, n_nodes, k, check):
         orth = (torch.bmm(q.transpose(1, 2), q) - eye).abs().amax((1, 2))
         orth_ref = (torch.bmm(q_ref.transpose(1, 2), q_ref) - eye
                     ).abs().amax((1, 2))
-        tag = "bf16" if lo else "f32"
+        tag = ("bf16" if lo else "f32") + ("" if timed else f" k={k} g={g}")
         print(f"pe N={n} {tag} rounds, {g} graphs ({int(well.sum())} of >= "
               f"2k nodes): max abs err {err:.3g}, mean {mean:.3g}, "
               f"projector err (>= 2k nodes) {proj:.3g}; orthonormal to 1e-3: "
@@ -205,11 +229,14 @@ def check_pe(m_shift, n_nodes, k, check):
         check(bool(torch.isfinite(q).all()), f"pe N={n} {tag}: finite")
         if lo:
             check(mean <= 1e-4 and err <= 2e-2 and proj <= 1e-2,
-                  f"pe N={n} bf16: mean {mean:.3g} <= 1e-4, max {err:.3g} "
+                  f"pe N={n} {tag}: mean {mean:.3g} <= 1e-4, max {err:.3g} "
                   f"<= 2e-2, projector {proj:.3g} <= 1e-2")
             out["max_abs_err"] = err
         else:
-            check(err <= 1e-5, f"pe N={n} f32: max abs err {err:.3g} <= 1e-5")
+            check(err <= 1e-5,
+                  f"pe N={n} {tag}: max abs err {err:.3g} <= 1e-5")
+    if not timed:
+        return out, q
     ms_k = timed_ms(lambda: pe_subspace_iterate(m_shift, q0, iters=16), 3)
     ms_p = timed_ms(lambda: pe_subspace_iterate_plain(m_shift, q0, iters=16),
                     2)
@@ -218,15 +245,15 @@ def check_pe(m_shift, n_nodes, k, check):
     t_bytes = g * (n * n + 2 * n * k) * 4 / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
     print(f"pe N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
-          f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})",
-          flush=True)
+          f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
+          + versus("pe", n, ms_k, bound), flush=True)
     out.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                shape=f"({g}, {n}, {n}), k={k}")
     return out, q
 
 
-def check_jacobi(t, check):
+def check_jacobi(t, check, timed=True):
     import torch
 
     from gcc_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_plain
@@ -240,7 +267,9 @@ def check_jacobi(t, check):
     check(err <= 1e-6, f"jacobi ({b}, {n}, {n}): max abs err {err:.3g} "
           "<= 1e-6")
     check(bool(torch.isfinite(w).all() and torch.isfinite(v).all()),
-          "jacobi: finite")
+          f"jacobi ({b}, {n}, {n}): finite")
+    if not timed:
+        return None
     ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=RR_SWEEPS,
                                         descending=True), 20)
     ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=RR_SWEEPS,
@@ -254,7 +283,8 @@ def check_jacobi(t, check):
     bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
     print(f"jacobi ({b}, {n}, {n}) sweeps={RR_SWEEPS}: kernel {ms_k:.4f} ms, "
           f"plain {ms_p:.4f} ms, torch.linalg.eigh {ms_l:.4f} ms, bound "
-          f"{bound:.4f} ms (operations)", flush=True)
+          f"{bound:.4f} ms (operations)" + versus("jacobi", n, ms_k, bound),
+          flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES
                 else "bytes", max_abs_err=err, shape=f"({b}, {n}, {n})")
@@ -427,6 +457,17 @@ def main() -> int:
         if name_n == N_SMALL:
             results[("jacobi", k_pos)] = check_jacobi(
                 rr_matrices(m_shift, q), check)
+            # A batch that is no multiple of the SM count or of the
+            # Jacobi kernel's four warps per block.
+            _, q_odd = check_pe(m_shift[:ODD_BATCH], n_nodes[:ODD_BATCH],
+                                k_pos, check, timed=False)
+            check_jacobi(rr_matrices(m_shift[:ODD_BATCH], q_odd), check,
+                         timed=False)
+        else:
+            # The widest block (48) at the largest N: the most shared
+            # memory Kernel 2 asks for, and Kernel 3's block kernel.
+            _, q48 = check_pe(m_shift, n_nodes, 48, check, timed=False)
+            check_jacobi(rr_matrices(m_shift, q48), check, timed=False)
         del adj, m_shift, deg, q
         torch.cuda.empty_cache()
 

@@ -11,16 +11,32 @@
 // undone and the comparison-rank sort (_sort_eig, ties broken by index).
 //
 // Bound on Hopper: operations (f32, outside the tensor cores). One matrix
-// is 4 KB at n = 32 and the round chain is serial, so the work per matrix
-// is latency-bound; the batch (4096 matrices) supplies the parallelism.
-// Design: one block per matrix, A and V^T double-buffered in shared memory
-// (16 n^2 bytes: 16 KB at n = 32, 36 KB at n = 48). A round is two
-// barriers: the n/2 pivot rotations, then one pass in which each thread
-// takes 2x2 blocks of A (rows of pair a x columns of pair b), applies the
-// row mix and then the column mix to them — the same two roundings as the
-// XLA formulation — and writes them straight to their re-paired positions
-// in the other buffer, V^T rows likewise. Products and sums are explicitly
-// rounded (__fmul_rn / __fadd_rn), so no FMA contraction changes them.
+// is 4 KB at n = 32 and its round chain is serial, so a matrix is bound by
+// latency and the batch (4096 matrices) supplies the parallelism.
+//
+// Two hand-written kernels, chosen by shape (jacobi_launch_plan in
+// ops/jacobi.py mirrors the choice):
+//   * n == 32 (the train path): jacobi_warp_kernel, one WARP per matrix
+//     and no block-wide barrier in the round loop. Lane c holds column c
+//     of A and column c of V^T in registers (32 + 32). The row mix of pair
+//     (j, j + 16) is arithmetic inside the lane; the column mix takes lane
+//     c ^ 16's value by one shuffle; the re-pair permutation is a static
+//     register renaming for rows and one shuffle with a per-lane constant
+//     source for columns. The pivots are picked out of the registers by a
+//     chain of selects (no dynamic register index, so no local memory),
+//     every lane computes the rotation of pair (lane % 16), and the 16
+//     (c, s) pairs are broadcast by shuffle. The rank sort and the
+//     coalesced write-out go through a warp-private slab of shared memory
+//     with __syncwarp(). Four warps share a block only to fill the SM.
+//   * any other even n from 4 to 48: jacobi_block_kernel, one block per
+//     matrix, A and V^T double-buffered in shared memory (16 n^2 bytes),
+//     two barriers a round: the n/2 rotations, then one pass in which each
+//     thread takes 2x2 blocks of A, applies the row mix and then the
+//     column mix, and writes them to their re-paired positions.
+// In both, products and sums are explicitly rounded (__fmul_rn /
+// __fadd_rn / ...) in the plain version's order per element (row mix,
+// then column mix), so no FMA contraction changes them: Jacobi has no
+// reduction, and both kernels are bit-identical to the plain version.
 
 #include <cuda_runtime.h>
 
@@ -48,7 +64,7 @@ __device__ __forceinline__ void rotation_cs(float app, float aqq, float apq,
 }
 
 __global__ void __launch_bounds__(kThreads)
-jacobi_kernel(const float* __restrict__ t,      // (B, n, n) symmetric
+jacobi_block_kernel(const float* __restrict__ t,      // (B, n, n) symmetric
               const int* __restrict__ tables,   // layout0[n] | repair_dst[n]
               float* __restrict__ w_out,        // (B, n)
               float* __restrict__ v_out,        // (B, n, n), vectors in columns
@@ -146,15 +162,155 @@ jacobi_kernel(const float* __restrict__ t,      // (B, n, n) symmetric
   }
 }
 
+
+// ---- n == 32: one warp per matrix ------------------------------------
+
+constexpr int kN = 32, kH = 16;
+constexpr int kWarps = 4;                 // matrices per block
+constexpr int kSlab = kN * (kN + 1);      // floats of a warp's slab
+
+// Re-pair permutation of the unsorted circle tournament in the
+// half-split layout: new[i] = old[kPi(i)].
+__host__ __device__ constexpr int kPi(int i) {
+  return i == 0 ? 0
+       : i == 1 ? kH
+       : i < kH ? i - 1
+       : i < kN - 1 ? i + 1
+       : kH - 1;
+}
+
+__global__ void __launch_bounds__(kWarps * 32, 4)
+jacobi_warp_kernel(const float* __restrict__ t,      // (B, 32, 32) symmetric
+                   const int* __restrict__ tables,   // layout0[32] | unused
+                   float* __restrict__ w_out,        // (B, 32)
+                   float* __restrict__ v_out,        // (B, 32, 32)
+                   int batch, int rounds, int descending, float eps) {
+  __shared__ int lay[kN];                 // round-0 position -> node index
+  __shared__ float slab_all[kWarps * kSlab];
+  __shared__ float w_all[kWarps * kN];
+  __shared__ int rp_all[kWarps * kN];
+  if (threadIdx.x < kN) lay[threadIdx.x] = tables[threadIdx.x];
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int mat = blockIdx.x * kWarps + warp;
+  if (mat >= batch) return;
+  constexpr unsigned kFull = 0xffffffffu;
+  float* slab = slab_all + warp * kSlab;
+  float* w_nat = w_all + warp * kN;
+  int* rp = rp_all + warp * kN;
+
+  // Natural order -> round-0 layout. a[i] = A[i][lane] = T[lay i][lay lane],
+  // v[i] = V^T[i][lane] = (lay i == lane).
+  const float* tb = t + (size_t)mat * kN * kN;
+  const int my_lay = lay[lane];
+  float a[kN], v[kN];
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    const int li = lay[i];
+    a[i] = tb[li * kN + my_lay];
+    v[i] = (li == lane) ? 1.f : 0.f;
+  }
+  const bool upper = lane >= kH;
+  const int pi_lane = (lane == 0) ? 0
+                    : (lane == 1) ? kH
+                    : (lane < kH) ? lane - 1
+                    : (lane < kN - 1) ? lane + 1 : kH - 1;
+
+  for (int r = 0; r < rounds; ++r) {
+    // Pivot entries of pair j = lane % 16: app = A[j][j] (lane j, a[j]),
+    // aqq = A[j+16][j+16] (lane j+16, a[j+16]), apq = A[j][j+16]
+    // (lane j+16, a[j]).
+    float diag = a[0], sup = a[0];
+#pragma unroll
+    for (int i = 1; i < kN; ++i) diag = (lane == i) ? a[i] : diag;
+#pragma unroll
+    for (int i = 1; i < kH; ++i) sup = (lane == i + kH) ? a[i] : sup;
+    const float diag_o = __shfl_xor_sync(kFull, diag, kH);
+    const float sup_o = __shfl_xor_sync(kFull, sup, kH);
+    float c, s;
+    rotation_cs(upper ? diag_o : diag, upper ? diag : diag_o,
+                upper ? sup : sup_o, eps, &c, &s);
+    // Row mix of A and of V^T, pair by pair, inside the lane.
+#pragma unroll
+    for (int j = 0; j < kH; ++j) {
+      const float cj = __shfl_sync(kFull, c, j);
+      const float sj = __shfl_sync(kFull, s, j);
+      const float a0 = a[j], a1 = a[j + kH];
+      a[j] = sub(mul(cj, a0), mul(sj, a1));
+      a[j + kH] = add(mul(sj, a0), mul(cj, a1));
+      const float v0 = v[j], v1 = v[j + kH];
+      v[j] = sub(mul(cj, v0), mul(sj, v1));
+      v[j + kH] = add(mul(sj, v0), mul(cj, v1));
+    }
+    // Column mix of A: columns (lane % 16, lane % 16 + 16) with this
+    // lane's own (c, s): left <- c*left - s*right, right <- s*left +
+    // c*right. (x - y is x + (-y) bit for bit, and the sum commutes.)
+    const float s_o = upper ? s : -s;
+    float m[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      const float o = __shfl_xor_sync(kFull, a[i], kH);
+      m[i] = add(mul(c, a[i]), mul(s_o, o));
+    }
+    // Re-pair: rows by renaming, columns by one shuffle.
+    float nv[kN];
+#pragma unroll
+    for (int i = 0; i < kN; ++i) {
+      a[i] = __shfl_sync(kFull, m[kPi(i)], pi_lane);
+      nv[i] = v[kPi(i)];
+    }
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] = nv[i];
+  }
+
+  // sweeps * 31 re-pairs return the layout to round-0 form: the
+  // eigenpair at position j belongs to node index lay[j].
+  float diag = a[0];
+#pragma unroll
+  for (int i = 1; i < kN; ++i) diag = (lane == i) ? a[i] : diag;
+  w_nat[my_lay] = diag;
+  __syncwarp();
+  const float wj = w_nat[lane];
+  int cnt = 0;
+  for (int k = 0; k < kN; ++k) {
+    const float wk = w_nat[k];
+    const bool before = descending ? (wk > wj) : (wk < wj);
+    cnt += (before || (wk == wj && k < lane)) ? 1 : 0;
+  }
+  w_out[(size_t)mat * kN + cnt] = wj;
+  slab[lane] = __int_as_float(cnt);       // rank of natural index `lane`
+  __syncwarp();
+  rp[lane] = __float_as_int(slab[my_lay]);  // rank of the pair at position
+  __syncwarp();
+  // v[:, rank] = eigenvector of that pair = row `position` of V^T; this
+  // lane holds V^T[:, lane], i.e. row `lane` of the output.
+#pragma unroll
+  for (int p = 0; p < kN; ++p) slab[lane * (kN + 1) + rp[p]] = v[p];
+  __syncwarp();
+  float* vb = v_out + (size_t)mat * kN * kN;
+#pragma unroll 4
+  for (int row = 0; row < kN; ++row)
+    vb[row * kN + lane] = slab[row * (kN + 1) + lane];
+}
+
 }  // namespace
 
 extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
                                  void* v, int batch, int n, int sweeps,
                                  int descending, float eps, void* stream) {
   if (batch <= 0) return 0;
+  if (n % 2 != 0 || n < 4 || n > 48 || sweeps < 0)
+    return (int)cudaErrorInvalidValue;
+  if (n == kN) {
+    jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0,
+                         (cudaStream_t)stream>>>(
+        (const float*)t, (const int*)tables, (float*)w, (float*)v, batch,
+        sweeps * (n - 1), descending, eps);
+    return (int)cudaGetLastError();
+  }
   const size_t smem =
       (size_t)(4 * n * n + 2 * n) * sizeof(float) + (size_t)4 * n * sizeof(int);
-  jacobi_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+  jacobi_block_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)t, (const int*)tables, (float*)w, (float*)v, n,
       sweeps * (n - 1), descending, eps);
   return (int)cudaGetLastError();

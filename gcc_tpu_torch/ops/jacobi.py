@@ -12,7 +12,13 @@ then the layout is undone and a comparison-rank sort orders the pairs.
 
 :func:`jacobi_eigh` is the kernel's wrapper: a CUDA tensor launches
 ``csrc/jacobi.cu``; a CPU tensor runs :func:`jacobi_eigh_plain`, the
-same rounds as plain PyTorch.
+same rounds as plain PyTorch. The source holds two hand-written kernels
+and the launch picks one by shape (:func:`jacobi_launch_plan`): n = 32,
+the train path, runs one warp per matrix with A and Vᵀ in registers and
+no block-wide barrier in the round loop; every other even n from 4 to
+48 runs one block per matrix over shared memory. Both round every
+operation as the plain version does, in its order, so both agree with
+it bit for bit.
 """
 
 from __future__ import annotations
@@ -167,22 +173,54 @@ def _device_tables(n: int, device: torch.device) -> torch.Tensor:
     return t
 
 
+# Mirrors of the constants in csrc/jacobi.cu.
+_WARP_N = 32            # the n the warp-per-matrix kernel takes
+_WARPS_PER_BLOCK = 4
+_BLOCK_THREADS = 256
+
+
+def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
+    """Launch plan of Kernel 3 for (batch, n, n), as ``csrc/jacobi.cu``
+    launches it: which kernel, blocks, threads per block, bytes of shared
+    memory per block. Raises ``ValueError`` on an n the kernels do not
+    take."""
+    if n % 2 or not 4 <= n <= 48:
+        raise ValueError(f"jacobi kernel takes even 4 <= n <= 48, got {n}")
+    if n == _WARP_N:
+        # lay[n] + per warp: slab n(n+1), eigenvalues n, ranks n
+        smem = 4 * (n + _WARPS_PER_BLOCK * (n * (n + 1) + 2 * n))
+        return dict(variant="warp-per-matrix, registers",
+                    blocks=-(-batch // _WARPS_PER_BLOCK),
+                    threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem)
+    # A and V^T double-buffered, c/s, eigenvalues, four index tables
+    smem = 4 * (4 * n * n + 2 * n) + 4 * 4 * n
+    return dict(variant="block-per-matrix, shared memory", blocks=batch,
+                threads=_BLOCK_THREADS, smem_bytes=smem)
+
+
+def _check_input(a: torch.Tensor) -> None:
+    """Raise on what the kernels do not take."""
+    if a.dtype != torch.float32:
+        raise TypeError(f"jacobi_eigh takes float32, got {a.dtype}")
+    if a.dim() != 3 or a.shape[1] != a.shape[2]:
+        raise ValueError(f"jacobi_eigh takes (B, n, n), got {tuple(a.shape)}")
+    jacobi_launch_plan(a.shape[1], a.shape[0])
+
+
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
                 descending: bool = False):
     """Kernel 3 wrapper: batched symmetric eigendecomposition, sorted.
     a: (B, n, n) float32, n even (32 on the train path, 48 for the eval
     profile's guarded finish). CUDA tensors launch ``csrc/jacobi.cu``
-    (one launch counted); CPU tensors run :func:`jacobi_eigh_plain`."""
+    (one launch counted: the warp-per-matrix kernel at n = 32, the
+    block-per-matrix kernel at any other n); CPU tensors run
+    :func:`jacobi_eigh_plain`."""
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps, eps, descending)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    if a.dtype != torch.float32 or a.dim() != 3 or a.shape[1] != a.shape[2]:
-        raise ValueError(f"jacobi_eigh takes (B, n, n) float32, got "
-                         f"{tuple(a.shape)} {a.dtype}")
+    _check_input(a)
     b, n, _ = a.shape
-    if n % 2 or not 4 <= n <= 48:
-        raise ValueError(f"jacobi kernel takes even 4 <= n <= 48, got {n}")
     a = a.contiguous()
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     v = torch.empty((b, n, n), dtype=torch.float32, device=a.device)

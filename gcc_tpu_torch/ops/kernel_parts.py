@@ -1,0 +1,103 @@
+"""Where Kernel 2's and Kernel 3's time goes, part by part, on the card.
+
+Usage (on a machine with an NVIDIA GPU, from the repository root):
+
+    python -m gcc_tpu_torch.ops.kernel_parts [--graphs 4096]
+
+Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
+under schedules that switch its parts off — the bf16 rounds alone, the
+power steps alone, the f32 polish alone, the f32 Newton–Schulz finish
+alone — at the main path's shapes, and ``jacobi_eigh`` per sweep count,
+on random symmetric operators. Kernel 2 skips the zero padding of the
+node axis, so its time depends on how many nodes are live: the operators
+are dense (all N live, the most work a shape can ask for) except one
+case with 56 live nodes of 128, the mean of the main path's small
+bucket. Prints the card's nvidia-smi name and power limit first. The
+parts do not add up exactly to the whole: every schedule also loads M
+and writes the result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+
+import torch
+
+from gcc_tpu_torch.ops.jacobi import jacobi_eigh
+from gcc_tpu_torch.ops.pe import pe_subspace_iterate
+
+
+def timed_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+SCHEDULES = (
+    ("whole (train profile)", dict()),
+    ("bf16 rounds only", dict(polish=0, final_ns=0)),
+    ("16 bf16 power steps, one NS step", dict(orth_every=16, ns_steps=1,
+                                               polish=0, final_ns=0)),
+    ("one bf16 power step, 16 NS steps", dict(iters=1, orth_every=1,
+                                               ns_steps=16, polish=0,
+                                               final_ns=0)),
+    ("one bf16 power step, no NS step (load + store)",
+     dict(iters=1, orth_every=1, ns_steps=0, polish=0, final_ns=0)),
+    ("f32 polish only (+1 bf16 step)", dict(iters=1, orth_every=1,
+                                            ns_steps=0, polish=2,
+                                            final_ns=0)),
+    ("f32 NS finish only (+1 bf16 step)", dict(iters=1, orth_every=1,
+                                               ns_steps=0, polish=0,
+                                               final_ns=8)),
+    ("f32 rounds everywhere (power_lo=False)", dict(power_lo=False)),
+)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--graphs", type=int, default=4096)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("kernel_parts: needs an NVIDIA card")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    g = args.graphs
+    for n, k, live in ((128, 32, 128), (128, 32, 56), (256, 32, 256),
+                       (256, 48, 256)):
+        a = torch.rand(g, n, n, device=dev, generator=gen) / n
+        m = a + a.transpose(1, 2) + torch.eye(n, device=dev)
+        q0 = torch.randn(g, n, k, device=dev, generator=gen)
+        m[:, live:, :] = 0
+        m[:, :, live:] = 0
+        q0[:, live:, :] = 0
+        q0 = q0 / q0.norm(dim=1, keepdim=True)
+        for name, kw in SCHEDULES:
+            kw = dict(dict(iters=16), **kw)
+            ms = timed_ms(lambda: pe_subspace_iterate(m, q0, **kw))
+            print(f"pe ({g}, {n}, {n}) k={k} live={live} {name}: {ms:.4f} "
+                  "ms", flush=True)
+        del a, m, q0
+    for n in (32, 48):
+        t = torch.randn(g, n, n, device=dev, generator=gen)
+        t = 0.5 * (t + t.transpose(1, 2))
+        for sweeps in (0, 1, 3):
+            ms = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps,
+                                              descending=True), 20)
+            print(f"jacobi ({g}, {n}, {n}) sweeps={sweeps}: {ms:.4f} ms",
+                  flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -11,6 +11,16 @@ the positional embedding is a stop-gradient input feature.
 :func:`pe_subspace_iterate` is the kernel's wrapper: a CUDA tensor
 launches ``csrc/pe.cu``; a CPU tensor runs
 :func:`pe_subspace_iterate_plain`, the same steps as plain PyTorch.
+
+The kernel runs the bf16-input products (power steps, the rounds' Gram
+and G·Qᵀ) on the tensor cores and the f32 work on the CUDA cores, one
+block of 2N threads per graph; :func:`pe_launch_plan` mirrors its launch
+plan. M is read as the reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·
+M[j, c]: ``m_shift`` is symmetric as a matrix but not bit for bit (it is
+formed as ``(a·inv_row)·inv_col``), so neither version may read M[c, j]
+in place of M[j, c]. One kernel serves every shape: N is padded to a
+multiple of 32 (at most 256), k ≤ 48 is padded to 16, 32 or 48 inside
+the kernel.
 """
 
 from __future__ import annotations
@@ -78,6 +88,47 @@ def pe_subspace_iterate_plain(m: torch.Tensor, q0: torch.Tensor,
     return qt.transpose(1, 2)
 
 
+def pe_launch_plan(n: int, k: int) -> dict:
+    """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
+    width ``k``, as ``pe_plan`` in ``csrc/pe.cu`` computes it: threads
+    per block, bytes of dynamic shared memory, the padded sizes, the
+    splits of the two Gram products and the tile variant. Raises
+    ``ValueError`` with the numbers on a shape the kernel does not
+    take."""
+    n_pad = -(-n // 32) * 32
+    if not 1 <= n_pad <= 256 or not 1 <= k <= 48:
+        raise ValueError(f"pe kernel takes 1 <= N <= 256 and 1 <= k <= 48, "
+                         f"got N={n}, k={k}")
+    kp = -(-k // 16) * 16
+    kt = kp // 16
+    threads, warps = 2 * n_pad, n_pad // 16
+    ldm = ldq = n_pad + 8
+    ldg, ldt = kp + 8, n_pad + 4
+    ks = max(d for d in range(1, 9)
+             if d == 1 or (warps % d == 0 and 2 * kt * kt * d <= warps))
+    tiles4 = (kp // 4) * (kp // 4 + 1) // 2      # upper triangle of 4x4s
+    chunks = max(d for d in (1, 2, 4) if d == 1 or tiles4 * d <= threads)
+
+    def align16(x):
+        return -(-x // 16) * 16
+
+    kk = kp * kp
+    smem = align16(max(n_pad * ldm * 2, 2 * kp * ldt * 4))
+    smem += kk * 4 + warps * kp * 4 + kp * 4 + 16
+    # The rounds' bf16 tiles and the f32 steps' three 16-row panels of M
+    # share one region.
+    smem += max(align16(2 * kp * ldq * 2) + align16(kp * ldg * 2)
+                + (ks * kk * 4 if ks > 1 else 0), 3 * 16 * n_pad * 4)
+    if smem > _MAX_SMEM or threads > 1024:
+        raise ValueError(
+            f"pe kernel: N={n}, k={k} needs {smem} B of shared memory and "
+            f"{threads} threads per block (limits {_MAX_SMEM}, 1024)")
+    return dict(n_pad=n_pad, kp=kp, threads=threads, warps=warps,
+                smem_bytes=smem, gram_split=ks, gram_f32_split=chunks,
+                variant=f"mma.sync m16n8k16 bf16, {kt} row tile(s) x 16 "
+                        f"columns per warp; f32 4x{2 * kt} register tiles")
+
+
 _PE_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
@@ -85,9 +136,29 @@ def _pe_lib() -> ctypes.CDLL:
     lib = _build.load("pe")
     lib.gcc_pe_launch.argtypes = _PE_ARGS
     lib.gcc_pe_launch.restype = ctypes.c_int
-    lib.gcc_pe_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.gcc_pe_smem_bytes.restype = ctypes.c_int
+    lib.gcc_pe_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                ctypes.POINTER(ctypes.c_int)]
+    lib.gcc_pe_plan.restype = ctypes.c_int
     return lib
+
+
+def _check_inputs(m, q0, orth_every, ns_steps, polish, final_ns) -> dict:
+    """Raise on what the kernel does not take; the launch plan else."""
+    if m.dtype != torch.float32 or q0.dtype != torch.float32:
+        raise TypeError(f"pe_subspace_iterate takes float32 m and q0, got "
+                        f"{m.dtype} and {q0.dtype}")
+    if q0.dim() != 3 or m.dim() != 3:
+        raise ValueError(f"pe_subspace_iterate takes m (B, N, N) and q0 "
+                         f"(B, N, k), got {tuple(m.shape)}, {tuple(q0.shape)}")
+    b, n, k = q0.shape
+    if m.shape != (b, n, n) or q0.device != m.device:
+        raise ValueError(f"shape/device mismatch: m {tuple(m.shape)}, "
+                         f"q0 {tuple(q0.shape)}")
+    if orth_every < 1 or min(ns_steps, polish, final_ns) < 0:
+        raise ValueError(
+            f"orth_every must be >= 1 and ns_steps, polish, final_ns >= 0, "
+            f"got {orth_every}, {ns_steps}, {polish}, {final_ns}")
+    return pe_launch_plan(n, k)
 
 
 def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
@@ -96,33 +167,23 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
                         final_ns: int = 8) -> torch.Tensor:
     """Kernel 2 wrapper: m (B, N, N) float32, q0 (B, N, k) float32 →
     (B, N, k). CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
-    CPU tensors run :func:`pe_subspace_iterate_plain`."""
+    CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 256 (padded
+    to a multiple of 32), k ≤ 48; ``power_lo`` both ways and any
+    ``iters``/``orth_every``/``ns_steps``/``polish``/``final_ns``."""
     if m.device.type == "cpu":
         return pe_subspace_iterate_plain(m, q0, iters, orth_every, ns_steps,
                                          power_lo, polish, final_ns)
     if m.device.type != "cuda":
         raise ValueError(f"unsupported device {m.device}")
-    if m.dtype != torch.float32 or q0.dtype != torch.float32:
-        raise TypeError("pe_subspace_iterate takes float32 m and q0")
+    plan = _check_inputs(m, q0, orth_every, ns_steps, polish, final_ns)
     b, n, k = q0.shape
-    if m.shape != (b, n, n) or q0.device != m.device:
-        raise ValueError(f"shape/device mismatch: m {tuple(m.shape)}, "
-                         f"q0 {tuple(q0.shape)}")
-    if orth_every < 1:
-        raise ValueError("orth_every must be >= 1")
-    n_pad = -(-n // 32) * 32
+    n_pad = plan["n_pad"]
     if n_pad != n:
         # Zero rows/columns of M and zero rows of q0 stay exactly zero
         # through every step, so padding the node axis is exact.
         m = F.pad(m, (0, n_pad - n, 0, n_pad - n))
         q0 = F.pad(q0, (0, 0, 0, n_pad - n))
     lib = _pe_lib()
-    smem = lib.gcc_pe_smem_bytes(n_pad, k)
-    threads = -(-k // 16) * n_pad
-    if smem > _MAX_SMEM or threads > 1024:
-        raise ValueError(
-            f"pe kernel: N={n}, k={k} needs {smem} B of shared memory and "
-            f"{threads} threads per block (limits {_MAX_SMEM}, 1024)")
     m, q0 = m.contiguous(), q0.contiguous()
     out = torch.empty((b, n_pad, k), dtype=torch.float32, device=m.device)
     with torch.cuda.device(m.device):

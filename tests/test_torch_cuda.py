@@ -68,8 +68,9 @@ def test_featurize_kernel_matches_plain(cuda_device, n_max):
 
 @pytest.mark.parametrize("n", [8, 32, 48])
 def test_jacobi_kernel_matches_plain(cuda_device, n):
-    """The kernel runs the plain version's rounds with correctly rounded
-    f32 operations: results within 1e-6."""
+    """The kernels (one warp per matrix at n = 32, one block per matrix
+    else) run the plain version's rounds with correctly rounded f32
+    operations: results within 1e-6."""
     a = torch.randn(64, n, n, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(n))
     a = 0.5 * (a + a.transpose(1, 2))
@@ -80,23 +81,113 @@ def test_jacobi_kernel_matches_plain(cuda_device, n):
         assert (v - v0).abs().max().item() <= 1e-6
 
 
-@pytest.mark.parametrize("n_max", [64, 128])
-def test_pe_kernel_matches_plain(cuda_device, n_max):
+@pytest.mark.parametrize("batch", [1, 3, 2777])
+def test_jacobi_warp_kernel_batches(cuda_device, batch):
+    """n = 32 at a batch of one, one that does not fill a block of four
+    warps, and one larger than a wave of resident warps; a diagonal
+    matrix and repeated eigenvalues among them (identity rotations, the
+    sort's tie rule)."""
+    a = torch.randn(batch, 32, 32, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(batch))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(32, device=cuda_device).float() // 2)
+    before = jacobi.jacobi_eigh.launches
+    w, v = jacobi.jacobi_eigh(a, sweeps=3, descending=True)
+    assert jacobi.jacobi_eigh.launches == before + 1
+    w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=3, descending=True)
+    assert (w - w0).abs().max().item() <= 1e-6
+    assert (v - v0).abs().max().item() <= 1e-6
+
+
+def _pe_case(device, n_max, k, graphs, seed=1):
+    """m_shift and a start block for `graphs` random graphs of up to
+    n_max nodes."""
+    b = 16
+    s = -(-graphs // b)
+    edges, meta = _wire(np.random.default_rng(seed), s, b, n_max, 4096)
+    e = torch.as_tensor(edges, device=device)
+    m = torch.as_tensor(meta, device=device)
+    _, m_shift, _ = aggregate.fused_adjacency_featurize_plain(e, m, n_max, 8)
+    q0 = subspace_start(n_max, k, aggregate.node_mask_from_meta(m, n_max))
+    return m_shift[:graphs].contiguous(), q0[:graphs].contiguous()
+
+
+def _pe_compare(m_shift, q0, **kw):
     """f32 rounds: within 1e-5 (the same arithmetic, f32 sums in another
     order). Production bf16 rounds: a last-bit difference can flip a
     bf16 rounding, a 2^-8 relative step the iteration carries on — mean
     within 1e-4, max within 2e-2."""
-    edges, meta = _wire(np.random.default_rng(1), 2, 16, n_max, 4096)
-    e = torch.as_tensor(edges, device=cuda_device)
-    m = torch.as_tensor(meta, device=cuda_device)
-    _, m_shift, _ = aggregate.fused_adjacency_featurize_plain(e, m, n_max, 8)
-    q0 = subspace_start(n_max, 16, aggregate.node_mask_from_meta(m, n_max))
-    got = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=False)
+    got = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=False, **kw)
     want = pe.pe_subspace_iterate_plain(m_shift, q0, iters=16,
-                                        power_lo=False)
+                                        power_lo=False, **kw)
+    assert got.shape == want.shape
     assert (got - want).abs().max().item() <= 1e-5
-    got = pe.pe_subspace_iterate(m_shift, q0, iters=16)
-    want = pe.pe_subspace_iterate_plain(m_shift, q0, iters=16)
+    before = pe.pe_subspace_iterate.launches
+    got = pe.pe_subspace_iterate(m_shift, q0, iters=16, **kw)
+    assert pe.pe_subspace_iterate.launches == before + 1
+    want = pe.pe_subspace_iterate_plain(m_shift, q0, iters=16, **kw)
     assert torch.isfinite(got).all()
     diff = (got - want).abs()
     assert diff.mean().item() <= 1e-4 and diff.max().item() <= 2e-2
+
+
+@pytest.mark.parametrize("n_max", [64, 128])
+def test_pe_kernel_matches_plain(cuda_device, n_max):
+    _pe_compare(*_pe_case(cuda_device, n_max, 16, 32))
+
+
+@pytest.mark.parametrize("n_max,k,graphs", [
+    (256, 32, 32),     # the large bucket
+    (256, 48, 16),     # the most shared memory
+    (128, 48, 16),     # three row tiles
+    (96, 32, 16),      # N padded to a multiple of 32 by the kernel's plan
+    (100, 16, 16),     # N padded by the wrapper
+    (32, 8, 16),       # two warps, k padded to 16
+    (128, 32, 133),    # a batch that is no multiple of the SM count
+])
+def test_pe_kernel_shapes(cuda_device, n_max, k, graphs):
+    _pe_compare(*_pe_case(cuda_device, n_max, k, graphs))
+
+
+def test_pe_kernel_batch_of_one(cuda_device):
+    """A block's result does not depend on the batch around it: graph 0
+    alone equals graph 0 of a batch, bit for bit (the mean tolerance of
+    the bf16 rounds is a statistic over many graphs, not of one)."""
+    m_shift, q0 = _pe_case(cuda_device, 128, 32, 16)
+    for lo in (False, True):
+        full = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=lo)
+        one = pe.pe_subspace_iterate(m_shift[:1], q0[:1], iters=16,
+                                     power_lo=lo)
+        assert one.shape == (1, 128, 32) and torch.equal(one[0], full[0])
+    got = pe.pe_subspace_iterate(m_shift[:1], q0[:1], iters=16,
+                                 power_lo=False)
+    want = pe.pe_subspace_iterate_plain(m_shift[:1], q0[:1], iters=16,
+                                        power_lo=False)
+    assert (got - want).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("kw", [
+    dict(orth_every=1, ns_steps=1, polish=0, final_ns=0),
+    dict(orth_every=3, ns_steps=2, polish=1, final_ns=3),
+    dict(orth_every=16, ns_steps=0, polish=0, final_ns=8),
+])
+def test_pe_kernel_schedules(cuda_device, kw):
+    _pe_compare(*_pe_case(cuda_device, 128, 32, 16), **kw)
+
+
+def test_pe_plan_mirrors_the_source(cuda_device):
+    """pe_launch_plan (Python) and pe_plan (csrc/pe.cu) agree on every
+    shape the wrapper takes."""
+    import ctypes
+
+    lib = pe._pe_lib()
+    out = (ctypes.c_int * 6)()
+    for n in (32, 64, 96, 128, 160, 192, 224, 256):
+        for k in (1, 8, 16, 17, 32, 33, 48):
+            assert lib.gcc_pe_plan(n, k, out) == 0
+            plan = pe.pe_launch_plan(n, k)
+            assert list(out) == [plan["threads"], plan["smem_bytes"],
+                                 plan["kp"], plan["warps"],
+                                 plan["gram_split"], plan["gram_f32_split"]]
+    assert lib.gcc_pe_plan(288, 32, out) != 0
+    assert lib.gcc_pe_plan(128, 49, out) != 0

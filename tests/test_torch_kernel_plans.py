@@ -1,0 +1,130 @@
+"""Launch plans and input checks of the port's Kernel 2 (PE subspace
+iteration) and Kernel 3 (Jacobi), which need no card: the pure-Python
+mirrors of the plans in ``csrc/pe.cu`` and ``csrc/jacobi.cu`` stay
+inside what one Hopper block may use for every shape the wrappers take,
+and the wrappers raise, with the numbers, on what they do not take."""
+
+import pytest
+import torch
+
+from gcc_tpu_torch.ops import jacobi, pe
+
+MAX_SMEM = 232_448      # bytes of shared memory a block may use on Hopper
+MAX_THREADS = 1024
+
+
+@pytest.mark.parametrize("k", [8, 16, 32, 48])
+@pytest.mark.parametrize("n", [32, 64, 96, 128, 192, 256])
+def test_pe_plan_fits_a_block(n, k):
+    plan = pe.pe_launch_plan(n, k)
+    assert 0 < plan["smem_bytes"] <= MAX_SMEM
+    assert plan["threads"] == 2 * n <= MAX_THREADS
+    assert plan["threads"] == 32 * plan["warps"]
+    assert plan["kp"] in (16, 32, 48) and 0 <= plan["kp"] - k < 16
+    assert plan["variant"].startswith("mma.sync m16n8k16")
+    # The tensor-core Gram splits its depth into whole steps of 16
+    # columns; 1, 2 or 4 lanes share a tile of the f32 Gram.
+    assert plan["warps"] % plan["gram_split"] == 0
+    assert plan["gram_f32_split"] in (1, 2, 4)
+    # The bf16 copy of M (rows padded by 8) fits inside the plan.
+    assert plan["smem_bytes"] >= n * (n + 8) * 2
+
+
+@pytest.mark.parametrize("n,n_pad", [(1, 32), (31, 32), (100, 128),
+                                     (129, 160), (250, 256)])
+def test_pe_plan_pads_the_node_axis(n, n_pad):
+    plan = pe.pe_launch_plan(n, 32)
+    assert plan["n_pad"] == n_pad and plan["threads"] == 2 * n_pad
+
+
+@pytest.mark.parametrize("n,k", [(257, 32), (512, 16), (128, 49),
+                                 (128, 64), (128, 0)])
+def test_pe_plan_refuses_with_the_numbers(n, k):
+    with pytest.raises(ValueError, match=f"N={n}, k={k}"):
+        pe.pe_launch_plan(n, k)
+
+
+@pytest.mark.parametrize("n", list(range(4, 50, 2)))
+def test_jacobi_plan_fits_a_block(n):
+    plan = jacobi.jacobi_launch_plan(n, batch=4097)
+    assert 0 < plan["smem_bytes"] <= MAX_SMEM
+    assert 0 < plan["threads"] <= MAX_THREADS and plan["threads"] % 32 == 0
+    if n == 32:
+        assert plan["variant"].startswith("warp-per-matrix")
+        assert plan["blocks"] * (plan["threads"] // 32) >= 4097
+        assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
+    else:
+        assert plan["variant"].startswith("block-per-matrix")
+        assert plan["blocks"] == 4097
+
+
+@pytest.mark.parametrize("n", [3, 5, 33, 50, 64, 2, 0])
+def test_jacobi_plan_refuses_with_the_number(n):
+    with pytest.raises(ValueError, match=str(n)):
+        jacobi.jacobi_launch_plan(n)
+
+
+# The wrappers run these checks on every CUDA tensor before they launch
+# (a CPU tensor goes to the plain version, which takes any shape).
+
+def _pe_args(b=2, n=64, k=16, dtype=torch.float32):
+    return torch.zeros(b, n, n, dtype=dtype), torch.zeros(b, n, k, dtype=dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float16,
+                                   torch.bfloat16])
+def test_pe_wrapper_refuses_dtype(dtype):
+    m, q0 = _pe_args(dtype=dtype)
+    with pytest.raises(TypeError, match=str(dtype)):
+        pe._check_inputs(m, q0, 4, 4, 2, 8)
+    with pytest.raises(TypeError, match="float32"):
+        pe._check_inputs(m.float(), q0, 4, 4, 2, 8)
+
+
+@pytest.mark.parametrize("m_shape,q_shape", [
+    ((2, 64, 64), (3, 64, 16)),     # batch
+    ((2, 64, 32), (2, 64, 16)),     # M not square
+    ((2, 32, 32), (2, 64, 16)),     # node axes differ
+    ((64, 64), (64, 16)),           # no batch axis
+])
+def test_pe_wrapper_refuses_shapes(m_shape, q_shape):
+    with pytest.raises(ValueError, match=str(m_shape[-1])):
+        pe._check_inputs(torch.zeros(m_shape), torch.zeros(q_shape),
+                         4, 4, 2, 8)
+
+
+@pytest.mark.parametrize("n,k", [(288, 32), (64, 49)])
+def test_pe_wrapper_refuses_sizes(n, k):
+    with pytest.raises(ValueError, match=f"N={n}, k={k}"):
+        pe._check_inputs(*_pe_args(n=n, k=k), 4, 4, 2, 8)
+
+
+@pytest.mark.parametrize("sched", [(0, 4, 2, 8), (4, -1, 2, 8),
+                                   (4, 4, -1, 8), (4, 4, 2, -1)])
+def test_pe_wrapper_refuses_schedules(sched):
+    with pytest.raises(ValueError, match="orth_every"):
+        pe._check_inputs(*_pe_args(), *sched)
+
+
+def test_pe_wrapper_accepts_what_the_plan_takes():
+    plan = pe._check_inputs(*_pe_args(n=100, k=20), 4, 4, 2, 8)
+    assert plan == pe.pe_launch_plan(100, 20)
+
+
+@pytest.mark.parametrize("shape,exc", [
+    ((2, 7, 7), ValueError),        # odd n
+    ((2, 50, 50), ValueError),      # n > 48
+    ((2, 2, 2), ValueError),        # n < 4
+    ((2, 32, 16), ValueError),      # not square
+    ((32, 32), ValueError),         # no batch axis
+])
+def test_jacobi_wrapper_refuses_shapes(shape, exc):
+    with pytest.raises(exc, match=str(shape[-2])):
+        jacobi._check_input(torch.zeros(shape))
+
+
+def test_jacobi_wrapper_refuses_dtype():
+    with pytest.raises(TypeError, match="float64"):
+        jacobi._check_input(torch.zeros(2, 32, 32, dtype=torch.float64))
+    jacobi._check_input(torch.zeros(2, 32, 32))
+    jacobi._check_input(torch.zeros(2, 48, 48))
