@@ -22,15 +22,34 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    of the card's SM count), and Jacobi at n=48. Each time is printed
    beside the first port's time for the same shape and as a share of
    its bound.
-4. Runs the main path at full width — MoCo, batch 32, queue 16384, GIN
-   5x64, PE 32, rw_hops 256, routed buckets n_small 128 / n_max 256,
-   e_max 2048, 64 steps per dispatch: three routed dispatches in bucket
-   128 and one in bucket 256 — with the kernels' launch
-   counters zeroed just before and read just after; then times the
-   featurize of one routed dispatch alone and profiles one more routed
-   dispatch (torch.profiler: wall, device busy time, top kernels).
-5. Prints one {"kernels": [...]} JSON line, the nvidia-smi line again,
-   and as the last line {"ok": true, "device": {...}}.
+4. Holds the PE iteration against its plain version at the shapes of
+   embedding generation (eval profile, 32 + 16 guard columns): (64, 512,
+   512, k=48) and (64, 832, 832, k=48) — the streamed launch plan — and
+   (128, 256, 256, k=48), on entire-graph batches of seeded random
+   graphs; and the Jacobi kernel at (64, 48, 48) and (128, 48, 48) on
+   the Gram and Rayleigh-Ritz matrices of those outputs.
+5. Runs the training path at full width — MoCo, batch 32, queue 16384,
+   GIN 5x64, PE 32, rw_hops 256, routed buckets n_small 128 / n_max 256,
+   e_max 2048, 64 steps per dispatch: one routed dispatch in bucket 128
+   and one in bucket 256 — with the kernels' launch counters zeroed just
+   before each and read just after; then times the featurize of one
+   routed dispatch alone and profiles one more routed dispatch
+   (torch.profiler: wall, device busy time, top kernels).
+6. Runs the serve path at full width through the entry points:
+   run_pretrain (an epoch of 4 routed dispatches, checkpoint) →
+   load_checkpoint (restored parameters equal the live ones bit for bit)
+   → node_subgraphs (two RWR views of every node of a 4096-node
+   community graph) → generate_embeddings (n_max 512, e_max 8192, batch
+   64: 128 encode calls) → generate_graph_embeddings (score and
+   composite readouts of 256 graphs of 100-500 nodes), plus the readouts
+   at the 256 bucket and graphs of 520-832 nodes at n_max 832. Launch
+   counters are zeroed before each stretch and read after it (per encode
+   call: Kernel 2 once, Kernel 3 twice; no plain version is called on
+   the card). The first 64 node embeddings are held against the same
+   call on the CPU; a stretch of 8 encode calls is profiled.
+7. Prints one {"kernels": [...]} JSON line (one entry per kernel and
+   shape), the nvidia-smi line again, and as the last line
+   {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA card or outside a
 checkout of the repository; any failed check exits non-zero.
@@ -38,6 +57,8 @@ checkout of the repository; any failed check exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import math
 import os
@@ -68,6 +89,19 @@ EARLIER = "the port's first kernels, H100 80GB HBM3, 700 W"
 EARLIER_MS = {("pe", 128): 20.28, ("pe", 256): 66.61, ("jacobi", 32): 0.951,
               ("featurize", 128): 0.1915, ("featurize", 256): 0.8022}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
+
+# The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
+GEN_N_MAX, GEN_E_MAX, GEN_BATCH = 512, 8192, 64
+K_EVAL = 48              # 32 PE columns + 16 guard columns
+COMMUNITY_NODES = 4096
+# Embeddings on the card against the same call on the CPU (plain
+# versions), first 64 nodes. The outputs are unit vectors. The two differ
+# by the bf16 rounds of Kernel 2 (a rounding flips on a last-bit
+# difference of an f32 sum), carried through a 3-sweep Jacobi finish that
+# is not converged at width 48 and through Ritz columns of near-equal
+# eigenvalues, so equality to the bit is out of reach; the limits are set
+# from the first measured run (PERF.md).
+CPU_MIN_MEAN_COS, CPU_MAX_ABS = 0.995, 0.1
 
 
 def fail(msg: str) -> int:
@@ -246,7 +280,7 @@ def check_pe(m_shift, n_nodes, k, check, timed=True):
     bound = max(t_ops, t_bytes) * 1e3
     print(f"pe N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
           f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
-          + versus("pe", n, ms_k, bound), flush=True)
+          + versus("pe", n if k == 32 else None, ms_k, bound), flush=True)
     out.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                shape=f"({g}, {n}, {n}), k={k}")
@@ -300,26 +334,18 @@ def rr_matrices(m_shift, q):
     return 0.5 * (t + t.transpose(1, 2))
 
 
-def where_the_time_goes(state, item, cfg):
-    """Split one routed dispatch: featurize alone (CUDA events), then a
-    profiled dispatch — wall time, device busy time (sum of kernel self
-    times; one stream, so kernels do not overlap) and the kernels that
-    take most of it. Runs after the main path's launch counts are read."""
+def profiled_idle_share(fn, label: str) -> None:
+    """Wall time, kernel launches, device busy time and idle share of
+    fn() under torch.profiler (kernel records only), and its top
+    kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from gcc_tpu_torch.training import featurize_stacked, train_dispatch
-
-    pos = cfg.encoder.positional_embedding_size
-    feat_ms = timed_ms(lambda: featurize_stacked(item[0], item[1], pos,
-                                                 n_max=N_MAX), 3)
-    print(f"featurize of one routed dispatch ({2 * STEPS * BATCH} graphs, "
-          f"N={item[0].n_max}): {feat_ms:.3f} ms (CUDA events)", flush=True)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
-        train_dispatch(state, *item, n_max=N_MAX)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.time() - t0) * 1e3
 
@@ -336,12 +362,336 @@ def where_the_time_goes(state, item, cfg):
                and not e.key.startswith("Optimizer.")]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
-    print(f"profiled routed dispatch: wall {wall_ms:.1f} ms (profiler on), "
+    print(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), "
           f"{launches} kernel launches, device busy {busy_ms:.1f} ms, idle "
           f"share {1 - busy_ms / wall_ms:.3f}", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}",
               flush=True)
+
+
+def where_the_time_goes(state, item, cfg):
+    """Split one routed dispatch: featurize alone (CUDA events), then a
+    profiled dispatch — wall time, device busy time (sum of kernel self
+    times; one stream, so kernels do not overlap) and the kernels that
+    take most of it. Runs after the dispatches' launch counts are read."""
+    from gcc_tpu_torch.training import featurize_stacked, train_dispatch
+
+    pos = cfg.encoder.positional_embedding_size
+    feat_ms = timed_ms(lambda: featurize_stacked(item[0], item[1], pos,
+                                                 n_max=N_MAX), 3)
+    print(f"featurize of one routed dispatch ({2 * STEPS * BATCH} graphs, "
+          f"N={item[0].n_max}): {feat_ms:.3f} ms (CUDA events)", flush=True)
+    profiled_idle_share(lambda: train_dispatch(state, *item, n_max=N_MAX),
+                        "routed dispatch")
+
+
+def random_graphs(seed: int, count: int, lo: int, hi: int):
+    """Seeded connected random graphs (a ring plus 2n chords, symmetric)
+    of lo..hi nodes, as CSR graphs."""
+    import numpy as np
+
+    from gcc_tpu_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    graphs = []
+    for _ in range(count):
+        n = int(rng.integers(lo, hi + 1))
+        ring = np.arange(n)
+        u = np.concatenate([ring, rng.integers(0, n, 2 * n)])
+        v = np.concatenate([(ring + 1) % n, rng.integers(0, n, 2 * n)])
+        keep = u != v
+        graphs.append(CSRGraph.from_edges(u[keep], v[keep], num_nodes=n,
+                                          symmetrize=True))
+    return graphs
+
+
+def community_graph(seed: int, n_comm: int, size: int):
+    """Communities of alternating density joined by sparse links: the
+    structure-derived label task of the repository's end-to-end test, at
+    n_comm * size nodes."""
+    import numpy as np
+
+    from gcc_tpu_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    src, dst = [], []
+    for c in range(n_comm):
+        ring = np.arange(size)
+        extra = 3 * size if c % 2 == 0 else size // 2
+        src += [ring, rng.integers(0, size, extra)]
+        dst += [(ring + 1) % size, rng.integers(0, size, extra)]
+        src[-2:] = [x + c * size for x in src[-2:]]
+        dst[-2:] = [x + c * size for x in dst[-2:]]
+    src.append(rng.integers(0, n_comm * size, 2 * n_comm))
+    dst.append(rng.integers(0, n_comm * size, 2 * n_comm))
+    src, dst = np.concatenate(src), np.concatenate(dst)
+    keep = src != dst
+    return CSRGraph.from_edges(src[keep], dst[keep], num_nodes=n_comm * size,
+                               symmetrize=True)
+
+
+def entire_graph_operator(graphs, n_max, e_max, device):
+    """(m_shift (B, N, N), n_nodes (B,)) of an entire-graph batch, as
+    featurize_batch derives them on the generate path."""
+    import torch
+
+    from gcc_tpu_torch.generate import graph_subgraphs
+    from gcc_tpu_torch.graph.batch import batch_subgraphs
+    from gcc_tpu_torch.ops.aggregate import (
+        build_dense_adjacency,
+        normalized_adjacency,
+        shifted_operator,
+    )
+
+    batch = batch_subgraphs(graph_subgraphs(graphs), n_max=n_max, e_max=e_max)
+    up = lambda x: torch.as_tensor(x).to(device)  # noqa: E731
+    mask = up(batch.node_mask)
+    adj = build_dense_adjacency(up(batch.edges_src), up(batch.edges_dst),
+                                up(batch.edge_weight), len(graphs), n_max)
+    return (shifted_operator(normalized_adjacency(adj, mask), mask),
+            up(batch.n_nodes))
+
+
+def guarded_rr_matrices(m_shift, q):
+    """The two matrices the eval profile hands to the Jacobi kernel per
+    encode call (features/positional.py subspace_topk): the regularized
+    Gram S of the guarded basis, and T = (QW)ᵀ M (QW) of the basis
+    whitened by S's eigenpairs."""
+    import torch
+
+    from gcc_tpu_torch.ops.jacobi import jacobi_eigh
+
+    q = torch.nan_to_num(q, nan=0.0, posinf=0.0, neginf=0.0)
+    s_g = torch.bmm(q.transpose(1, 2), q)
+    s_g = 0.5 * (s_g + s_g.transpose(1, 2))
+    s_g = s_g + 1e-5 * torch.eye(q.shape[2], device=q.device)
+    sv, v = jacobi_eigh(s_g, sweeps=RR_SWEEPS, descending=True)
+    floor = 0.1 * sv[:, :1]
+    w = v * (torch.rsqrt(torch.maximum(sv, floor))
+             * (sv > floor).float())[:, None, :]
+    return s_g, rr_matrices(m_shift, torch.bmm(q, w))
+
+
+@contextlib.contextmanager
+def plain_version_calls():
+    """Count calls of the kernels' plain versions while the block runs
+    (the wrappers look them up in their modules, so wrapping the module
+    attributes sees every call)."""
+    from gcc_tpu_torch.ops import aggregate, jacobi, pe
+
+    targets = ((aggregate, "fused_adjacency_featurize_plain"),
+               (pe, "pe_subspace_iterate_plain"),
+               (jacobi, "jacobi_eigh_plain"))
+    calls = {name: 0 for _, name in targets}
+    originals = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def counting(name, fn):
+        def wrapper(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    for mod, name, fn in originals:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in originals:
+            setattr(mod, name, fn)
+
+
+def counted(ops, fn):
+    """fn() with the launch counters zeroed just before and read just
+    after: (result, launches, plain-version calls, seconds)."""
+    import torch
+
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    with plain_version_calls() as plain:
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+    return out, ops.launch_counts(), dict(plain), dt
+
+
+def serve_path(ops, cfg, corpus_dir, out_dir, check):
+    """pre-train → checkpoint → restore → generate, through the entry
+    points, at full width. Returns {shape key: launches} of the eval
+    shapes of Kernels 2 and 3."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.sampling.pipeline import PipelineConfig
+    from gcc_tpu_torch.training import checkpoint, loop
+    from gcc_tpu_torch.training.pretrain import create_pretrain_state
+
+    # -- run_pretrain: one epoch of 4 routed dispatches, a checkpoint ----
+    dispatches = 4
+    run_cfg = dataclasses.replace(
+        cfg, epochs=1, num_workers=1,
+        num_samples=dispatches * STEPS * BATCH)
+    pcfg = PipelineConfig(batch_size=BATCH, n_max=N_MAX, e_max=E_MAX,
+                          num_samples=run_cfg.num_samples, num_workers=1,
+                          prefetch=4, emit="routed", n_small=N_SMALL)
+    live = {}
+    save = loop.save_checkpoint
+
+    def save_and_keep(path, state, cfg_, step=None):
+        # The live state at the moment the checkpoint is written.
+        live["model"] = copy.deepcopy(state.model.state_dict())
+        live["ema"] = copy.deepcopy(state.ema_model.state_dict())
+        live["queue"] = state.queue.memory.clone()
+        live["step"] = state.step
+        return save(path, state, cfg_, step)
+
+    loop.save_checkpoint = save_and_keep
+    try:
+        summary, launches, plain, dt = counted(ops, lambda: loop.run_pretrain(
+            run_cfg, corpus_dir, out_dir, pcfg, log_fn=lambda s: None,
+            steps_per_call=STEPS))
+    finally:
+        loop.save_checkpoint = save
+    steps = dispatches * STEPS
+    print(f"run_pretrain: {summary['steps']} steps in {dt:.1f} s with "
+          f"pipeline start-up (training wall {summary['wall']:.2f} s, "
+          f"{summary['wall'] / steps * 1e3:.3f} ms/step), avg loss "
+          f"{summary['avg_loss']:.4f}; kernel launches {launches}, "
+          f"plain-version calls {plain}", flush=True)
+    check(summary["steps"] == steps and summary["epoch"] == 1
+          and summary["steps_per_epoch_skipped"] == 0,
+          f"run_pretrain took {summary['steps']} steps in whole dispatches")
+    check(all(c == dispatches for c in launches.values()),
+          f"run_pretrain: one launch of each kernel per dispatch {launches}")
+    check(not any(plain.values()), "run_pretrain: no plain-version call")
+    with open(os.path.join(summary["run_dir"], "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    check(len(lines) == steps and all(math.isfinite(r["loss"]) for r in lines),
+          f"metrics.jsonl: {len(lines)} finite lines")
+
+    # -- checkpoint round trip ------------------------------------------
+    ckpt = os.path.join(summary["run_dir"], "current")
+    cfg2 = checkpoint.load_config(summary["run_dir"])
+    check(cfg2 == run_cfg, "config sidecar restores the configuration")
+    state = checkpoint.load_checkpoint(
+        ckpt, create_pretrain_state(cfg2, steps, seed=123, device="cuda"))
+    same = (all(torch.equal(v, live["model"][k])
+                for k, v in state.model.state_dict().items())
+            and all(torch.equal(v, live["ema"][k])
+                    for k, v in state.ema_model.state_dict().items())
+            and torch.equal(state.queue.memory, live["queue"]))
+    check(same and state.step == live["step"] == steps,
+          "restored encoders and queue equal the live ones bit for bit")
+
+    # -- generate: node embeddings, two RWR views ------------------------
+    g = community_graph(0, 32, COMMUNITY_NODES // 32)
+    t0 = time.time()
+    subs, subs_k = generate.node_subgraphs(g, cfg2, GEN_N_MAX, GEN_E_MAX,
+                                           two_views=True)
+    sizes = np.array([s.num_nodes for s in subs + subs_k])
+    print(f"node_subgraphs: 2 x {len(subs)} RWR views in "
+          f"{time.time() - t0:.1f} s; nodes mean {sizes.mean():.1f}, max "
+          f"{sizes.max()}", flush=True)
+    gen = dict(n_max=GEN_N_MAX, e_max=GEN_E_MAX, batch_size=GEN_BATCH)
+    generate.generate_embeddings(cfg2, state, subs[:GEN_BATCH], **gen)  # warm
+    emb, launches, plain, dt = counted(ops, lambda: generate.generate_embeddings(
+        cfg2, state, subs, subgraphs_k=subs_k, **gen))
+    calls = 2 * len(subs) // GEN_BATCH
+    print(f"generate_embeddings: {len(subs)} nodes, {calls} encode calls of "
+          f"{GEN_BATCH} graphs at N={GEN_N_MAX} in {dt * 1e3:.1f} ms: "
+          f"{dt * 1e3 / calls:.3f} ms per encode call, {len(subs) / dt:.1f} "
+          f"embeddings/s (two views each; host clock, synchronized); kernel "
+          f"launches {launches}, plain-version calls {plain}", flush=True)
+    check(emb.shape == (g.num_nodes, cfg2.encoder.output_size)
+          and bool(np.isfinite(emb).all()),
+          f"node embeddings {emb.shape} finite")
+    check(launches == {"featurize": 0, "pe": calls, "jacobi": 2 * calls},
+          f"generate: Kernel 2 once and Kernel 3 twice per encode call "
+          f"{launches}")
+    check(not any(plain.values()), "generate: no plain-version call")
+    eval_launches = {("pe", GEN_N_MAX): launches["pe"],
+                     ("jacobi", GEN_BATCH): launches["jacobi"]}
+
+    # The same call on the CPU (the plain versions), first 64 nodes.
+    t0 = time.time()
+    ref = generate.generate_embeddings(
+        cfg2, state, subs[:GEN_BATCH], subgraphs_k=subs_k[:GEN_BATCH],
+        device="cpu", **gen)
+    got = emb[:GEN_BATCH]
+    cos = (got * ref).sum(-1) / (np.linalg.norm(got, axis=-1)
+                                 * np.linalg.norm(ref, axis=-1))
+    max_abs = float(np.abs(got - ref).max())
+    print(f"card vs CPU, first {GEN_BATCH} node embeddings: max abs "
+          f"{max_abs:.4g}, cosine mean {cos.mean():.6f} min {cos.min():.6f} "
+          f"({time.time() - t0:.1f} s on the CPU)", flush=True)
+    check(cos.mean() >= CPU_MIN_MEAN_COS and max_abs <= CPU_MAX_ABS,
+          f"card vs CPU: mean cosine {cos.mean():.4f} >= {CPU_MIN_MEAN_COS}, "
+          f"max abs {max_abs:.3g} <= {CPU_MAX_ABS}")
+
+    # -- generate: graph embeddings, both readouts -----------------------
+    graphs = random_graphs(1, 256, 100, 500)
+    for readout, width in (("score", cfg2.encoder.output_size),
+                           ("composite", cfg2.encoder.node_input_dim
+                            + (cfg2.encoder.num_layers - 1)
+                            * cfg2.encoder.hidden_size)):
+        gemb, launches, plain, dt = counted(
+            ops, lambda: generate.generate_graph_embeddings(
+                cfg2, state, graphs, readout=readout, **gen))
+        calls = len(graphs) // GEN_BATCH
+        print(f"generate_graph_embeddings readout={readout}: {gemb.shape} in "
+              f"{dt * 1e3:.1f} ms ({dt * 1e3 / calls:.3f} ms per encode "
+              f"call); kernel launches {launches}", flush=True)
+        check(gemb.shape == (len(graphs), width)
+              and bool(np.isfinite(gemb).all()),
+              f"graph embeddings ({readout}) {gemb.shape} finite")
+        check(launches == {"featurize": 0, "pe": calls, "jacobi": 2 * calls}
+              and not any(plain.values()),
+              f"graph embeddings ({readout}): launches {launches}, no "
+              "plain-version call")
+        eval_launches[("pe", GEN_N_MAX)] += launches["pe"]
+        eval_launches[("jacobi", GEN_BATCH)] += launches["jacobi"]
+
+    # -- the other eval shapes, through the entry points -----------------
+    small = [s for s in subs if s.num_nodes <= N_MAX][:512]
+    check(len(small) == 512, f"512 RWR views fit the {N_MAX} bucket")
+    ro, launches, plain, dt = counted(
+        ops, lambda: generate.generate_subgraph_readouts(
+            cfg2, state, small, n_max=N_MAX, e_max=GEN_E_MAX,
+            batch_size=128))
+    check(ro["score"].shape == (len(small), cfg2.encoder.output_size)
+          and bool(np.isfinite(ro["score"]).all())
+          and launches == {"featurize": 0, "pe": 4, "jacobi": 8}
+          and not any(plain.values()),
+          f"readouts at (128, {N_MAX}): finite, launches {launches}")
+    eval_launches[("pe", f"{N_MAX}k{K_EVAL}")] = launches["pe"]
+    eval_launches[("jacobi", 128)] = launches["jacobi"]
+    big = random_graphs(2, GEN_BATCH, 520, 832)
+    gemb, launches, plain, dt = counted(
+        ops, lambda: generate.generate_graph_embeddings(
+            cfg2, state, big, n_max=832, e_max=GEN_E_MAX,
+            batch_size=GEN_BATCH))
+    print(f"generate_graph_embeddings at n_max=832: {gemb.shape} in "
+          f"{dt * 1e3:.1f} ms; kernel launches {launches}", flush=True)
+    check(bool(np.isfinite(gemb).all())
+          and launches == {"featurize": 0, "pe": 1, "jacobi": 2}
+          and not any(plain.values()),
+          f"graph embeddings at n_max=832: finite, launches {launches}")
+    eval_launches[("pe", 832)] = launches["pe"]
+    eval_launches[("jacobi", GEN_BATCH)] += launches["jacobi"]
+    try:
+        generate.generate_graph_embeddings(cfg2, state, big, **gen)
+        refused = False
+    except NotImplementedError:
+        refused = True
+    check(refused, "graphs beyond n_max raise NotImplementedError")
+
+    profiled_idle_share(lambda: generate.generate_embeddings(
+        cfg2, state, subs[:8 * GEN_BATCH], **gen), "stretch of 8 encode calls")
+    return eval_launches
 
 
 def main() -> int:
@@ -404,11 +754,12 @@ def main() -> int:
     print(f"built {sorted(libs)} + sampler in {time.time() - t0:.1f} s",
           flush=True)
 
-    # --- corpus and wire batches from the port's pipeline ---------------
     cfg = TrainConfig(batch_size=BATCH, sampler=SamplerConfig(rw_hops=RW_HOPS),
                       contrast=ContrastConfig(moco=True, nce_k=NCE_K))
     os.makedirs(BUILD_DIR, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as corpus_dir:
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        # --- corpus and wire batches from the port's pipeline -----------
+        corpus_dir = os.path.join(work, "corpus")
         t0 = time.time()
         store = synthetic_corpus(corpus_dir, num_graphs=6,
                                  nodes_per_graph=100_000, avg_degree=12,
@@ -419,15 +770,15 @@ def main() -> int:
         small_items, large_items, seen = [], [], 0
         with PretrainPipeline(store, cfg.sampler, PipelineConfig(
                 emit="routed", **base), seed=0) as routed:
-            while ((len(large_items) < 2 or len(small_items) < 4)
+            while ((len(large_items) < 2 or len(small_items) < 2)
                    and seen < MAX_ROUTED_ITEMS):
                 item = next(routed)
                 seen += 1
                 if item[0].n_max == N_MAX:
                     large_items.append(item)
-                elif len(small_items) < 4:
+                elif len(small_items) < 2:
                     small_items.append(item)
-        if len(large_items) < 2 or len(small_items) < 4:
+        if len(large_items) < 2 or len(small_items) < 2:
             return fail(f"{seen} routed dispatches held {len(small_items)} "
                         f"of bucket {N_SMALL} and {len(large_items)} of "
                         f"bucket {N_MAX}")
@@ -443,72 +794,93 @@ def main() -> int:
                   f"query graph mean {item[0].meta[:, 1, :].mean():.1f}",
                   flush=True)
 
-    # --- kernels vs plain versions at production shapes -----------------
-    results = {}
-    k_pos = cfg.encoder.positional_embedding_size
-    for name_n, item in ((N_SMALL, small_items[0]), (N_MAX, large_items[0])):
-        edges, meta = wire_segments(item, dev)
-        feat, (adj, m_shift, deg) = check_featurize(edges, meta, name_n,
-                                                    check)
-        results[("featurize", name_n)] = feat
-        n_nodes = meta[:, 0, :].reshape(-1)
-        pe_res, q = check_pe(m_shift, n_nodes, k_pos, check)
-        results[("pe", name_n)] = pe_res
-        if name_n == N_SMALL:
-            results[("jacobi", k_pos)] = check_jacobi(
-                rr_matrices(m_shift, q), check)
-            # A batch that is no multiple of the SM count or of the
-            # Jacobi kernel's four warps per block.
-            _, q_odd = check_pe(m_shift[:ODD_BATCH], n_nodes[:ODD_BATCH],
-                                k_pos, check, timed=False)
-            check_jacobi(rr_matrices(m_shift[:ODD_BATCH], q_odd), check,
-                         timed=False)
-        else:
-            # The widest block (48) at the largest N: the most shared
-            # memory Kernel 2 asks for, and Kernel 3's block kernel.
-            _, q48 = check_pe(m_shift, n_nodes, 48, check, timed=False)
-            check_jacobi(rr_matrices(m_shift, q48), check, timed=False)
-        del adj, m_shift, deg, q
+        # --- kernels vs plain versions at the training shapes -----------
+        results = {}
+        k_pos = cfg.encoder.positional_embedding_size
+        for name_n, item in ((N_SMALL, small_items[0]),
+                             (N_MAX, large_items[0])):
+            edges, meta = wire_segments(item, dev)
+            feat, (adj, m_shift, deg) = check_featurize(edges, meta, name_n,
+                                                        check)
+            results[("featurize", name_n)] = feat
+            n_nodes = meta[:, 0, :].reshape(-1)
+            pe_res, q = check_pe(m_shift, n_nodes, k_pos, check)
+            results[("pe", name_n)] = pe_res
+            if name_n == N_SMALL:
+                results[("jacobi", k_pos)] = check_jacobi(
+                    rr_matrices(m_shift, q), check)
+                # A batch that is no multiple of the SM count or of the
+                # Jacobi kernel's four warps per block.
+                _, q_odd = check_pe(m_shift[:ODD_BATCH], n_nodes[:ODD_BATCH],
+                                    k_pos, check, timed=False)
+                check_jacobi(rr_matrices(m_shift[:ODD_BATCH], q_odd), check,
+                             timed=False)
+            else:
+                # The widest block (48) at the largest N of the shared
+                # plan: the most shared memory Kernel 2 asks for, and
+                # Kernel 3's block kernel.
+                _, q48 = check_pe(m_shift, n_nodes, K_EVAL, check,
+                                  timed=False)
+                check_jacobi(rr_matrices(m_shift, q48), check, timed=False)
+            del adj, m_shift, deg, q
+            torch.cuda.empty_cache()
+
+        # --- kernels vs plain versions at the eval shapes ---------------
+        for key, jkey, count, lo, hi, n_max in (
+                (GEN_N_MAX, GEN_BATCH, GEN_BATCH, 260, 512, GEN_N_MAX),
+                (f"{N_MAX}k{K_EVAL}", 128, 128, 100, 256, N_MAX),
+                (832, None, GEN_BATCH, 520, 832, 832)):
+            m_shift, n_nodes = entire_graph_operator(
+                random_graphs(n_max, count, lo, hi), n_max, GEN_E_MAX, dev)
+            print(f"eval bucket {n_max}: {count} graphs, nodes mean "
+                  f"{n_nodes.float().mean().item():.1f}", flush=True)
+            results[("pe", key)], q = check_pe(m_shift, n_nodes, K_EVAL,
+                                               check)
+            s_g, t_rr = guarded_rr_matrices(m_shift, q)
+            check_jacobi(s_g, check, timed=False)
+            res = check_jacobi(t_rr, check, timed=jkey is not None)
+            if jkey is not None:
+                results[("jacobi", jkey)] = res
+            del m_shift, q, s_g, t_rr
+            torch.cuda.empty_cache()
+
+        # --- training path ----------------------------------------------
+        state = create_pretrain_state(cfg, total_steps=100_000, seed=0,
+                                      device="cuda")
+        n_conv = cfg.encoder.num_layers - 1
+        idx0 = int(state.queue.index)
+        train_launches = {}
+        for n_bucket, item in ((N_SMALL, small_items[1]),
+                               (N_MAX, large_items[1])):
+            metrics, launches, plain, dt = counted(
+                ops, lambda: train_dispatch(state, *item, n_max=N_MAX))
+            train_launches[n_bucket] = launches
+            msgs = (int(item[0].meta[:, 1, :].sum())
+                    + int(item[1].meta[:, 1, :].sum())) * n_conv
+            loss = metrics["loss"].cpu()
+            print(f"dispatch routed {n_bucket}: {STEPS} steps in "
+                  f"{dt * 1e3:.1f} ms ({dt * 1e3 / STEPS:.3f} ms/step), "
+                  f"{msgs / dt:.4g} edge-messages/s, loss first "
+                  f"{loss[0].item():.4f} last {loss[-1].item():.4f}, "
+                  f"grad_norm last {metrics['grad_norm'][-1].item():.4f}; "
+                  f"kernel launches {launches}", flush=True)
+            check(bool(torch.isfinite(loss).all()),
+                  f"routed {n_bucket}: loss finite")
+            check(all(c == 1 for c in launches.values())
+                  and not any(plain.values()),
+                  f"routed {n_bucket}: every kernel launched once "
+                  f"{launches}, no plain-version call")
+        advanced = (int(state.queue.index) - idx0) % NCE_K
+        check(advanced == (2 * STEPS * BATCH) % NCE_K,
+              f"queue advanced by {advanced}")
+        check(state.step == 2 * STEPS, f"{state.step} optimizer steps")
+        where_the_time_goes(state, small_items[-1], cfg)
+        del state
         torch.cuda.empty_cache()
 
-    # --- main path ------------------------------------------------------
-    state = create_pretrain_state(cfg, total_steps=100_000, seed=0,
-                                  device="cuda")
-    n_conv = cfg.encoder.num_layers - 1
-    ops.reset_launch_counts()
-    idx0 = int(state.queue.index)
-    runs = []
-    for label, item in ([("routed 128", it) for it in small_items[1:]]
-                        + [("routed 256", large_items[1])]):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        metrics = train_dispatch(state, *item, n_max=N_MAX)
-        torch.cuda.synchronize()
-        dt = time.time() - t0
-        msgs = (int(item[0].meta[:, 1, :].sum()) + int(item[1].meta[:, 1, :]
-                                                        .sum())) * n_conv
-        loss = metrics["loss"].cpu()
-        runs.append((label, dt, msgs, loss))
-        print(f"dispatch {label}: {STEPS} steps in {dt * 1e3:.1f} ms "
-              f"({dt * 1e3 / STEPS:.3f} ms/step), {msgs / dt:.4g} "
-              f"edge-messages/s, loss first {loss[0].item():.4f} last "
-              f"{loss[-1].item():.4f}, grad_norm last "
-              f"{metrics['grad_norm'][-1].item():.4f}", flush=True)
-        check(bool(torch.isfinite(loss).all()), f"{label}: loss finite")
-    counts = ops.launch_counts()
-    print(f"main-path kernel launches: {counts}", flush=True)
-    advanced = (int(state.queue.index) - idx0) % NCE_K
-    check(advanced == (len(runs) * STEPS * BATCH) % NCE_K,
-          f"queue advanced by {advanced}")
-    check(state.step == len(runs) * STEPS, f"{state.step} optimizer steps")
-    for name, c in counts.items():
-        check(c > 0, f"kernel {name} launched on the main path ({c})")
-    warm = [r for r in runs[1:] if r[0] == "routed 128"]
-    steady_s = sum(r[1] for r in warm)
-    print(f"routed steady state: {steady_s / (len(warm) * STEPS) * 1e3:.3f} "
-          f"ms/step, {sum(r[2] for r in warm) / steady_s:.4g} "
-          f"edge-messages/s (host clock, synchronized)", flush=True)
-    where_the_time_goes(state, small_items[-1], cfg)
+        # --- serve path ------------------------------------------------
+        eval_launches = serve_path(ops, cfg, corpus_dir,
+                                   os.path.join(work, "out"), check)
 
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),
@@ -516,25 +888,35 @@ def main() -> int:
                       "gcc_tpu/ops/pe_pallas.py:141"),
                "jacobi": ("gcc_tpu_torch/csrc/jacobi.cu",
                           "gcc_tpu/ops/jacobi_pallas.py:189")}
+    # One entry per kernel and shape. launches: of the stretch that runs
+    # that shape — the routed dispatch of its bucket for the training
+    # shapes, the generate calls of its bucket for the eval shapes.
+    rows = [("featurize", N_SMALL, "train", train_launches[N_SMALL]),
+            ("featurize", N_MAX, "train", train_launches[N_MAX]),
+            ("pe", N_SMALL, "train", train_launches[N_SMALL]),
+            ("pe", N_MAX, "train", train_launches[N_MAX]),
+            ("jacobi", k_pos, "train", {"jacobi": sum(
+                c["jacobi"] for c in train_launches.values())})]
+    rows += [(name, key, "serve", {name: n})
+             for (name, key), n in eval_launches.items()]
     kernels = []
-    for name, key, extra in (("featurize", N_SMALL, N_MAX),
-                             ("pe", N_SMALL, N_MAX), ("jacobi", k_pos, None)):
-        r = dict(results[(name, key)])
-        entry = {"name": name, "route": "cuda", "source": sources[name][0],
-                 "replaces": sources[name][1], "launches": counts[name],
-                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                 "bound_by": r["bound_by"],
-                 "library_ms": r.get("library_ms"), "shape": r["shape"],
-                 "pass": not any(f.startswith(name) for f in check.failed)}
-        if extra is not None:
-            e = results[(name, extra)]
-            entry[f"n{extra}"] = {k: e[k] for k in (
-                "ms", "plain_ms", "bound_ms", "max_abs_err", "shape")}
-        kernels.append(entry)
+    for name, key, path, launches in rows:
+        r = results[(name, key)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name][0],
+            "replaces": sources[name][1], "launches": launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": r["shape"], "path": path,
+            "pass": not any(f.startswith(name) for f in check.failed)})
     for e in kernels:
+        check(e["launches"] > 0,
+              f"kernel {e['name']} {e['shape']} launched on the {e['path']} "
+              f"path ({e['launches']})")
         for k in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
-            check(math.isfinite(e[k]), f"{e['name']}: {k} measured")
+            check(math.isfinite(e[k]), f"{e['name']} {e['shape']}: {k} "
+                  "measured")
     if check.failed:
         return fail(f"{len(check.failed)} check(s) failed: {check.failed}")
     print(f"total {time.time() - t_start:.1f} s", flush=True)

@@ -1,4 +1,8 @@
-from gcc_tpu_torch.contrastive.losses import nce_softmax_loss
+from gcc_tpu_torch.contrastive.losses import (
+    e2e_logits,
+    legacy_nce_probs,
+    nce_softmax_loss,
+)
 from gcc_tpu_torch.contrastive.moco import (
     MoCoQueue,
     enqueue,
@@ -6,5 +10,5 @@ from gcc_tpu_torch.contrastive.moco import (
     moco_logits,
 )
 
-__all__ = ["MoCoQueue", "enqueue", "init_queue", "moco_logits",
-           "nce_softmax_loss"]
+__all__ = ["MoCoQueue", "e2e_logits", "enqueue", "init_queue",
+           "legacy_nce_probs", "moco_logits", "nce_softmax_loss"]

@@ -66,6 +66,12 @@
 //     so this is row a's sum.
 // The launch plan (threads, shared-memory bytes, splits) is computed by
 // pe_plan below and mirrored by pe_launch_plan in ops/pe.py.
+//
+// Above N = 256 the bf16 copy of M no longer fits a block's shared memory
+// (532 KB at N = 512). Those shapes, 256 < N <= 832, take the STREAMED
+// plan at the end of this file (pe_big_kernel): the same steps in the same
+// order, M streamed from device memory for every power step and Q^T kept
+// in a device scratch that stays in the L2 cache.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -349,8 +355,8 @@ __device__ __forceinline__ void gram_lo(Ctx<KT>& x) {
 }
 
 // scal[0] = 1 / sqrt(max_a sum_b |G_ab|), floor 1e-20.
-template <int KT>
-__device__ __forceinline__ void gershgorin(Ctx<KT>& x) {
+template <class X>
+__device__ __forceinline__ void gershgorin(X& x) {
   if (x.warp == 0) {
     float best = 0.f;
     for (int a = x.lane; a < x.kp; a += 32) {
@@ -817,39 +823,461 @@ int launch(const Plan& p, const void* m, const void* q0, void* out, int batch,
                                ns_steps, polish, final_ns, lo, stream);
 }
 
+// ---- the streamed plan: 256 < N <= 832 ---------------------------------
+//
+// One block of 512 threads per graph. Nothing of size N^2 or k*N lives in
+// shared memory:
+//   * Q^T (kp, N) f32 lives in a device scratch, two buffers per graph
+//     (every step reads one and writes the other; 160 KB each at k = 48,
+//     N = 832, so a batch of 64 stays in the L2 cache). Threads of the
+//     block see each other's writes to it after __syncthreads().
+//   * M streams from device memory once per power step, in chunks of 32
+//     rows x 256 columns that are staged through shared memory beside the
+//     matching 32 columns of Q^T; the next chunk's loads are in flight in
+//     registers while the block multiplies the current one.
+//   * Every product runs on the CUDA cores in f32. For the rounds both
+//     operands are rounded to bf16 where they are staged or loaded; a
+//     product of two bf16 values is exact in f32, so the f32 FMAs give the
+//     bf16-input, f32-sum product of the plain version. M is read as
+//     M[j][c], as above.
+//   * A thread owns 4 columns x kp/8 rows of the output (rows tr + 8i), a
+//     pass covers 256 columns, and the Gram is 4x4 tiles of the upper
+//     triangle, one warp a tile with the lanes along the depth, summed by
+//     shuffle and mirrored (so G is symmetric bit for bit).
+//   * Work follows the data here too: the block finds the extent of the
+//     non-zeros of M and Q^T, rounds it up to 32, and runs every loop over
+//     the live rows and columns only.
+// This plan is bound by the CUDA cores' f32 rate and by one block per
+// graph (a batch of 64 fills half the card); it is the simple version.
+
+constexpr int kBigThreads = 512;
+constexpr int kBigWarps = kBigThreads / 32;
+constexpr int kBigCols = 256;             // columns a pass covers: 64 x 4
+constexpr int kBigDepth = 32;             // rows of M in a staged chunk
+constexpr int kBigLda = kBigDepth + 4;    // row stride of the staged Q^T
+
+struct BigPlan {
+  int n, k, kp, kt;
+  int off_a, off_b, off_gram, off_red;   // bytes
+  int smem;
+};
+
+// Shapes: n a multiple of 32 in (256, 832], 1 <= k <= 48.
+inline bool pe_big_plan(int n, int k, BigPlan* p) {
+  if (n <= 256 || n > 832 || n % 32 != 0 || k < 1 || k > 48) return false;
+  p->n = n; p->k = k;
+  p->kp = (k + 15) / 16 * 16;
+  p->kt = p->kp / 16;
+  int off = 0;
+  p->off_a = off;    off += p->kp * kBigLda * 4;
+  p->off_b = off;    off += kBigDepth * kBigCols * 4;
+  p->off_gram = off; off += p->kp * p->kp * 4;
+  p->off_red = off;  off += p->kp * 4 + 16;
+  p->smem = off;
+  return true;
+}
+
+template <bool LO>
+__device__ __forceinline__ float rnd(float v) {
+  return LO ? __bfloat162float(__float2bfloat16_rn(v)) : v;
+}
+
+template <bool LO>
+__device__ __forceinline__ float4 rnd4(float4 v) {
+  return make_float4(rnd<LO>(v.x), rnd<LO>(v.y), rnd<LO>(v.z), rnd<LO>(v.w));
+}
+
+template <int KT>
+struct Big {
+  static constexpr int kp = 16 * KT;
+  int n;            // padded nodes
+  int ne;           // live nodes, a multiple of 32
+  float* qa;        // device scratch (kp, n): the current Q^T
+  float* qb;        // the buffer the next step writes
+  const float* mg;  // device memory (n, n), f32
+  float* as;        // (kp, kBigLda) staged columns of Q^T
+  float* bs;        // (kBigDepth, kBigCols) staged rows of M
+  float* gram;      // (kp, kp)
+  float* red;       // (kp)
+  float* scal;      // (1)
+  int tid, warp, lane;
+};
+
+// Q^T <- lo(Q^T) lo(M), or the f32 product when LO is false.
+template <int KT, bool LO>
+__device__ void big_power(Big<KT>& x) {
+  constexpr int R = 2 * KT;
+  const int n = x.n, ne = x.ne;
+  const int tc = x.tid & 63, tr = x.tid >> 6;
+  const int chunks = ne / kBigDepth;
+  for (int c0 = 0; c0 < ne; c0 += kBigCols) {
+    const int col = c0 + 4 * tc;
+    const bool live = col < ne;
+    float acc[R][4];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+    float a_reg[KT];
+    float4 b_reg[4];
+    // Chunk ch into registers: 32 columns of Q^T (kp x 32 values, KT a
+    // thread) and 32 rows x 256 columns of M (four float4 a thread).
+    auto fetch = [&](int ch) {
+      const int j0 = ch * kBigDepth;
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int idx = x.tid + t * kBigThreads;
+        a_reg[t] = x.qa[(idx >> 5) * n + j0 + (idx & 31)];
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int idx = x.tid + t * kBigThreads;
+        const int row = idx >> 6, cc = c0 + 4 * (idx & 63);
+        b_reg[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (cc < ne)
+          b_reg[t] = *reinterpret_cast<const float4*>(
+              x.mg + (size_t)(j0 + row) * n + cc);
+      }
+    };
+    fetch(0);
+    for (int ch = 0; ch < chunks; ++ch) {
+#pragma unroll
+      for (int t = 0; t < KT; ++t) {
+        const int idx = x.tid + t * kBigThreads;
+        x.as[(idx >> 5) * kBigLda + (idx & 31)] = rnd<LO>(a_reg[t]);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int idx = x.tid + t * kBigThreads;
+        *reinterpret_cast<float4*>(
+            x.bs + (idx >> 6) * kBigCols + 4 * (idx & 63)) =
+            rnd4<LO>(b_reg[t]);
+      }
+      __syncthreads();
+      if (ch + 1 < chunks) fetch(ch + 1);
+      if (live) {
+#pragma unroll 2
+        for (int j = 0; j < kBigDepth; j += 4) {
+          float4 mv[4];
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            mv[u] = *reinterpret_cast<const float4*>(
+                x.bs + (j + u) * kBigCols + 4 * tc);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            const float4 q = *reinterpret_cast<const float4*>(
+                x.as + (tr + 8 * i) * kBigLda + j);
+            fma_1x4x4(acc[i], q, mv);
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (live) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        *reinterpret_cast<float4*>(x.qb + (tr + 8 * i) * n + col) =
+            make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    }
+  }
+  __syncthreads();
+  float* other = x.qa; x.qa = x.qb; x.qb = other;
+}
+
+// Rows of Q^T scaled to unit norm (floor 1e-20), in place.
+template <int KT>
+__device__ void big_colunit(Big<KT>& x) {
+  constexpr int kp = 16 * KT;
+  const int n = x.n, ne4 = x.ne / 4;
+  for (int r = x.warp; r < kp; r += kBigWarps) {
+    float s = 0.f;
+    for (int c = x.lane; c < ne4; c += 32) {
+      const float4 v = *reinterpret_cast<const float4*>(x.qa + r * n + 4 * c);
+      s = fmaf(v.x, v.x, s);
+      s = fmaf(v.y, v.y, s);
+      s = fmaf(v.z, v.z, s);
+      s = fmaf(v.w, v.w, s);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn(s), 1e-20f);
+  }
+  __syncthreads();
+  for (int idx = x.tid; idx < kp * ne4; idx += kBigThreads) {
+    const int r = idx / ne4, c = idx - r * ne4;
+    float4* p = reinterpret_cast<float4*>(x.qa + r * n + 4 * c);
+    const float d = x.red[r];
+    float4 q = *p;
+    q.x = __fdiv_rn(q.x, d);
+    q.y = __fdiv_rn(q.y, d);
+    q.z = __fdiv_rn(q.z, d);
+    q.w = __fdiv_rn(q.w, d);
+    *p = q;
+  }
+  __syncthreads();
+}
+
+// G = lo(Q^T) lo(Q^T)^T (f32 when LO is false) into x.gram; with
+// `rounded` the stored values are lo(G), which is all the NS update reads.
+template <int KT, bool LO>
+__device__ void big_gram(Big<KT>& x, bool rounded) {
+  constexpr int kp = 16 * KT, kq = kp / 4, tiles = kq * (kq + 1) / 2;
+  const int n = x.n, ne4 = x.ne / 4;
+  for (int tile = x.warp; tile < tiles; tile += kBigWarps) {
+    int ta = 0, tb = tile;
+    while (tb >= kq - ta) { tb -= kq - ta; ++ta; }
+    tb += ta;
+    float acc[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int d = x.lane; d < ne4; d += 32) {
+      float4 av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        av[i] = rnd4<LO>(*reinterpret_cast<const float4*>(
+            x.qa + (ta + kq * i) * n + 4 * d));
+        bv[i] = rnd4<LO>(*reinterpret_cast<const float4*>(
+            x.qa + (tb + kq * i) * n + 4 * d));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          acc[i][j] = fmaf(av[i].x, bv[j].x, acc[i][j]);
+          acc[i][j] = fmaf(av[i].y, bv[j].y, acc[i][j]);
+          acc[i][j] = fmaf(av[i].z, bv[j].z, acc[i][j]);
+          acc[i][j] = fmaf(av[i].w, bv[j].w, acc[i][j]);
+        }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float v = acc[i][j];
+        for (int off = 16; off > 0; off >>= 1)
+          v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (x.lane == 4 * i + j) {   // every lane holds the sum
+          if (rounded) v = rnd<LO>(v);
+          const int a = ta + kq * i, b = tb + kq * j;
+          x.gram[a * kp + b] = v;
+          if (ta != tb) x.gram[b * kp + a] = v;
+        }
+      }
+  }
+  __syncthreads();
+}
+
+// Newton-Schulz on Q^T in the scratch: bf16-input products when LO.
+template <int KT, bool LO>
+__device__ void big_ns(Big<KT>& x, int steps) {
+  constexpr int R = 2 * KT, kp = 16 * KT;
+  const int n = x.n, ne = x.ne, ne4 = ne / 4;
+  const int tc = x.tid & 63, tr = x.tid >> 6;
+  big_colunit(x);
+  big_gram<KT, LO>(x, false);
+  gershgorin(x);
+  const float sc = x.scal[0];
+  const float sc2 = __fmul_rn(sc, sc);
+  for (int idx = x.tid; idx < kp * ne4; idx += kBigThreads) {
+    const int r = idx / ne4, c = idx - r * ne4;
+    float4* p = reinterpret_cast<float4*>(x.qa + r * n + 4 * c);
+    float4 q = *p;
+    q.x = __fmul_rn(q.x, sc);
+    q.y = __fmul_rn(q.y, sc);
+    q.z = __fmul_rn(q.z, sc);
+    q.w = __fmul_rn(q.w, sc);
+    *p = q;
+  }
+  for (int idx = x.tid; idx < kp * kp; idx += kBigThreads)
+    x.gram[idx] = rnd<LO>(__fmul_rn(x.gram[idx], sc2));
+  __syncthreads();
+  for (int it = 0; it < steps; ++it) {
+    if (it) big_gram<KT, LO>(x, true);
+    for (int c0 = 0; c0 < ne; c0 += kBigCols) {
+      const int col = c0 + 4 * tc;
+      if (col >= ne) continue;
+      float acc[R][4];
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+#pragma unroll 2
+      for (int b = 0; b < kp; b += 4) {
+        float4 qv[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          qv[u] = rnd4<LO>(*reinterpret_cast<const float4*>(
+              x.qa + (b + u) * n + col));
+#pragma unroll
+        for (int i = 0; i < R; ++i) {
+          const float4 g = *reinterpret_cast<const float4*>(
+              x.gram + (tr + 8 * i) * kp + b);
+          fma_1x4x4(acc[i], g, qv);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int at = (tr + 8 * i) * n + col;
+        float4 q = *reinterpret_cast<const float4*>(x.qa + at);
+        q.x = __fsub_rn(__fmul_rn(1.5f, q.x), __fmul_rn(0.5f, acc[i][0]));
+        q.y = __fsub_rn(__fmul_rn(1.5f, q.y), __fmul_rn(0.5f, acc[i][1]));
+        q.z = __fsub_rn(__fmul_rn(1.5f, q.z), __fmul_rn(0.5f, acc[i][2]));
+        q.w = __fsub_rn(__fmul_rn(1.5f, q.w), __fmul_rn(0.5f, acc[i][3]));
+        *reinterpret_cast<float4*>(x.qb + at) = q;
+      }
+    }
+    __syncthreads();
+    float* other = x.qa; x.qa = x.qb; x.qb = other;
+  }
+}
+
+template <int KT>
+__global__ void __launch_bounds__(kBigThreads, 1)
+pe_big_kernel(const float* __restrict__ m,    // (B, n, n)
+              const float* __restrict__ q0,   // (B, n, k)
+              float* __restrict__ out,        // (B, n, k)
+              float* scratch,                 // (B, 2, kp, n)
+              BigPlan p, int rounds, int orth_every, int ns_steps, int polish,
+              int final_ns, int lo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int kp = 16 * KT;
+  const int n = p.n, k = p.k;
+  Big<KT> x;
+  x.n = n; x.ne = n;
+  x.qa = scratch + (size_t)blockIdx.x * 2 * kp * n;
+  x.qb = x.qa + kp * n;
+  x.mg = m + (size_t)blockIdx.x * n * n;
+  x.as = reinterpret_cast<float*>(smem_raw + p.off_a);
+  x.bs = reinterpret_cast<float*>(smem_raw + p.off_b);
+  x.gram = reinterpret_cast<float*>(smem_raw + p.off_gram);
+  x.red = reinterpret_cast<float*>(smem_raw + p.off_red);
+  x.scal = x.red + kp;
+  x.tid = threadIdx.x; x.warp = threadIdx.x >> 5; x.lane = threadIdx.x & 31;
+  const float* qg = q0 + (size_t)blockIdx.x * n * k;
+
+  // extent: 1 + the last row or column of M or Q^T with a non-zero.
+  int* extent = reinterpret_cast<int*>(x.scal + 1);
+  if (x.tid == 0) *extent = 0;
+  __syncthreads();
+  int ext = 0;
+  const int nq = n / 4;
+  for (int idx = x.tid; idx < n * nq; idx += kBigThreads) {
+    const int j = idx / nq, c4 = idx - j * nq;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x.mg) + idx);
+    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+      ext = max(ext, max(j + 1, 4 * c4 + 4));
+  }
+  // Q^T from q0 (rows >= k stay zero); the other buffer starts as zeros,
+  // so the columns past the extent, which no step writes, read as zero
+  // from whichever buffer holds the result.
+  for (int idx = x.tid; idx < kp * n; idx += kBigThreads) {
+    const int r = idx / n, c = idx - r * n;
+    const float v = (r < k) ? qg[c * k + r] : 0.f;
+    if (v != 0.f) ext = max(ext, c + 1);
+    x.qa[idx] = v;
+    x.qb[idx] = 0.f;
+  }
+  ext = __reduce_max_sync(0xffffffffu, ext);
+  if (x.lane == 0) atomicMax(extent, ext);
+  __syncthreads();
+  x.ne = min(n, max(32, (*extent + 31) / 32 * 32));
+
+  for (int r = 0; r < rounds; ++r) {
+    for (int s = 0; s < orth_every; ++s) {
+      if (lo) big_power<KT, true>(x);
+      else big_power<KT, false>(x);
+    }
+    if (lo) big_ns<KT, true>(x, ns_steps);
+    else big_ns<KT, false>(x, ns_steps);
+  }
+  for (int s = 0; s < polish; ++s) {
+    big_power<KT, false>(x);
+    big_colunit(x);
+  }
+  if (final_ns) big_ns<KT, false>(x, final_ns);
+
+  float* ob = out + (size_t)blockIdx.x * n * k;
+  for (int idx = x.tid; idx < n * k; idx += kBigThreads) {
+    const int c = idx / k, r = idx - c * k;
+    ob[idx] = x.qa[r * n + c];
+  }
+}
+
+template <int KT>
+int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
+               void* scratch, int batch, int rounds, int orth_every,
+               int ns_steps, int polish, int final_ns, int lo,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      pe_big_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  pe_big_kernel<KT><<<batch, kBigThreads, p.smem, stream>>>(
+      (const float*)m, (const float*)q0, (float*)out, (float*)scratch, p,
+      rounds, orth_every, ns_steps, polish, final_ns, lo);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // plan[0..5] = threads, shared-memory bytes, kp, warps, depth split of the
-// tensor-core Gram, depth split of the f32 Gram. Returns 0, or non-zero
-// for a shape the kernel does not take.
+// tensor-core Gram, depth split of the f32 Gram (1 and 1 under the streamed
+// plan, which has neither). Returns 0, or non-zero for a shape the kernel
+// does not take.
 extern "C" int gcc_pe_plan(int n, int k, int* plan) {
   Plan p;
-  if (!pe_plan(n, k, &p)) return 1;
-  plan[0] = p.threads; plan[1] = p.smem; plan[2] = p.kp; plan[3] = p.warps;
-  plan[4] = p.ks; plan[5] = p.chunks;
-  return 0;
+  BigPlan g;
+  if (pe_plan(n, k, &p)) {
+    plan[0] = p.threads; plan[1] = p.smem; plan[2] = p.kp; plan[3] = p.warps;
+    plan[4] = p.ks; plan[5] = p.chunks;
+    return 0;
+  }
+  if (pe_big_plan(n, k, &g)) {
+    plan[0] = kBigThreads; plan[1] = g.smem; plan[2] = g.kp;
+    plan[3] = kBigWarps; plan[4] = 1; plan[5] = 1;
+    return 0;
+  }
+  return 1;
 }
 
+// scratch: (batch, 2, kp, n) f32 for n > 256 (the streamed plan), unused
+// and may be null else.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
-                             int batch, int n, int k, int iters,
-                             int orth_every, int ns_steps, int polish,
-                             int final_ns, int lo, void* stream) {
+                             void* scratch, int batch, int n, int k,
+                             int iters, int orth_every, int ns_steps,
+                             int polish, int final_ns, int lo, void* stream) {
   if (batch <= 0) return 0;
-  Plan p;
-  if (!pe_plan(n, k, &p) || orth_every <= 0 || ns_steps < 0 || polish < 0 ||
-      final_ns < 0)
+  if (orth_every <= 0 || ns_steps < 0 || polish < 0 || final_ns < 0)
     return (int)cudaErrorInvalidValue;
   const int rounds = max(1, iters / orth_every);
   cudaStream_t s = (cudaStream_t)stream;
-  switch (p.kt) {
+  Plan p;
+  BigPlan g;
+  if (pe_plan(n, k, &p)) {
+    switch (p.kt) {
+      case 1:
+        return launch<1>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
+                         polish, final_ns, lo, s);
+      case 2:
+        return launch<2>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
+                         polish, final_ns, lo, s);
+      default:
+        return launch<3>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
+                         polish, final_ns, lo, s);
+    }
+  }
+  if (!pe_big_plan(n, k, &g) || scratch == nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (g.kt) {
     case 1:
-      return launch<1>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
-                       polish, final_ns, lo, s);
+      return launch_big<1>(g, m, q0, out, scratch, batch, rounds, orth_every,
+                           ns_steps, polish, final_ns, lo, s);
     case 2:
-      return launch<2>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
-                       polish, final_ns, lo, s);
+      return launch_big<2>(g, m, q0, out, scratch, batch, rounds, orth_every,
+                           ns_steps, polish, final_ns, lo, s);
     default:
-      return launch<3>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
-                       polish, final_ns, lo, s);
+      return launch_big<3>(g, m, q0, out, scratch, batch, rounds, orth_every,
+                           ns_steps, polish, final_ns, lo, s);
   }
 }

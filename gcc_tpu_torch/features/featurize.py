@@ -1,11 +1,15 @@
-"""On-device batch featurization from compact wire batches.
+"""On-device batch featurization.
 
-Counterpart of ``gcc_tpu/features/featurize.py`` ``featurize_compact``:
-everything the reference stores as DGL ``ndata`` — Laplacian PE,
-subgraph in-degree, seed flag — plus the dense adjacency the encoder
-aggregates over, derived on the device from the packed edge buffer.
-Kernel 1 builds adjacency, degrees and the PE operator for every bucket;
-Kernels 2 and 3 compute the PE.
+Counterpart of ``gcc_tpu/features/featurize.py``: everything the
+reference stores as DGL ``ndata`` — Laplacian PE, subgraph in-degree,
+seed flag — plus the dense adjacency the encoder aggregates over,
+derived on the device. :func:`featurize_compact` (pre-training) starts
+from the sampler's packed edge buffer: Kernel 1 builds adjacency,
+degrees and the PE operator for every bucket. :func:`featurize_batch`
+(embedding generation) starts from a padded host batch of arbitrary
+subgraphs and builds the adjacency with one ``index_add_``, as the
+reference builds it outside any kernel on that path. Kernels 2 and 3
+compute the PE on both.
 """
 
 from __future__ import annotations
@@ -14,9 +18,13 @@ from typing import NamedTuple
 
 import torch
 
+from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.features.positional import laplacian_positional_embedding
+from gcc_tpu_torch.graph.batch import PaddedSubgraphBatch
 from gcc_tpu_torch.ops.aggregate import (
+    build_dense_adjacency,
     fused_adjacency_featurize,
+    node_degrees,
     node_mask_from_meta,
 )
 
@@ -35,9 +43,34 @@ class BatchFeatures(NamedTuple):
         return BatchFeatures(*(fn(x) for x in self))
 
 
+def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
+                    pe_method: str = "eigh", profile: str = "train",
+                    device="cuda") -> BatchFeatures:
+    """Upload a padded host batch and featurize it
+    (``featurize.py:32-48``). ``profile`` selects the subspace PE's guard
+    columns ("train" → 0, "eval" → 16); the eigh method ignores it."""
+    device = resolve_device(device)
+
+    def up(x):
+        return torch.as_tensor(x).to(device, non_blocking=True)
+
+    node_mask = up(batch.node_mask)
+    adj = build_dense_adjacency(up(batch.edges_src), up(batch.edges_dst),
+                                up(batch.edge_weight), batch.batch_size,
+                                batch.n_max)
+    pos = laplacian_positional_embedding(
+        node_mask, up(batch.n_nodes), pos_size, adj=adj, method=pe_method,
+        profile=profile)
+    return BatchFeatures(pos=pos, degrees=node_degrees(adj).to(torch.int32),
+                         seed_flag=up(batch.seed_flag), node_mask=node_mask,
+                         adj=adj)
+
+
 def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
-                      id_bits: int, pos_size: int) -> BatchFeatures:
-    """Featurize stacked compact wire segments (train-profile PE).
+                      id_bits: int, pos_size: int,
+                      pe_method: str = "subspace",
+                      profile: str = "train") -> BatchFeatures:
+    """Featurize stacked compact wire segments (``featurize.py:76-134``).
 
     Args:
       edges: (S, E_tot) int32 packed edges (S wire segments of B graphs).
@@ -52,6 +85,7 @@ def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
         * node_mask
     adj, m_shift, deg = fused_adjacency_featurize(edges, meta, n_max, id_bits)
     pos = laplacian_positional_embedding(node_mask, n_nodes, pos_size,
-                                         m_shift)
+                                         m_shift, adj=adj, method=pe_method,
+                                         profile=profile)
     return BatchFeatures(pos=pos, degrees=deg.to(torch.int32),
                          seed_flag=seed_flag, node_mask=node_mask, adj=adj)

@@ -1,8 +1,12 @@
 from gcc_tpu_torch.graph.batch import (
     CompactWireBatch,
+    PaddedSubgraphBatch,
     Subgraph,
     WireBatch,
+    batch_subgraphs,
+    expand_compact,
     pack_edge_ids,
+    pick_bucket,
 )
 from gcc_tpu_torch.graph.corpus import (
     CorpusStore,
@@ -15,9 +19,13 @@ __all__ = [
     "CSRGraph",
     "CompactWireBatch",
     "CorpusStore",
+    "PaddedSubgraphBatch",
     "Subgraph",
     "WireBatch",
+    "batch_subgraphs",
+    "expand_compact",
     "pack_edge_ids",
     "partition_graphs",
+    "pick_bucket",
     "synthetic_corpus",
 ]

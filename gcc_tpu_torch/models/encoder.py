@@ -44,14 +44,20 @@ class GraphEncoder(nn.Module):
         self.gnn.reset_parameters(gen)
 
     def forward(self, feats: BatchFeatures,
-                gen: torch.Generator | None = None) -> torch.Tensor:
+                gen: torch.Generator | None = None,
+                return_all_outputs: bool = False):
+        """Graph embeddings (B, output_size); with ``return_all_outputs``
+        also the GIN's pooled list (input features, then every conv
+        layer), the ingredients of the composite readout."""
         parts = [feats.pos, self.degree_embedding(feats.degrees),
                  feats.seed_flag[..., None]]
         # Padded nodes contribute zero to every node sum downstream; the
         # degree-0 embedding row is nonzero, so mask the input.
         n_feat = torch.cat(parts, dim=-1) * feats.node_mask[..., None]
-        x, _ = self.gnn(n_feat, feats.adj, feats.node_mask, gen)
+        x, pooled = self.gnn(n_feat, feats.adj, feats.node_mask, gen)
         if self.cfg.norm:
             norm = torch.linalg.vector_norm(x, dim=-1, keepdim=True)
             x = x / torch.clamp_min(norm, 1e-5)
+        if return_all_outputs:
+            return x, pooled
         return x

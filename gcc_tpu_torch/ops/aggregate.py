@@ -55,6 +55,21 @@ def build_dense_adjacency_compact(edges: torch.Tensor, n_edges: torch.Tensor,
     return adj.view(s * b, n_max, n_max)
 
 
+def build_dense_adjacency(edges_src: torch.Tensor, edges_dst: torch.Tensor,
+                          edge_weight: torch.Tensor, batch_size: int,
+                          n_max: int) -> torch.Tensor:
+    """(B, N, N) float32 adjacency A[b, v, u] = Σ weight of edges u→v
+    from the flat padded edge list of a ``PaddedSubgraphBatch``
+    (``gcc_tpu/ops/aggregate.py:66-99``; flat node index b·N + i, padding
+    edges carry weight 0). One ``index_add_``: this path has no kernel in
+    the reference either."""
+    flat = edges_dst.to(torch.int64) * n_max + edges_src.to(torch.int64) % n_max
+    adj = torch.zeros(batch_size * n_max * n_max, dtype=torch.float32,
+                      device=edges_src.device)
+    adj.index_add_(0, flat, edge_weight.to(torch.float32))
+    return adj.view(batch_size, n_max, n_max)
+
+
 def node_degrees(adj: torch.Tensor) -> torch.Tensor:
     """(B, N) in-degree (multiplicity counted) as adjacency row sums —
     the reference's ``subg.in_degrees()``."""
@@ -161,3 +176,18 @@ def aggregate_sum_dense(h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
 def graph_pool_sum(h: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     """Per-graph sum readout (DGL SumPooling): (B, N, F), (B, N) → (B, F)."""
     return torch.einsum("bnf,bn->bf", h, node_mask)
+
+
+def graph_pool_mean(h: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """Per-graph masked mean readout (DGL AvgPooling)."""
+    counts = torch.clamp_min(node_mask.sum(dim=1, keepdim=True), 1.0)
+    return graph_pool_sum(h, node_mask) / counts
+
+
+def graph_pool_max(h: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
+    """Per-graph masked max readout (DGL MaxPooling); a graph without
+    nodes reads 0."""
+    neg = torch.where(node_mask[..., None] > 0, h,
+                      torch.full_like(h, float("-inf")))
+    out = neg.amax(dim=1)
+    return torch.where(torch.isfinite(out), out, torch.zeros_like(out))

@@ -7,8 +7,10 @@ Usage (on a machine with an NVIDIA GPU, from the repository root):
 Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
 under schedules that switch its parts off — the bf16 rounds alone, the
 power steps alone, the f32 polish alone, the f32 Newton–Schulz finish
-alone — at the main path's shapes, and ``jacobi_eigh`` per sweep count,
-on random symmetric operators. Kernel 2 skips the zero padding of the
+alone — at the training path's shapes and, on fewer graphs, at the
+shapes of embedding generation (k = 48; N = 512 and 832 take the
+kernel's streamed plan), and ``jacobi_eigh`` per sweep count, on random
+symmetric operators. Kernel 2 skips the zero padding of the
 node axis, so its time depends on how many nodes are live: the operators
 are dense (all N live, the most work a shape can ask for) except one
 case with 56 live nodes of 128, the mean of the main path's small
@@ -73,9 +75,12 @@ def main() -> None:
         check=True).stdout.strip())
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    g = args.graphs
-    for n, k, live in ((128, 32, 128), (128, 32, 56), (256, 32, 256),
-                       (256, 48, 256)):
+    for n, k, live, g in ((128, 32, 128, args.graphs),
+                          (128, 32, 56, args.graphs),
+                          (256, 32, 256, args.graphs),
+                          (256, 48, 256, args.graphs),
+                          (512, 48, 512, 128), (512, 48, 384, 128),
+                          (832, 48, 832, 64)):
         a = torch.rand(g, n, n, device=dev, generator=gen) / n
         m = a + a.transpose(1, 2) + torch.eye(n, device=dev)
         q0 = torch.randn(g, n, k, device=dev, generator=gen)
@@ -89,7 +94,7 @@ def main() -> None:
             print(f"pe ({g}, {n}, {n}) k={k} live={live} {name}: {ms:.4f} "
                   "ms", flush=True)
         del a, m, q0
-    for n in (32, 48):
+    for n, g in ((32, args.graphs), (48, args.graphs), (48, 64)):
         t = torch.randn(g, n, n, device=dev, generator=gen)
         t = 0.5 * (t + t.transpose(1, 2))
         for sweeps in (0, 1, 3):

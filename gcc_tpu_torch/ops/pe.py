@@ -18,9 +18,14 @@ block of 2N threads per graph; :func:`pe_launch_plan` mirrors its launch
 plan. M is read as the reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·
 M[j, c]: ``m_shift`` is symmetric as a matrix but not bit for bit (it is
 formed as ``(a·inv_row)·inv_col``), so neither version may read M[c, j]
-in place of M[j, c]. One kernel serves every shape: N is padded to a
-multiple of 32 (at most 256), k ≤ 48 is padded to 16, 32 or 48 inside
-the kernel.
+in place of M[j, c]. N is padded to a multiple of 32, k ≤ 48 is padded
+to 16, 32 or 48 inside the kernel. Two launch plans serve the shapes:
+"shared" for N ≤ 256 (M's bf16 copy in shared memory, as above) and
+"streamed" for 256 < N ≤ 832, the largest multiple of 32 with
+N·N·6 ≤ 4 MiB (M streamed from device memory for every power step, Qᵀ in
+a device scratch that the wrapper allocates, every product on the CUDA
+cores with operands rounded to bf16 for the rounds, one block of 512
+threads per graph). Larger N raises.
 """
 
 from __future__ import annotations
@@ -34,6 +39,10 @@ from gcc_tpu_torch.ops import build as _build
 
 # Shared memory a block may use on Hopper (227 KB).
 _MAX_SMEM = 232_448
+# Largest node count the kernel takes: the largest multiple of 32 with
+# N·N·6 <= 4 MiB, the bound under which the reference sends a bucket to
+# its fused kernel (positional.py:257-274).
+MAX_NODES = 832
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -96,10 +105,20 @@ def pe_launch_plan(n: int, k: int) -> dict:
     ``ValueError`` with the numbers on a shape the kernel does not
     take."""
     n_pad = -(-n // 32) * 32
-    if not 1 <= n_pad <= 256 or not 1 <= k <= 48:
-        raise ValueError(f"pe kernel takes 1 <= N <= 256 and 1 <= k <= 48, "
-                         f"got N={n}, k={k}")
+    if not 1 <= n_pad <= MAX_NODES or not 1 <= k <= 48:
+        raise ValueError(f"pe kernel takes 1 <= N <= {MAX_NODES} and "
+                         f"1 <= k <= 48, got N={n}, k={k}")
     kp = -(-k // 16) * 16
+    if n_pad > 256:
+        # The streamed plan: staged chunks of Q^T (kp x 36) and of M
+        # (32 x 256), G, the row norms and two scalars.
+        smem = kp * 36 * 4 + 32 * 256 * 4 + kp * kp * 4 + kp * 4 + 16
+        return dict(n_pad=n_pad, kp=kp, threads=512, warps=16,
+                    smem_bytes=smem, gram_split=1, gram_f32_split=1,
+                    plan="streamed", scratch_floats=2 * kp * n_pad,
+                    variant=f"f32 FMA on bf16-rounded operands, M streamed "
+                            f"in 32x256 chunks; f32 4x{kp // 8} register "
+                            f"tiles")
     kt = kp // 16
     threads, warps = 2 * n_pad, n_pad // 16
     ldm = ldq = n_pad + 8
@@ -125,11 +144,12 @@ def pe_launch_plan(n: int, k: int) -> dict:
             f"{threads} threads per block (limits {_MAX_SMEM}, 1024)")
     return dict(n_pad=n_pad, kp=kp, threads=threads, warps=warps,
                 smem_bytes=smem, gram_split=ks, gram_f32_split=chunks,
+                plan="shared", scratch_floats=0,
                 variant=f"mma.sync m16n8k16 bf16, {kt} row tile(s) x 16 "
                         f"columns per warp; f32 4x{2 * kt} register tiles")
 
 
-_PE_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_PE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 
 
 def _pe_lib() -> ctypes.CDLL:
@@ -167,7 +187,7 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
                         final_ns: int = 8) -> torch.Tensor:
     """Kernel 2 wrapper: m (B, N, N) float32, q0 (B, N, k) float32 →
     (B, N, k). CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
-    CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 256 (padded
+    CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 832 (padded
     to a multiple of 32), k ≤ 48; ``power_lo`` both ways and any
     ``iters``/``orth_every``/``ns_steps``/``polish``/``final_ns``."""
     if m.device.type == "cpu":
@@ -186,9 +206,13 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
     lib = _pe_lib()
     m, q0 = m.contiguous(), q0.contiguous()
     out = torch.empty((b, n_pad, k), dtype=torch.float32, device=m.device)
+    scratch = torch.empty((b, plan["scratch_floats"]), dtype=torch.float32,
+                          device=m.device)
     with torch.cuda.device(m.device):
         err = lib.gcc_pe_launch(
-            m.data_ptr(), q0.data_ptr(), out.data_ptr(), b, n_pad, k, iters,
+            m.data_ptr(), q0.data_ptr(), out.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None, b, n_pad, k,
+            iters,
             orth_every, ns_steps, polish, final_ns, 1 if power_lo else 0,
             torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(err, "pe")

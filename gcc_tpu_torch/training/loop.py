@@ -1,0 +1,204 @@
+"""Pretraining loop (the reference's train_moco epochs,
+train.py:713-786, minus its scaffolding).
+
+Counterpart of ``gcc_tpu/training/loop.py`` for one process and one
+device. PyTorch queues the device work of a dispatch asynchronously;
+metrics stay on the device and are fetched with a lag of ``metrics_lag``
+steps, so the host never waits for the step it has just queued.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import json
+import os
+import time
+from typing import Callable
+
+import torch
+
+from gcc_tpu_torch.config import TrainConfig
+from gcc_tpu_torch.device import resolve_device
+from gcc_tpu_torch.graph.corpus import CorpusStore
+from gcc_tpu_torch.sampling import native
+from gcc_tpu_torch.sampling.pipeline import PipelineConfig, PretrainPipeline
+from gcc_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from gcc_tpu_torch.training.pretrain import (
+    create_pretrain_state,
+    train_dispatch,
+)
+from gcc_tpu_torch.utils.meters import AverageMeter
+from gcc_tpu_torch.utils.profiling import TensorBoardWriter, maybe_profile
+
+
+def run_pretrain(
+    cfg: TrainConfig,
+    corpus_path: str,
+    out_dir: str,
+    pcfg: PipelineConfig | None = None,
+    log_fn: Callable[[str], None] = print,
+    metrics_lag: int = 8,
+    resume: str | None = None,
+    tensorboard: bool = False,
+    profile_dir: str | None = None,
+    steps_per_call: int = 64,
+    dp_devices: int = 1,
+    device="cuda",
+) -> dict:
+    """Train for cfg.epochs over the corpus; returns the final summary
+    dict ({epoch, avg_loss, steps, steps_per_epoch_skipped, wall,
+    run_dir}). Writes ``metrics.jsonl`` (one line per step) and a
+    checkpoint per epoch under ``out_dir/<run name>``.
+
+    resume: checkpoint path — restores the full state including the
+    optimizer moments and the queue.
+
+    steps_per_call: optimizer steps per dispatch (one queue item of the
+    stacked or routed pipeline, featurized in one batched call; epochs
+    are rounded down to a whole number of dispatches). Small datasets
+    fall back to one epoch per dispatch.
+
+    dp_devices: more than one device (and more than one process) is the
+    reference's data-parallel path, which is not ported yet: raises
+    ``NotImplementedError``.
+
+    The reference warms its large-bucket program with a throwaway step on
+    empty graphs before a routed run, so that a compile does not stall
+    training when the first large dispatch arrives. Eager PyTorch
+    compiles nothing per bucket, so that step has no counterpart here."""
+    if dp_devices != 1:
+        raise NotImplementedError(
+            f"dp_devices={dp_devices}: the data-parallel and multi-host "
+            "paths are not ported yet; run_pretrain drives one device")
+    device = resolve_device(device)
+    store = CorpusStore.open(corpus_path)
+    pcfg = pcfg or PipelineConfig(
+        batch_size=cfg.batch_size,
+        num_samples=cfg.num_samples,
+        num_workers=cfg.num_workers,
+    )
+    # Upgrade to stacked emission when the fast path supports it: the
+    # sampler ships one (K, ...) compact item per K-step dispatch straight
+    # from the native buffers — no per-step slicing, K fewer queue hops.
+    spe = pcfg.num_samples * max(1, pcfg.num_workers) // pcfg.batch_size
+    k_item = max(1, min(steps_per_call, spe))
+    if (pcfg.emit == "pairs" and pcfg.compact_wire and pcfg.n_max <= 256
+            and native.native_available()):
+        pcfg = dataclasses.replace(pcfg, emit="stacked")
+    if pcfg.emit == "routed" and not cfg.contrast.moco:
+        # Routed batches are size-class-homogeneous: learning-neutral for
+        # MoCo (negatives come from the queue) but a silent objective
+        # change for E2E, whose in-batch negatives would become
+        # size-correlated.
+        raise ValueError(
+            "emit='routed' with moco=False changes the E2E objective "
+            "(in-batch negatives become size-class-correlated); use "
+            "emit='stacked' or 'pairs' for E2E training.")
+    if not pcfg.compact_wire:
+        raise NotImplementedError(
+            "the padded pairs wire (compact_wire=False) is not ported; "
+            "run_pretrain takes the compact wire")
+    stacked = pcfg.emit in ("stacked", "routed")
+    if stacked and pcfg.super_batch != k_item:
+        # Item shape must match the K-step dispatch width.
+        pcfg = dataclasses.replace(
+            pcfg, super_batch=k_item, prefetch=max(2, pcfg.prefetch // k_item))
+    run_dir = os.path.join(out_dir, cfg.run_name())
+    os.makedirs(run_dir, exist_ok=True)
+    tb = TensorBoardWriter(os.path.join(run_dir, "tb") if tensorboard
+                           else None)
+
+    loss_meter = AverageMeter()
+    summary: dict = {}
+    pending: list[tuple[int, dict]] = []
+    with contextlib.closing(tb), \
+            PretrainPipeline(store, cfg.sampler, pcfg, seed=cfg.seed) as pipe, \
+            open(os.path.join(run_dir, "metrics.jsonl"), "a") as mfile, \
+            maybe_profile(profile_dir):
+        steps_per_epoch = pipe.steps_per_epoch
+        total_steps = steps_per_epoch * cfg.epochs
+        state = create_pretrain_state(cfg, total_steps, seed=cfg.seed,
+                                      device=device)
+        if resume:
+            load_checkpoint(resume, state)
+            log_fn(f"resumed from {resume} at step {state.step}")
+        # In stacked mode the item shape fixes the dispatch width.
+        k_steps = (pcfg.super_batch if stacked
+                   else max(1, min(steps_per_call, steps_per_epoch)))
+
+        def dispatch() -> dict:
+            """Queue k_steps optimizer steps; (k_steps,) device tensors
+            per metric."""
+            if stacked:
+                # One queue item IS the whole K-step dispatch.
+                wq, wk = next(pipe)
+                return train_dispatch(state, wq, wk, n_max=pcfg.n_max)
+            per_step = [train_dispatch(state, *next(pipe), n_max=pcfg.n_max)
+                        for _ in range(k_steps)]
+            return {k: torch.cat([m[k] for m in per_step])
+                    for k in per_step[0]}
+
+        def drain(entry) -> None:
+            s0, m = entry
+            # One transfer per metric and dispatch; it waits for that
+            # dispatch only, later ones stay queued on the device.
+            host = {k: v.tolist() for k, v in m.items()}
+            for j, loss in enumerate(host["loss"]):
+                s = s0 + j
+                loss_meter.update(loss)
+                mfile.write(json.dumps(
+                    {"step": s, "loss": loss, "prob": host["prob"][j],
+                     "grad_norm": host["grad_norm"][j]}) + "\n")
+                tb.scalar("moco_loss", loss, s)
+                tb.scalar("moco_prob", host["prob"][j], s)
+                if (s + 1) % cfg.print_freq == 0:
+                    log_fn(f"step {s + 1}/{total_steps} "
+                           f"loss {loss_meter.val:.4f} ({loss_meter.avg:.4f})")
+
+        # Epochs are rounded DOWN to a whole number of K-step dispatches:
+        # steps_per_epoch % k_steps trailing steps per epoch are skipped
+        # (the reference's epoch is exact). Recorded in the summary.
+        calls_per_epoch = max(1, steps_per_epoch // k_steps)
+        skipped_steps = max(0, steps_per_epoch - calls_per_epoch * k_steps)
+        if skipped_steps:
+            log_fn(f"note: epoch rounded down to {calls_per_epoch} dispatches "
+                   f"of {k_steps} steps; {skipped_steps} of {steps_per_epoch} "
+                   f"steps/epoch skipped")
+        global_step = 0
+        t_start = time.time()
+        for epoch in range(1, cfg.epochs + 1):
+            t_epoch = time.time()
+            data_t = 0.0
+            for _ in range(calls_per_epoch):
+                t0 = time.time()
+                metrics = dispatch()
+                # Host time of the dispatch: sampler wait plus queueing
+                # the device work (the two are not told apart here).
+                data_t += time.time() - t0
+                pending.append((global_step, metrics))
+                global_step += k_steps
+                # Drain metrics with lag to keep the dispatches queued.
+                while len(pending) > max(1, metrics_lag // k_steps):
+                    drain(pending.pop(0))
+            # Epoch boundary: drain all in-flight metrics (the transfers
+            # wait for the device; saving then copies the state off it).
+            while pending:
+                drain(pending.pop(0))
+            if epoch % cfg.save_freq == 0:
+                save_checkpoint(run_dir, state, cfg, step=epoch)
+            save_checkpoint(run_dir, state, cfg)
+            log_fn(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s "
+                   f"(host dispatch {data_t:.1f}s), avg loss "
+                   f"{loss_meter.avg:.4f}")
+            summary = {
+                "epoch": epoch,
+                "avg_loss": loss_meter.avg,
+                "steps": global_step,
+                "steps_per_epoch_skipped": skipped_steps,
+                "wall": time.time() - t_start,
+            }
+            loss_meter.reset()
+    summary["run_dir"] = run_dir
+    return summary
+

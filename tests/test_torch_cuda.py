@@ -31,7 +31,7 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _wire(rng, s, b, n_max, e_tot):
+def _wire(rng, s, b, n_max, e_tot, id_bits=8):
     """Wire segments of random symmetric multigraphs (both directions of
     every edge, as the sampler emits), one zero-edge graph, stale tails."""
     edges = np.full((s, e_tot), 0xFFFF, np.int32)
@@ -44,7 +44,7 @@ def _wire(rng, s, b, n_max, e_tot):
         for j in range(b):
             u = rng.integers(0, n[j], half[j])
             v = rng.integers(0, n[j], half[j])
-            runs.append(np.concatenate([u | (v << 8), v | (u << 8)]))
+            runs.append(np.concatenate([u | (v << id_bits), v | (u << id_bits)]))
         flat = np.concatenate(runs)
         edges[i, : flat.size] = flat
         meta[i] = np.stack([n, 2 * half, np.zeros(b, np.int64)])
@@ -99,15 +99,17 @@ def test_jacobi_warp_kernel_batches(cuda_device, batch):
     assert (v - v0).abs().max().item() <= 1e-6
 
 
-def _pe_case(device, n_max, k, graphs, seed=1):
+def _pe_case(device, n_max, k, graphs, seed=1, e_tot=4096, id_bits=8):
     """m_shift and a start block for `graphs` random graphs of up to
     n_max nodes."""
     b = 16
     s = -(-graphs // b)
-    edges, meta = _wire(np.random.default_rng(seed), s, b, n_max, 4096)
+    edges, meta = _wire(np.random.default_rng(seed), s, b, n_max, e_tot,
+                        id_bits)
     e = torch.as_tensor(edges, device=device)
     m = torch.as_tensor(meta, device=device)
-    _, m_shift, _ = aggregate.fused_adjacency_featurize_plain(e, m, n_max, 8)
+    _, m_shift, _ = aggregate.fused_adjacency_featurize_plain(e, m, n_max,
+                                                              id_bits)
     q0 = subspace_start(n_max, k, aggregate.node_mask_from_meta(m, n_max))
     return m_shift[:graphs].contiguous(), q0[:graphs].contiguous()
 
@@ -149,6 +151,43 @@ def test_pe_kernel_shapes(cuda_device, n_max, k, graphs):
     _pe_compare(*_pe_case(cuda_device, n_max, k, graphs))
 
 
+@pytest.mark.parametrize("n_max,k,graphs", [
+    (288, 32, 8),      # the smallest streamed shape, two passes of columns
+    (512, 48, 8),      # the generate path's default bucket
+    (500, 48, 4),      # N padded by the wrapper
+    (832, 48, 4),      # the largest shape the kernel takes
+    (320, 16, 4),      # one row tile
+    (512, 48, 140),    # more blocks than SMs
+])
+def test_pe_streamed_plan_matches_plain(cuda_device, n_max, k, graphs):
+    """256 < N <= 832: M streamed from device memory, every product on
+    the CUDA cores; the same limits as the shared plan."""
+    assert pe.pe_launch_plan(n_max, k)["plan"] == "streamed"
+    _pe_compare(*_pe_case(cuda_device, n_max, k, graphs, e_tot=16384,
+                          id_bits=16))
+
+
+def test_pe_streamed_plan_small_graphs_stay_finite(cuda_device):
+    """Graphs with fewer nodes than columns (rank deficient) and an
+    empty graph in a 512 bucket: finite output, zero on the padding."""
+    m_shift, q0 = _pe_case(cuda_device, 512, 48, 16, e_tot=16384, id_bits=16)
+    m_shift[1, 20:, :] = 0
+    m_shift[1, :, 20:] = 0
+    q0[1, 20:] = 0
+    m_shift[2] = 0
+    q0[2] = 0
+    got = pe.pe_subspace_iterate(m_shift, q0, iters=16)
+    assert torch.isfinite(got).all()
+    assert got[1, 20:].abs().max().item() == 0 and got[2].abs().max() == 0
+
+
+def test_pe_kernel_refuses_beyond_832(cuda_device):
+    m = torch.zeros(1, 864, 864, device=cuda_device)
+    q0 = torch.zeros(1, 864, 48, device=cuda_device)
+    with pytest.raises(ValueError, match="N=864, k=48"):
+        pe.pe_subspace_iterate(m, q0)
+
+
 def test_pe_kernel_batch_of_one(cuda_device):
     """A block's result does not depend on the batch around it: graph 0
     alone equals graph 0 of a batch, bit for bit (the mean tolerance of
@@ -182,12 +221,12 @@ def test_pe_plan_mirrors_the_source(cuda_device):
 
     lib = pe._pe_lib()
     out = (ctypes.c_int * 6)()
-    for n in (32, 64, 96, 128, 160, 192, 224, 256):
+    for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 512, 832):
         for k in (1, 8, 16, 17, 32, 33, 48):
             assert lib.gcc_pe_plan(n, k, out) == 0
             plan = pe.pe_launch_plan(n, k)
             assert list(out) == [plan["threads"], plan["smem_bytes"],
                                  plan["kp"], plan["warps"],
                                  plan["gram_split"], plan["gram_f32_split"]]
-    assert lib.gcc_pe_plan(288, 32, out) != 0
+    assert lib.gcc_pe_plan(864, 32, out) != 0
     assert lib.gcc_pe_plan(128, 49, out) != 0

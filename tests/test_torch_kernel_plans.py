@@ -22,12 +22,37 @@ def test_pe_plan_fits_a_block(n, k):
     assert plan["threads"] == 32 * plan["warps"]
     assert plan["kp"] in (16, 32, 48) and 0 <= plan["kp"] - k < 16
     assert plan["variant"].startswith("mma.sync m16n8k16")
+    assert plan["plan"] == "shared" and plan["scratch_floats"] == 0
     # The tensor-core Gram splits its depth into whole steps of 16
     # columns; 1, 2 or 4 lanes share a tile of the f32 Gram.
     assert plan["warps"] % plan["gram_split"] == 0
     assert plan["gram_f32_split"] in (1, 2, 4)
     # The bf16 copy of M (rows padded by 8) fits inside the plan.
     assert plan["smem_bytes"] >= n * (n + 8) * 2
+
+
+@pytest.mark.parametrize("k", [32, 48])
+@pytest.mark.parametrize("n", [288, 512, 832])
+def test_pe_streamed_plan_fits_a_block(n, k):
+    """Above N = 256 M's bf16 copy no longer fits shared memory: the
+    streamed plan keeps M in device memory and Qᵀ in a scratch."""
+    plan = pe.pe_launch_plan(n, k)
+    assert plan["plan"] == "streamed" and plan["n_pad"] == n
+    assert plan["threads"] == 32 * plan["warps"] <= MAX_THREADS
+    assert 0 < plan["smem_bytes"] <= MAX_SMEM
+    assert plan["kp"] in (32, 48) and 0 <= plan["kp"] - k < 16
+    assert plan["scratch_floats"] == 2 * plan["kp"] * n
+    # Nothing of size N^2 or k*N is in shared memory.
+    assert plan["smem_bytes"] < 64 * 1024
+
+
+def test_pe_plan_ends_where_the_reference_kernel_does():
+    """832 is the largest multiple of 32 with N*N*6 <= 4 MiB; 864 raises
+    with the numbers."""
+    assert 832 * 832 * 6 <= (4 << 20) < 864 * 864 * 6
+    assert pe.pe_launch_plan(801, 48)["n_pad"] == 832
+    with pytest.raises(ValueError, match="N=864, k=48"):
+        pe.pe_launch_plan(864, 48)
 
 
 @pytest.mark.parametrize("n,n_pad", [(1, 32), (31, 32), (100, 128),
@@ -37,7 +62,7 @@ def test_pe_plan_pads_the_node_axis(n, n_pad):
     assert plan["n_pad"] == n_pad and plan["threads"] == 2 * n_pad
 
 
-@pytest.mark.parametrize("n,k", [(257, 32), (512, 16), (128, 49),
+@pytest.mark.parametrize("n,k", [(833, 32), (864, 48), (128, 49),
                                  (128, 64), (128, 0)])
 def test_pe_plan_refuses_with_the_numbers(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
@@ -93,7 +118,7 @@ def test_pe_wrapper_refuses_shapes(m_shape, q_shape):
                          4, 4, 2, 8)
 
 
-@pytest.mark.parametrize("n,k", [(288, 32), (64, 49)])
+@pytest.mark.parametrize("n,k", [(864, 32), (64, 49)])
 def test_pe_wrapper_refuses_sizes(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
         pe._check_inputs(*_pe_args(n=n, k=k), 4, 4, 2, 8)
