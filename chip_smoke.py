@@ -27,7 +27,9 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    512, k=48) and (64, 832, 832, k=48) — the streamed launch plan — and
    (128, 256, 256, k=48), on entire-graph batches of seeded random
    graphs; and the Jacobi kernel at (64, 48, 48) and (128, 48, 48) on
-   the Gram and Rayleigh-Ritz matrices of those outputs.
+   the Gram and Rayleigh-Ritz matrices of those outputs. (The Jacobi
+   launches are timed queued behind a few ms of other work: they are
+   shorter than the host takes to enqueue them.)
 5. Runs the training path at full width — MoCo, batch 32, queue 16384,
    GIN 5x64, PE 32, rw_hops 256, routed buckets n_small 128 / n_max 256,
    e_max 2048, 64 steps per dispatch: one routed dispatch in bucket 128
@@ -39,8 +41,10 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    run_pretrain (an epoch of 4 routed dispatches, checkpoint) →
    load_checkpoint (restored parameters equal the live ones bit for bit)
    → node_subgraphs (two RWR views of every node of a 4096-node
-   community graph) → generate_embeddings (n_max 512, e_max 8192, batch
-   64: 128 encode calls) → generate_graph_embeddings (score and
+   community graph; the PE iteration is also held against its plain
+   version and timed on the first batch of 64 views in the 512 bucket)
+   → generate_embeddings (n_max 512, e_max 8192, batch 64: 128 encode
+   calls) → generate_graph_embeddings (score and
    composite readouts of 256 graphs of 100-500 nodes), plus the readouts
    at the 256 bucket and graphs of 520-832 nodes at n_max 832. Launch
    counters are zeroed before each stretch and read after it (per encode
@@ -81,13 +85,27 @@ N_SMALL, N_MAX, E_MAX, STEPS = 128, 256, 2048, 64
 RR_SWEEPS = 3
 ODD_BATCH = 1037  # no multiple of the 132 SMs, nor of a block's 4 warps
 
-# Times of the port's first kernels at the same shapes (PE: one block per
-# graph on the CUDA cores; Jacobi: one block per matrix; featurize is
-# unchanged since), for the lines that print a time beside its
-# predecessor's.
-EARLIER = "the port's first kernels, H100 80GB HBM3, 700 W"
-EARLIER_MS = {("pe", 128): 20.28, ("pe", 256): 66.61, ("jacobi", 32): 0.951,
-              ("featurize", 128): 0.1915, ("featurize", 256): 0.8022}
+# Times of each kernel's predecessor at the same shape, timed the same way
+# (CUDA events around the wrapper), for the lines that print a time beside
+# it; none of them enters the kernels line. FIRST: the port's first kernels
+# (PE: one block per graph on the CUDA cores; Jacobi: one block per matrix;
+# featurize is unchanged since). Eval shapes: the streamed plan's first
+# version (one block per graph, every product an f32 FMA, Q^T in a device
+# scratch) and the block-per-matrix Jacobi kernel with two barriers a
+# round, timed without work queued ahead of it.
+FIRST = "the port's first kernels, H100 80GB HBM3, 700 W"
+STREAMED_V1 = ("the streamed plan's first version (one block per graph, f32 "
+               "FMAs), H100 80GB HBM3, 700 W")
+BLOCK_JACOBI = ("the block-per-matrix kernel (not queued behind other "
+                "work), H100 80GB HBM3, 700 W")
+EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
+              ("jacobi", 32): (0.951, FIRST),
+              ("featurize", 128): (0.1915, FIRST),
+              ("featurize", 256): (0.8022, FIRST),
+              ("pe", 512): (2.8744, STREAMED_V1),
+              ("pe", 832): (7.6530, STREAMED_V1),
+              ("jacobi", 64): (0.1981, BLOCK_JACOBI),
+              ("jacobi", 128): (0.2126, BLOCK_JACOBI)}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 # The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
@@ -116,8 +134,12 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() over reps calls (CUDA events)."""
+def timed_ms(fn, reps: int, warmup: int = 1, run_ahead: bool = False) -> float:
+    """Mean device time of fn() over reps calls (CUDA events). A launch
+    shorter than the host takes to enqueue it (~50 us through a wrapper)
+    would be timed at the host's rate: run_ahead first queues a few ms of
+    other work, so the launches are all enqueued before the card reaches
+    them and the card's own time is read."""
     import torch
 
     for _ in range(warmup):
@@ -125,6 +147,10 @@ def timed_ms(fn, reps: int, warmup: int = 1) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        busy = torch.empty(4096, 4096, device="cuda")
+        for _ in range(2):
+            torch.mm(busy, busy)
     start.record()
     for _ in range(reps):
         fn()
@@ -208,14 +234,20 @@ def pe_flops(n: int, k: int, iters=16, orth_every=4, ns_steps=4, polish=2,
 def versus(name, key, ms, bound) -> str:
     """' — x.x% of its bound[; earlier t ms (which), s.sx faster]'."""
     out = f" — {100 * bound / ms:.1f}% of its bound"
-    old = EARLIER_MS.get((name, key))
-    if old is not None:
-        out += f"; {old} ms with {EARLIER}: {old / ms:.2f}x"
+    if (name, key) in EARLIER_MS:
+        old, which = EARLIER_MS[(name, key)]
+        out += f"; {old} ms with {which}: {old / ms:.2f}x"
     return out
 
 
-def check_pe(m_shift, n_nodes, k, check, timed=True):
-    """Kernel 2 vs its plain version on every graph of the batch.
+def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False):
+    """Kernel 2 vs its plain version on every graph of the batch; `key`
+    names the row (EARLIER_MS) where it is not N at k = 32. `small`: a
+    batch of graphs with fewer nodes than 2k (the node path's RWR views in
+    a large bucket) — no projector is compared, the mean error is taken
+    over the live rows only (the padding is exact zeros in both versions
+    and would dilute it), and the bound counts each graph's live nodes
+    (rounded up to 32) in place of the padded N.
 
     f32 rounds: the same arithmetic with the f32 sums in another order —
     max abs err <= 1e-5. bf16 rounds (production): both round the same
@@ -239,24 +271,28 @@ def check_pe(m_shift, n_nodes, k, check, timed=True):
             < n_nodes[:, None]).float()
     q0 = subspace_start(n, k, mask)
     well = n_nodes >= 2 * k
-    check(bool(well.any()), f"pe N={n}: batch has graphs of >= 2k nodes")
+    if not small:
+        check(bool(well.any()), f"pe N={n}: batch has graphs of >= 2k nodes")
     out = {}
     for lo in (False, True):
         q = pe_subspace_iterate(m_shift, q0, iters=16, power_lo=lo)
         torch.cuda.synchronize()
         q_ref = pe_subspace_iterate_plain(m_shift, q0, iters=16, power_lo=lo)
         diff = (q - q_ref).abs()
-        err, mean = diff.max().item(), diff.mean().item()
+        err = diff.max().item()
+        mean = ((diff * mask[:, :, None]).sum() / (mask.sum() * k)).item() \
+            if small else diff.mean().item()
         proj = (torch.bmm(q[well], q[well].transpose(1, 2))
                 - torch.bmm(q_ref[well], q_ref[well].transpose(1, 2))
-                ).abs().max().item()
+                ).abs().max().item() if bool(well.any()) else 0.0
         eye = torch.eye(k, device=q.device)
         orth = (torch.bmm(q.transpose(1, 2), q) - eye).abs().amax((1, 2))
         orth_ref = (torch.bmm(q_ref.transpose(1, 2), q_ref) - eye
                     ).abs().amax((1, 2))
         tag = ("bf16" if lo else "f32") + ("" if timed else f" k={k} g={g}")
         print(f"pe N={n} {tag} rounds, {g} graphs ({int(well.sum())} of >= "
-              f"2k nodes): max abs err {err:.3g}, mean {mean:.3g}, "
+              f"2k nodes): max abs err {err:.3g}, mean {mean:.3g}"
+              f"{' (live rows)' if small else ''}, "
               f"projector err (>= 2k nodes) {proj:.3g}; orthonormal to 1e-3: "
               f"kernel {int((orth <= 1e-3).sum())}, plain "
               f"{int((orth_ref <= 1e-3).sum())} graphs", flush=True)
@@ -274,20 +310,26 @@ def check_pe(m_shift, n_nodes, k, check, timed=True):
     ms_k = timed_ms(lambda: pe_subspace_iterate(m_shift, q0, iters=16), 3)
     ms_p = timed_ms(lambda: pe_subspace_iterate_plain(m_shift, q0, iters=16),
                     2)
-    bf16, f32 = pe_flops(n, k)
-    t_ops = g * (bf16 / PEAK_BF16 + f32 / PEAK_F32)
+    if small:
+        live = [-(-int(v) // 32) * 32 for v in n_nodes.tolist()]
+        t_ops = sum(lo_ops / PEAK_BF16 + f32_ops / PEAK_F32
+                    for lo_ops, f32_ops in (pe_flops(v, k) for v in live))
+    else:
+        bf16, f32 = pe_flops(n, k)
+        t_ops = g * (bf16 / PEAK_BF16 + f32 / PEAK_F32)
     t_bytes = g * (n * n + 2 * n * k) * 4 / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
     print(f"pe N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
           f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
-          + versus("pe", n if k == 32 else None, ms_k, bound), flush=True)
+          + versus("pe", key if key is not None else n if k == 32 else None,
+                   ms_k, bound), flush=True)
     out.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
                shape=f"({g}, {n}, {n}), k={k}")
     return out, q
 
 
-def check_jacobi(t, check, timed=True):
+def check_jacobi(t, check, timed=True, key=None):
     import torch
 
     from gcc_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_plain
@@ -305,7 +347,7 @@ def check_jacobi(t, check, timed=True):
     if not timed:
         return None
     ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=RR_SWEEPS,
-                                        descending=True), 20)
+                                        descending=True), 20, run_ahead=True)
     ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=RR_SWEEPS,
                                               descending=True), 3)
     ms_l = timed_ms(lambda: torch.linalg.eigh(t), 5)
@@ -317,7 +359,8 @@ def check_jacobi(t, check, timed=True):
     bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
     print(f"jacobi ({b}, {n}, {n}) sweeps={RR_SWEEPS}: kernel {ms_k:.4f} ms, "
           f"plain {ms_p:.4f} ms, torch.linalg.eigh {ms_l:.4f} ms, bound "
-          f"{bound:.4f} ms (operations)" + versus("jacobi", n, ms_k, bound),
+          f"{bound:.4f} ms (operations)"
+          + versus("jacobi", key if key is not None else n, ms_k, bound),
           flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES
@@ -431,12 +474,11 @@ def community_graph(seed: int, n_comm: int, size: int):
                                symmetrize=True)
 
 
-def entire_graph_operator(graphs, n_max, e_max, device):
-    """(m_shift (B, N, N), n_nodes (B,)) of an entire-graph batch, as
+def subgraph_operator(subgraphs, n_max, e_max, device):
+    """(m_shift (B, N, N), n_nodes (B,)) of a batch of subgraphs, as
     featurize_batch derives them on the generate path."""
     import torch
 
-    from gcc_tpu_torch.generate import graph_subgraphs
     from gcc_tpu_torch.graph.batch import batch_subgraphs
     from gcc_tpu_torch.ops.aggregate import (
         build_dense_adjacency,
@@ -444,13 +486,19 @@ def entire_graph_operator(graphs, n_max, e_max, device):
         shifted_operator,
     )
 
-    batch = batch_subgraphs(graph_subgraphs(graphs), n_max=n_max, e_max=e_max)
+    batch = batch_subgraphs(subgraphs, n_max=n_max, e_max=e_max)
     up = lambda x: torch.as_tensor(x).to(device)  # noqa: E731
     mask = up(batch.node_mask)
     adj = build_dense_adjacency(up(batch.edges_src), up(batch.edges_dst),
-                                up(batch.edge_weight), len(graphs), n_max)
+                                up(batch.edge_weight), len(subgraphs), n_max)
     return (shifted_operator(normalized_adjacency(adj, mask), mask),
             up(batch.n_nodes))
+
+
+def entire_graph_operator(graphs, n_max, e_max, device):
+    from gcc_tpu_torch.generate import graph_subgraphs
+
+    return subgraph_operator(graph_subgraphs(graphs), n_max, e_max, device)
 
 
 def guarded_rr_matrices(m_shift, q):
@@ -516,10 +564,11 @@ def counted(ops, fn):
     return out, ops.launch_counts(), dict(plain), dt
 
 
-def serve_path(ops, cfg, corpus_dir, out_dir, check):
+def serve_path(ops, cfg, corpus_dir, out_dir, check, results):
     """pre-train → checkpoint → restore → generate, through the entry
     points, at full width. Returns {shape key: launches} of the eval
-    shapes of Kernels 2 and 3."""
+    shapes of Kernels 2 and 3; adds to `results` the row of Kernel 2 on
+    a batch of the node path (RWR views in the 512 bucket)."""
     import dataclasses
 
     import numpy as np
@@ -596,6 +645,16 @@ def serve_path(ops, cfg, corpus_dir, out_dir, check):
     print(f"node_subgraphs: 2 x {len(subs)} RWR views in "
           f"{time.time() - t0:.1f} s; nodes mean {sizes.mean():.1f}, max "
           f"{sizes.max()}", flush=True)
+    # Kernel 2 on the first batch of the node path: mostly padding, so the
+    # streamed plan's time is its chain of steps on one or two live warps.
+    m_node, n_node = subgraph_operator(subs[:GEN_BATCH], GEN_N_MAX, GEN_E_MAX,
+                                       "cuda")
+    print(f"node-path batch in bucket {GEN_N_MAX}: {GEN_BATCH} RWR views, "
+          f"nodes mean {n_node.float().mean().item():.1f}, max "
+          f"{int(n_node.max())}", flush=True)
+    results[("pe", "512node")], _ = check_pe(m_node, n_node, K_EVAL, check,
+                                             key="512node", small=True)
+    del m_node
     gen = dict(n_max=GEN_N_MAX, e_max=GEN_E_MAX, batch_size=GEN_BATCH)
     generate.generate_embeddings(cfg2, state, subs[:GEN_BATCH], **gen)  # warm
     emb, launches, plain, dt = counted(ops, lambda: generate.generate_embeddings(
@@ -613,7 +672,10 @@ def serve_path(ops, cfg, corpus_dir, out_dir, check):
           f"generate: Kernel 2 once and Kernel 3 twice per encode call "
           f"{launches}")
     check(not any(plain.values()), "generate: no plain-version call")
-    eval_launches = {("pe", GEN_N_MAX): launches["pe"],
+    # The node path's launches of Kernel 2 count for its own row; the
+    # graph path's below for the row of full 512 buckets.
+    eval_launches = {("pe", "512node"): launches["pe"],
+                     ("pe", GEN_N_MAX): 0,
                      ("jacobi", GEN_BATCH): launches["jacobi"]}
 
     # The same call on the CPU (the plain versions), first 64 nodes.
@@ -835,10 +897,10 @@ def main() -> int:
             print(f"eval bucket {n_max}: {count} graphs, nodes mean "
                   f"{n_nodes.float().mean().item():.1f}", flush=True)
             results[("pe", key)], q = check_pe(m_shift, n_nodes, K_EVAL,
-                                               check)
+                                               check, key=key)
             s_g, t_rr = guarded_rr_matrices(m_shift, q)
             check_jacobi(s_g, check, timed=False)
-            res = check_jacobi(t_rr, check, timed=jkey is not None)
+            res = check_jacobi(t_rr, check, timed=jkey is not None, key=jkey)
             if jkey is not None:
                 results[("jacobi", jkey)] = res
             del m_shift, q, s_g, t_rr
@@ -880,7 +942,7 @@ def main() -> int:
 
         # --- serve path ------------------------------------------------
         eval_launches = serve_path(ops, cfg, corpus_dir,
-                                   os.path.join(work, "out"), check)
+                                   os.path.join(work, "out"), check, results)
 
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),

@@ -14,7 +14,7 @@
 // is 4 KB at n = 32 and its round chain is serial, so a matrix is bound by
 // latency and the batch (4096 matrices) supplies the parallelism.
 //
-// Two hand-written kernels, chosen by shape (jacobi_launch_plan in
+// Three hand-written kernels, chosen by shape (jacobi_launch_plan in
 // ops/jacobi.py mirrors the choice):
 //   * n == 32 (the train path): jacobi_warp_kernel, one WARP per matrix
 //     and no block-wide barrier in the round loop. Lane c holds column c
@@ -28,15 +28,30 @@
 //     (c, s) pairs are broadcast by shuffle. The rank sort and the
 //     coalesced write-out go through a warp-private slab of shared memory
 //     with __syncwarp(). Four warps share a block only to fill the SM.
+//   * n == 48 (the serve path: the eval profile's guarded finish, batches
+//     of 64 or 128 matrices, so the card is mostly empty and the time is
+//     one matrix's serial chain of sweeps * 47 rounds): jacobi_pair_kernel,
+//     specialised at compile time. One block of 576 threads per matrix,
+//     ONE thread per 2x2 block (pair pa rows, pair pb columns) of A, and
+//     ONE barrier a round. A warp owns a 4 x 8 patch of blocks, so it
+//     needs 12 rotations: its lanes read the pivots straight from the
+//     current buffer, compute them (redundant arithmetic in place of a
+//     24-thread phase and its barrier), and hand them round by shuffle.
+//     Each thread then mixes its block (rows, then columns) and two entry
+//     pairs of V^T and writes them to their re-paired slots of the other
+//     buffer; its slots are constants of the thread. Rows are padded to
+//     56 floats, which keeps a patch's loads and stores off each other's
+//     banks. What is left of a round is the rotation's chain of dependent
+//     square roots and divisions.
 //   * any other even n from 4 to 48: jacobi_block_kernel, one block per
 //     matrix, A and V^T double-buffered in shared memory (16 n^2 bytes),
 //     two barriers a round: the n/2 rotations, then one pass in which each
 //     thread takes 2x2 blocks of A, applies the row mix and then the
 //     column mix, and writes them to their re-paired positions.
-// In both, products and sums are explicitly rounded (__fmul_rn /
+// In all, products and sums are explicitly rounded (__fmul_rn /
 // __fadd_rn / ...) in the plain version's order per element (row mix,
 // then column mix), so no FMA contraction changes them: Jacobi has no
-// reduction, and both kernels are bit-identical to the plain version.
+// reduction, and all three kernels are bit-identical to the plain version.
 
 #include <cuda_runtime.h>
 
@@ -293,6 +308,118 @@ jacobi_warp_kernel(const float* __restrict__ t,      // (B, 32, 32) symmetric
     vb[row * kN + lane] = slab[row * (kN + 1) + lane];
 }
 
+// ---- n == 48: one thread per 2x2 block, one barrier a round -----------
+
+constexpr int kPairN = 48;
+
+template <int N>
+__global__ void __launch_bounds__((N / 2) * (N / 2))
+jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
+                   const int* __restrict__ tables,   // layout0[N] | repair_dst[N]
+                   float* __restrict__ w_out,        // (B, N)
+                   float* __restrict__ v_out,        // (B, N, N)
+                   int rounds, int descending, float eps) {
+  constexpr int H = N / 2, LD = N + 8, T = H * H;
+  constexpr int kRows = 4;                // a warp's patch: 4 x 8 pairs
+  constexpr int kPatchCols = H / 8;
+  static_assert(H % 8 == 0 && H % kRows == 0,
+                "patches of 4 x 8 pairs, a rotation a lane");
+  __shared__ float a_buf[2][N * LD];
+  __shared__ float v_buf[2][N * LD];
+  __shared__ float w_nat[N];              // natural order
+  __shared__ int lay[N];                  // round-0 position -> node index
+  __shared__ int pos_of[N];               // node index -> round-0 position
+  __shared__ int rank[N];
+  constexpr unsigned kFull = 0xffffffffu;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* tb = t + (size_t)blockIdx.x * N * N;
+  if (tid < N) {
+    lay[tid] = tables[tid];
+    pos_of[tables[tid]] = tid;
+  }
+  __syncthreads();
+  // Natural order -> round-0 layout: A = T[lay][:, lay], V^T = I[lay].
+  for (int idx = tid; idx < N * N; idx += T) {
+    const int i = idx / N, k = idx - i * N;
+    a_buf[0][i * LD + k] = tb[lay[i] * N + lay[k]];
+    v_buf[0][i * LD + k] = (lay[i] == k) ? 1.f : 0.f;
+  }
+  // This thread's block (pair pa rows, pair pb columns) and where the
+  // re-pair sends its rows and columns.
+  const int pa0 = (warp / kPatchCols) * kRows, pb0 = (warp % kPatchCols) * 8;
+  const int pa = pa0 + (lane >> 3), pb = pb0 + (lane & 7);
+  const int i0 = tables[N + pa], i1 = tables[N + pa + H];
+  const int k0 = tables[N + pb], k1 = tables[N + pb + H];
+  // The rotation this lane computes: lanes 0-7 the patch's column pairs,
+  // lanes 8 to 11 its row pairs (the rest repeat those).
+  const int j = lane < 8 ? pb0 + lane : pa0 + (lane - 8) % kRows;
+  __syncthreads();
+
+  int cur = 0;
+  for (int r = 0; r < rounds; ++r) {
+    const float* a = a_buf[cur];
+    const float* v = v_buf[cur];
+    float* an = a_buf[cur ^ 1];
+    float* vn = v_buf[cur ^ 1];
+    float c, s;
+    rotation_cs(a[j * LD + j], a[(j + H) * LD + j + H], a[j * LD + j + H],
+                eps, &c, &s);
+    const float cb = __shfl_sync(kFull, c, lane & 7);
+    const float sb = __shfl_sync(kFull, s, lane & 7);
+    const float a00 = a[pa * LD + pb], a01 = a[pa * LD + pb + H];
+    const float a10 = a[(pa + H) * LD + pb];
+    const float a11 = a[(pa + H) * LD + pb + H];
+    const float v00 = v[pa * LD + pb], v01 = v[pa * LD + pb + H];
+    const float v10 = v[(pa + H) * LD + pb];
+    const float v11 = v[(pa + H) * LD + pb + H];
+    const float ca = __shfl_sync(kFull, c, 8 + (lane >> 3));
+    const float sa = __shfl_sync(kFull, s, 8 + (lane >> 3));
+    // A <- R A R^T on the block: row mix, then column mix, then the
+    // re-paired slots.
+    const float r00 = sub(mul(ca, a00), mul(sa, a10));
+    const float r01 = sub(mul(ca, a01), mul(sa, a11));
+    const float r10 = add(mul(sa, a00), mul(ca, a10));
+    const float r11 = add(mul(sa, a01), mul(ca, a11));
+    an[i0 * LD + k0] = sub(mul(cb, r00), mul(sb, r01));
+    an[i0 * LD + k1] = add(mul(sb, r00), mul(cb, r01));
+    an[i1 * LD + k0] = sub(mul(cb, r10), mul(sb, r11));
+    an[i1 * LD + k1] = add(mul(sb, r10), mul(cb, r11));
+    // V^T <- R V^T on columns pb and pb + H, rows re-paired.
+    vn[i0 * LD + pb] = sub(mul(ca, v00), mul(sa, v10));
+    vn[i1 * LD + pb] = add(mul(sa, v00), mul(ca, v10));
+    vn[i0 * LD + pb + H] = sub(mul(ca, v01), mul(sa, v11));
+    vn[i1 * LD + pb + H] = add(mul(sa, v01), mul(ca, v11));
+    __syncthreads();
+    cur ^= 1;
+  }
+
+  // sweeps * (N - 1) re-pairs return the layout to round-0 form:
+  // eigenpair at position j belongs to node index lay[j].
+  const float* a = a_buf[cur];
+  const float* v = v_buf[cur];
+  if (tid < N) w_nat[lay[tid]] = a[tid * LD + tid];
+  __syncthreads();
+  if (tid < N) {
+    const float wj = w_nat[tid];
+    int cnt = 0;
+    for (int k = 0; k < N; ++k) {
+      const float wk = w_nat[k];
+      const bool before = descending ? (wk > wj) : (wk < wj);
+      cnt += (before || (wk == wj && k < tid)) ? 1 : 0;
+    }
+    rank[tid] = cnt;
+    w_out[(size_t)blockIdx.x * N + cnt] = wj;
+  }
+  __syncthreads();
+  // v[:, rank[j]] = natural eigenvector j = row pos_of[j] of V^T.
+  float* vb = v_out + (size_t)blockIdx.x * N * N;
+  for (int idx = tid; idx < N * N; idx += T) {
+    const int row = idx / N, jj = idx - row * N;
+    vb[row * N + rank[jj]] = v[pos_of[jj] * LD + row];
+  }
+}
+
 }  // namespace
 
 extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
@@ -305,6 +432,13 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
     jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0,
                          (cudaStream_t)stream>>>(
         (const float*)t, (const int*)tables, (float*)w, (float*)v, batch,
+        sweeps * (n - 1), descending, eps);
+    return (int)cudaGetLastError();
+  }
+  if (n == kPairN) {
+    jacobi_pair_kernel<kPairN><<<batch, (kPairN / 2) * (kPairN / 2), 0,
+                                 (cudaStream_t)stream>>>(
+        (const float*)t, (const int*)tables, (float*)w, (float*)v,
         sweeps * (n - 1), descending, eps);
     return (int)cudaGetLastError();
   }

@@ -69,13 +69,18 @@
 //
 // Above N = 256 the bf16 copy of M no longer fits a block's shared memory
 // (532 KB at N = 512). Those shapes, 256 < N <= 832, take the STREAMED
-// plan at the end of this file (pe_big_kernel): the same steps in the same
-// order, M streamed from device memory for every power step and Q^T kept
-// in a device scratch that stays in the L2 cache.
+// plan at the end of this file (pe_cluster_kernel): the same steps in the
+// same order on a cluster of 2 or 4 blocks per graph, the rounds on the
+// tensor cores against a bf16 copy of M that the kernel makes once in a
+// device scratch and streams for every power step, Q^T in registers and
+// in a bf16 copy in every block's shared memory.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -825,41 +830,79 @@ int launch(const Plan& p, const void* m, const void* q0, void* out, int batch,
 
 // ---- the streamed plan: 256 < N <= 832 ---------------------------------
 //
-// One block of 512 threads per graph. Nothing of size N^2 or k*N lives in
-// shared memory:
-//   * Q^T (kp, N) f32 lives in a device scratch, two buffers per graph
-//     (every step reads one and writes the other; 160 KB each at k = 48,
-//     N = 832, so a batch of 64 stays in the L2 cache). Threads of the
-//     block see each other's writes to it after __syncthreads().
-//   * M streams from device memory once per power step, in chunks of 32
-//     rows x 256 columns that are staged through shared memory beside the
-//     matching 32 columns of Q^T; the next chunk's loads are in flight in
-//     registers while the block multiplies the current one.
-//   * Every product runs on the CUDA cores in f32. For the rounds both
-//     operands are rounded to bf16 where they are staged or loaded; a
-//     product of two bf16 values is exact in f32, so the f32 FMAs give the
-//     bf16-input, f32-sum product of the plain version. M is read as
-//     M[j][c], as above.
-//   * A thread owns 4 columns x kp/8 rows of the output (rows tr + 8i), a
-//     pass covers 256 columns, and the Gram is 4x4 tiles of the upper
-//     triangle, one warp a tile with the lanes along the depth, summed by
-//     shuffle and mirrored (so G is symmetric bit for bit).
-//   * Work follows the data here too: the block finds the extent of the
-//     non-zeros of M and Q^T, rounds it up to 32, and runs every loop over
-//     the live rows and columns only.
-// This plan is bound by the CUDA cores' f32 rate and by one block per
-// graph (a batch of 64 fills half the card); it is the simple version.
+// Above N = 256 neither M's bf16 copy nor a graph's whole chain fits one
+// block well: the bytes are too many for shared memory and one SM is too
+// slow for a batch of 64 graphs on 132 SMs. What bounds this plan on the
+// card is one graph's serial chain of steps (about 100 barrier-separated
+// phases) and, at N = 832, the 16 passes over a bf16 M that no longer fits
+// the L2 cache. The design:
+//   * A thread block CLUSTER per graph (2 blocks up to N = 512, 4 above),
+//     512 threads a block. The blocks split the live columns of Q^T in
+//     slabs of 16: block r takes slabs [r * spb, (r + 1) * spb) of the
+//     live ones, spb = ceil(live slabs / blocks) <= 16, one warp a slab.
+//     A block (or a warp) with nothing live computes nothing but arrives
+//     at every barrier.
+//   * A bf16 copy of M, made ONCE. The prologue reads all of M anyway to
+//     find the live extent; the same pass (its rows split over the
+//     cluster) writes lo(M) into a device scratch, as 16 x 16 tiles of
+//     512 bytes, tile (j / 16, c / 16) holding M[j][c] AS STORED (never
+//     M[c][j]), its two 16-byte halves of a row swapped on rows 4-7 and
+//     12-15 so that ldmatrix reads it without a bank conflict. The rounds
+//     read half the bytes and round nothing.
+//   * The rounds' products on the tensor cores (mma.sync m16n8k16, as in
+//     the shared plan). A warp keeps its 16 columns of Q^T in f32 in its
+//     accumulator registers for the whole round. Q^T is rounded to bf16
+//     once, where it is written, into a (kp, N) copy in shared memory (two
+//     buffers) that is the A operand of the next power step; a power
+//     step's epilogue writes the warp's columns into the copy of EVERY
+//     block of the cluster through distributed shared memory, and one
+//     cluster barrier closes the step. B = lo(M) needs only the warp's own
+//     16 columns: every warp streams its own tiles through a private ring
+//     of four 512-byte stages with cp.async (three copies in flight) and
+//     reads them with ldmatrix.trans, so a power step has no block-wide
+//     barrier and no byte of M is read twice across the cluster.
+//   * Newton-Schulz: the Gram is summed per block over its own columns
+//     (16 x 8 tensor-core tiles from the shared copy), the partial G's
+//     are read from every block's shared memory and added in block order,
+//     so G does not depend on timing and is symmetric bit for bit; the
+//     G Q^T update needs only the warp's own columns. colunit's sums of
+//     squares travel the same way. Inside an orthonormalization only the
+//     last store of lo(Q^T) goes to the other blocks.
+//   * The f32 work (polish, the NS finish, every round when lo = 0) stays
+//     in full f32 on the CUDA cores, register-tiled (a thread owns 4
+//     columns x kp/8 rows), split over the cluster by the same columns.
+//     Every block keeps a full f32 copy of Q^T in shared memory (the bytes
+//     of the bf16 copies). A power step reads all of it as A and streams
+//     f32 M at the block's columns in panels of 16 rows with cp.async
+//     (three buffers); its result stays in registers until every block is
+//     done reading, then goes to every block's copy through distributed
+//     shared memory. The f32 Newton-Schulz runs in place on the block's
+//     own columns; only sums of squares and partial Grams cross the
+//     cluster. Q^T never goes to device memory.
+//   * Work follows the data: every loop runs over the live extent only
+//     (rounded up to 32), found by the prologue.
+// Barriers between blocks are cluster barriers (release/acquire), which
+// also order the bf16 copy of M in device memory.
+
+namespace cg = cooperative_groups;
 
 constexpr int kBigThreads = 512;
 constexpr int kBigWarps = kBigThreads / 32;
-constexpr int kBigCols = 256;             // columns a pass covers: 64 x 4
-constexpr int kBigDepth = 32;             // rows of M in a staged chunk
-constexpr int kBigLda = kBigDepth + 4;    // row stride of the staged Q^T
+constexpr int kRing = 4;                  // stages of a warp's ring of tiles
+constexpr int kTile = 512;                // bytes of a 16 x 16 bf16 tile
+constexpr int kMaxCluster = 4;
 
 struct BigPlan {
   int n, k, kp, kt;
-  int off_a, off_b, off_gram, off_red;   // bytes
+  int cluster;       // blocks per graph
+  int slabs;         // n / 16
+  int spb;           // most slabs a block takes: ceil(slabs / cluster)
+  int ldq;           // row stride of the bf16 Q^T
+  int ldf;           // row stride of the f32 Q^T
+  int ldp;           // row stride of a staged panel of f32 M: 16 spb
+  int off_ring, off_gram, off_glo, off_redw, off_redc, off_red;   // bytes
   int smem;
+  int scratch;       // bytes of device scratch per graph
 };
 
 // Shapes: n a multiple of 32 in (256, 832], 1 <= k <= 48.
@@ -868,163 +911,460 @@ inline bool pe_big_plan(int n, int k, BigPlan* p) {
   p->n = n; p->k = k;
   p->kp = (k + 15) / 16 * 16;
   p->kt = p->kp / 16;
-  int off = 0;
-  p->off_a = off;    off += p->kp * kBigLda * 4;
-  p->off_b = off;    off += kBigDepth * kBigCols * 4;
-  p->off_gram = off; off += p->kp * p->kp * 4;
-  p->off_red = off;  off += p->kp * 4 + 16;
+  p->cluster = n <= 512 ? 2 : kMaxCluster;
+  p->slabs = n / 16;
+  p->spb = (p->slabs + p->cluster - 1) / p->cluster;
+  p->ldq = n + 8;
+  p->ldf = n + 4;
+  p->ldp = 16 * p->spb;
+  const int kk = p->kp * p->kp;
+  // The two bf16 copies of Q^T; the f32 steps keep one f32 copy of Q^T
+  // (kp, ldf) in the same bytes (never more: 4 (n + 4) <= 4 (n + 8)).
+  int off = align16(2 * p->kp * p->ldq * 2);
+  // The warps' rings of bf16 tiles; the f32 power steps' three panels of
+  // f32 M take the same bytes, and between power steps the two partial
+  // Gram matrices (2 kk f32 <= 18 KB).
+  const int ring_bytes = kBigWarps * kRing * kTile;
+  const int panel_bytes = kStages * kPanel * p->ldp * 4;
+  p->off_ring = off;
+  off += ring_bytes > panel_bytes ? ring_bytes : panel_bytes;
+  p->off_gram = off; off += kk * 4;
+  p->off_glo = off;  off += align16(p->kp * (p->kp + 8) * 2);
+  p->off_redw = off; off += kBigWarps * p->kp * 4;
+  p->off_redc = off; off += kMaxCluster * p->kp * 4;
+  p->off_red = off;  off += p->kp * 4 + 16 + kMaxCluster * 4;
   p->smem = off;
+  p->scratch = n * n * 2;
   return true;
-}
-
-template <bool LO>
-__device__ __forceinline__ float rnd(float v) {
-  return LO ? __bfloat162float(__float2bfloat16_rn(v)) : v;
-}
-
-template <bool LO>
-__device__ __forceinline__ float4 rnd4(float4 v) {
-  return make_float4(rnd<LO>(v.x), rnd<LO>(v.y), rnd<LO>(v.z), rnd<LO>(v.w));
 }
 
 template <int KT>
 struct Big {
   static constexpr int kp = 16 * KT;
+  static constexpr int ldg = kp + 8;
   int n;            // padded nodes
   int ne;           // live nodes, a multiple of 32
-  float* qa;        // device scratch (kp, n): the current Q^T
-  float* qb;        // the buffer the next step writes
+  int ldq, ldf, ldp, slabs;
+  int rank, nblk;   // this block in its cluster; blocks in the cluster
+  int s0, s1;       // the live slabs [s0, s1) of 16 columns of this block
   const float* mg;  // device memory (n, n), f32
-  float* as;        // (kp, kBigLda) staged columns of Q^T
-  float* bs;        // (kBigDepth, kBigCols) staged rows of M
+  const unsigned char* mlo;   // device scratch: lo(M) in 512-byte tiles
+  bf16* qlo0;       // two (kp, ldq) bf16 copies of Q^T, back to back
+  float* qf;        // (kp, ldf) f32 copy of Q^T; qlo0's bytes
+  unsigned char* ring;        // (warps, kRing, kTile), or
+                              // (kStages, kPanel, ldp) panels of f32 M
+  float* gpart0;    // two (kp, kp) partial Grams; the ring's bytes
   float* gram;      // (kp, kp)
+  bf16* glo;        // (kp, ldg) bf16 copy of G
+  float* redw;      // (warps, kp)
+  float* redc;      // (kMaxCluster, kp): every block's sums of squares
   float* red;       // (kp)
   float* scal;      // (1)
   int tid, warp, lane;
+  int cur;          // which bf16 copy holds lo(Q^T)
+  int par;          // which partial Gram the next Gram writes
+  __device__ __forceinline__ bf16* qlo(int which) const {
+    return qlo0 + which * kp * ldq;
+  }
+  __device__ __forceinline__ bool warp_live() const { return s0 + warp < s1; }
 };
 
-// Q^T <- lo(Q^T) lo(M), or the f32 product when LO is false.
-template <int KT, bool LO>
-__device__ void big_power(Big<KT>& x) {
-  constexpr int R = 2 * KT;
-  const int n = x.n, ne = x.ne;
-  const int tc = x.tid & 63, tr = x.tid >> 6;
-  const int chunks = ne / kBigDepth;
-  for (int c0 = 0; c0 < ne; c0 += kBigCols) {
-    const int col = c0 + 4 * tc;
-    const bool live = col < ne;
-    float acc[R][4];
+// red[row] = max(sqrt(sum of squares of row), 1e-20) over the cluster.
+// `mine` is this block's sum for row tid (threads tid < kp); it is handed
+// to every block and the blocks' sums are added in block order. One
+// cluster barrier.
+template <int KT>
+__device__ __forceinline__ void big_norms(Big<KT>& x, float mine) {
+  cg::cluster_group cl = cg::this_cluster();
+  if (x.tid < x.kp) {
+    for (int r = 0; r < x.nblk; ++r)
+      cl.map_shared_rank(x.redc, r)[x.rank * x.kp + x.tid] = mine;
+  }
+  cl.sync();
+  if (x.tid < x.kp) {
+    float s = 0.f;
+    for (int r = 0; r < x.nblk; ++r) s += x.redc[r * x.kp + x.tid];
+    x.red[x.tid] = fmaxf(__fsqrt_rn(s), 1e-20f);
+  }
+  __syncthreads();
+}
+
+// G = the blocks' partial Grams added in block order. TO_LO: also the
+// bf16 copy. One cluster barrier; the next Gram writes the other partial.
+template <bool TO_LO, int KT>
+__device__ __forceinline__ void big_gram_reduce(Big<KT>& x) {
+  cg::cluster_group cl = cg::this_cluster();
+  constexpr int kk = Big<KT>::kp * Big<KT>::kp;
+  float* part = x.gpart0 + x.par * kk;
+  cl.sync();
+  const float* parts[kMaxCluster];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+  for (int r = 0; r < kMaxCluster; ++r)
+    parts[r] = cl.map_shared_rank(part, r < x.nblk ? r : 0);
+  for (int idx = x.tid; idx < kk; idx += kBigThreads) {
+    float s = parts[0][idx];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
-    float a_reg[KT];
-    float4 b_reg[4];
-    // Chunk ch into registers: 32 columns of Q^T (kp x 32 values, KT a
-    // thread) and 32 rows x 256 columns of M (four float4 a thread).
-    auto fetch = [&](int ch) {
-      const int j0 = ch * kBigDepth;
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int idx = x.tid + t * kBigThreads;
-        a_reg[t] = x.qa[(idx >> 5) * n + j0 + (idx & 31)];
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int idx = x.tid + t * kBigThreads;
-        const int row = idx >> 6, cc = c0 + 4 * (idx & 63);
-        b_reg[t] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (cc < ne)
-          b_reg[t] = *reinterpret_cast<const float4*>(
-              x.mg + (size_t)(j0 + row) * n + cc);
-      }
-    };
-    fetch(0);
-    for (int ch = 0; ch < chunks; ++ch) {
-#pragma unroll
-      for (int t = 0; t < KT; ++t) {
-        const int idx = x.tid + t * kBigThreads;
-        x.as[(idx >> 5) * kBigLda + (idx & 31)] = rnd<LO>(a_reg[t]);
-      }
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int idx = x.tid + t * kBigThreads;
-        *reinterpret_cast<float4*>(
-            x.bs + (idx >> 6) * kBigCols + 4 * (idx & 63)) =
-            rnd4<LO>(b_reg[t]);
-      }
-      __syncthreads();
-      if (ch + 1 < chunks) fetch(ch + 1);
-      if (live) {
-#pragma unroll 2
-        for (int j = 0; j < kBigDepth; j += 4) {
-          float4 mv[4];
-#pragma unroll
-          for (int u = 0; u < 4; ++u)
-            mv[u] = *reinterpret_cast<const float4*>(
-                x.bs + (j + u) * kBigCols + 4 * tc);
-#pragma unroll
-          for (int i = 0; i < R; ++i) {
-            const float4 q = *reinterpret_cast<const float4*>(
-                x.as + (tr + 8 * i) * kBigLda + j);
-            fma_1x4x4(acc[i], q, mv);
-          }
-        }
-      }
-      __syncthreads();
+    for (int r = 1; r < kMaxCluster; ++r)   // unrolled: the loads overlap
+      if (r < x.nblk) s += parts[r][idx];
+    x.gram[idx] = s;
+    if (TO_LO) {
+      const int a = idx / x.kp, b = idx - a * x.kp;
+      x.glo[a * x.ldg + b] = __float2bfloat16_rn(s);
     }
-    if (live) {
+  }
+  __syncthreads();
+  x.par ^= 1;
+}
+
+// ---- tensor-core side of the streamed plan ------------------------------
+
+// The one place Q^T is rounded to bf16: registers -> the other buffer, of
+// this block only or (all) of every block of the cluster. Ends with a
+// block or a cluster barrier; x.cur then names the buffer just written.
+template <int KT>
+__device__ __forceinline__ void big_store_lo(Big<KT>& x,
+                                             const float (&q)[KT][2][4],
+                                             bool all) {
+  cg::cluster_group cl = cg::this_cluster();
+  bf16* mine = x.qlo(x.cur ^ 1);
+  if (x.warp_live()) {
+    const int g = x.lane >> 2, t = x.lane & 3;
+    const int c0 = (x.s0 + x.warp) * 16;
+    __nv_bfloat162 v[KT][2][2];
+#pragma unroll
+    for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        v[mt][nt][0] = __floats2bfloat162_rn(q[mt][nt][0], q[mt][nt][1]);
+        v[mt][nt][1] = __floats2bfloat162_rn(q[mt][nt][2], q[mt][nt][3]);
+      }
+    for (int r = 0; r < (all ? x.nblk : 1); ++r) {
+      bf16* dst = all ? cl.map_shared_rank(mine, r) : mine;
+#pragma unroll
+      for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int col = c0 + nt * 8 + 2 * t;
+          *reinterpret_cast<__nv_bfloat162*>(
+              &dst[(mt * 16 + g) * x.ldq + col]) = v[mt][nt][0];
+          *reinterpret_cast<__nv_bfloat162*>(
+              &dst[(mt * 16 + g + 8) * x.ldq + col]) = v[mt][nt][1];
+        }
+    }
+  }
+  if (all) cl.sync(); else __syncthreads();
+  x.cur ^= 1;
+}
+
+// Q^T <- lo(Q^T) lo(M) for this warp's 16 columns: A is the whole live
+// depth of the shared bf16 copy, B the warp's own tiles of lo(M), streamed
+// through its ring. No block-wide barrier.
+template <int KT>
+__device__ __forceinline__ void big_power_lo(Big<KT>& x,
+                                             float (&q)[KT][2][4]) {
+  if (!x.warp_live()) return;
+  const int lane = x.lane, ksteps = x.ne / 16;
+  unsigned char* ring = x.ring + x.warp * kRing * kTile;
+  const unsigned char* src =
+      x.mlo + (size_t)(x.s0 + x.warp) * kTile + lane * 16;
+  const size_t down = (size_t)x.slabs * kTile;   // one tile row further
+  auto fetch = [&](int s) {
+    if (s < ksteps)
+      cp_async16(ring + (s % kRing) * kTile + lane * 16, src + s * down);
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+#pragma unroll
+  for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kRing - 1; ++s) fetch(s);
+  const bf16* a_s = x.qlo(x.cur);
+  const int lr = lane & 15, lc = (lane >> 4) * 8;
+  // Row lr of a tile, its 16-byte half (lane / 16) swapped on rows 4-7
+  // and 12-15, as the prologue stored it.
+  const int boff = lr * 32 + (((lane >> 4) ^ ((lr >> 2) & 1)) * 16);
+  for (int s = 0; s < ksteps; ++s) {
+    // All but the two newest copies are done: tile s has landed; after
+    // the warp barrier every lane is done with tile s - 1, whose stage
+    // the next copy refills.
+    asm volatile("cp.async.wait_group 2;" ::: "memory");
+    __syncwarp();
+    fetch(s + kRing - 1);
+    uint32_t b[4];
+    ldsm_x4_trans(b, ring + (s % kRing) * kTile + boff);
+#pragma unroll
+    for (int mt = 0; mt < KT; ++mt) {
+      uint32_t a[4];
+      ldsm_x4(a, a_s + (mt * 16 + lr) * x.ldq + s * 16 + lc);
+      mma_bf16(q[mt][0], a, b[0], b[1]);
+      mma_bf16(q[mt][1], a, b[2], b[3]);
+    }
+  }
+}
+
+// Rows of Q^T scaled to unit norm (floor 1e-20), from the registers.
+template <int KT>
+__device__ __forceinline__ void big_colunit_regs(Big<KT>& x,
+                                                 float (&q)[KT][2][4]) {
+  const int g = x.lane >> 2, t = x.lane & 3;
+  const bool live = x.warp_live();
+#pragma unroll
+  for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live) break;
+      float s = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        s = fmaf(q[mt][nt][2 * h], q[mt][nt][2 * h], s);
+        s = fmaf(q[mt][nt][2 * h + 1], q[mt][nt][2 * h + 1], s);
+      }
+      s += __shfl_xor_sync(0xffffffffu, s, 1);
+      s += __shfl_xor_sync(0xffffffffu, s, 2);
+      if (t == 0) x.redw[x.warp * x.kp + mt * 16 + h * 8 + g] = s;
+    }
+  __syncthreads();
+  float mine = 0.f;
+  if (x.tid < x.kp)
+    for (int w = 0; w < x.s1 - x.s0; ++w) mine += x.redw[w * x.kp + x.tid];
+  big_norms(x, mine);
+#pragma unroll
+  for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live) break;
+      const float d = x.red[mt * 16 + h * 8 + g];
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt) {
+        q[mt][nt][2 * h] = __fdiv_rn(q[mt][nt][2 * h], d);
+        q[mt][nt][2 * h + 1] = __fdiv_rn(q[mt][nt][2 * h + 1], d);
+      }
+    }
+  // redw and red are next written behind the barriers of the store and
+  // of the Gram.
+}
+
+// This block's part of G = lo(Q^T) lo(Q^T)^T: the sum over its own live
+// columns, 16 x 8 tiles from the current bf16 copy, one tile per warp
+// turn, straight from the accumulators into the partial Gram.
+template <int KT>
+__device__ __forceinline__ void big_gram_lo(Big<KT>& x) {
+  constexpr int kTiles = 2 * KT * KT;
+  const bf16* q = x.qlo(x.cur);
+  float* part = x.gpart0 + x.par * x.kp * x.kp;
+  const int lane = x.lane, g = lane >> 2, t = lane & 3;
+  const int lr = lane & 15, lc = (lane >> 4) * 8;
+  const int br = lane & 7, bc = 8 * ((lane >> 3) & 1);
+  for (int tile = x.warp; tile < kTiles; tile += kBigWarps) {
+    const int mt = tile / (2 * KT), nt = tile % (2 * KT);
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int s = x.s0; s < x.s1; ++s) {
+      uint32_t a[4], b[2];
+      ldsm_x4(a, q + (mt * 16 + lr) * x.ldq + s * 16 + lc);
+      ldsm_x2(b, q + (nt * 8 + br) * x.ldq + s * 16 + bc);
+      mma_bf16(acc, a, b[0], b[1]);
+    }
+    const int row = mt * 16 + g, col = nt * 8 + 2 * t;
+    *reinterpret_cast<float2*>(&part[row * x.kp + col]) =
+        make_float2(acc[0], acc[1]);
+    *reinterpret_cast<float2*>(&part[(row + 8) * x.kp + col]) =
+        make_float2(acc[2], acc[3]);
+  }
+}
+
+// Newton-Schulz with bf16-input products; Q^T in registers. On return
+// qlo[cur] of every block holds lo(Q^T), all live columns.
+template <int KT>
+__device__ void big_ns_lo(Big<KT>& x, float (&q)[KT][2][4], int steps) {
+  big_colunit_regs(x, q);
+  big_store_lo(x, q, false);
+  big_gram_lo(x);
+  big_gram_reduce<false>(x);
+  gershgorin(x);
+  const float sc = x.scal[0];
+  const float sc2 = __fmul_rn(sc, sc);
+#pragma unroll
+  for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) q[mt][nt][e] = __fmul_rn(q[mt][nt][e], sc);
+  for (int idx = x.tid; idx < x.kp * x.kp; idx += kBigThreads) {
+    const int a = idx / x.kp, b = idx - a * x.kp;
+    x.glo[a * x.ldg + b] = __float2bfloat16_rn(__fmul_rn(x.gram[idx], sc2));
+  }
+  big_store_lo(x, q, steps == 0);
+  for (int it = 0; it < steps; ++it) {
+    if (it) {
+      big_gram_lo(x);
+      big_gram_reduce<true>(x);
+    }
+    if (x.warp_live()) {
+      float acc[KT][2][4];
+      mma_panel<KT>(acc, x.glo, x.ldg, x.qlo(x.cur), x.ldq, KT,
+                    (x.s0 + x.warp) * 16, x.lane);
+#pragma unroll
+      for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            q[mt][nt][e] = __fsub_rn(__fmul_rn(1.5f, q[mt][nt][e]),
+                                     __fmul_rn(0.5f, acc[mt][nt][e]));
+    }
+    big_store_lo(x, q, it == steps - 1);
+  }
+}
+
+// ---- f32 side of the streamed plan --------------------------------------
+//
+// Every block keeps a full f32 copy of Q^T (kp, ldf) in shared memory (the
+// bytes of the two bf16 copies, which the f32 steps no longer need). A
+// thread owns 4 columns x kp/8 rows (rows tr + 8 i) of the block's columns.
+
+// acc <- (Q^T M)[rows, the thread's columns] in f32. A is the block's full
+// copy of Q^T; M's rows stream at the block's columns through shared
+// memory in panels of kPanel rows (cp.async, three buffers, two copies in
+// flight: the copy of panel p + 1 runs under the FMAs on panel p). The
+// copy of Q^T is only read: the caller writes the new columns after a
+// cluster barrier.
+template <int KT>
+__device__ void big_power_f32(Big<KT>& x, float (&acc)[2 * KT][4]) {
+  constexpr int R = 2 * KT;
+  const int n = x.n, ldp = x.ldp;
+  const int tc = x.tid & 63, tr = x.tid >> 6;
+  const int c0 = 16 * x.s0, own = 16 * (x.s1 - x.s0);
+  const bool live = 4 * tc < own;
+  const int panels = own ? x.ne / kPanel : 0;    // the same for the block
+  float* stage = reinterpret_cast<float*>(x.ring);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+  auto copy_panel = [&](int p) {   // rows tr and tr + 8 of panel p
+    if (live && p < panels) {
+      float* dst = stage + (p % kStages) * kPanel * ldp + 4 * tc;
+      const float* src = x.mg + (size_t)p * kPanel * n + c0 + 4 * tc;
+      cp_async16(dst + tr * ldp, src + tr * n);
+      cp_async16(dst + (tr + 8) * ldp, src + (tr + 8) * n);
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  copy_panel(0);
+  copy_panel(1);
+  for (int p = 0; p < panels; ++p) {
+    // All but the newest copy are done: panel p has landed for every
+    // thread, and every thread is done with panel p - 1, whose buffer the
+    // next copy (panel p + 2, or an empty group) refills.
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+    __syncthreads();
+    copy_panel(p + 2);
+    if (!live) continue;
+    const float* mp = stage + (p % kStages) * kPanel * ldp + 4 * tc;
+    const float* qp = x.qf + tr * x.ldf + p * kPanel;
+#pragma unroll
+    for (int j = 0; j < kPanel; j += 4) {
+      float4 m[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        m[u] = *reinterpret_cast<const float4*>(mp + (j + u) * ldp);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const float4 q =
+            *reinterpret_cast<const float4*>(qp + 8 * i * x.ldf + j);
+        fma_1x4x4(acc[i], q, m);
+      }
+    }
+  }
+}
+
+// The thread's tile into the copy of Q^T of every block of the cluster
+// (or, others_only, of every other block: the block's own copy already
+// holds it); ends with a cluster barrier. Every block must be done reading
+// the columns that are overwritten: a cluster barrier comes first.
+template <int KT>
+__device__ __forceinline__ void big_put_f32(Big<KT>& x,
+                                            const float (&acc)[2 * KT][4],
+                                            bool others_only) {
+  cg::cluster_group cl = cg::this_cluster();
+  constexpr int R = 2 * KT;
+  const int tc = x.tid & 63, tr = x.tid >> 6;
+  const int col = 16 * x.s0 + 4 * tc;
+  if (col < 16 * x.s1) {
+    for (int r = 0; r < x.nblk; ++r) {
+      if (others_only && r == x.rank) continue;
+      float* dst = cl.map_shared_rank(x.qf, r);
 #pragma unroll
       for (int i = 0; i < R; ++i)
-        *reinterpret_cast<float4*>(x.qb + (tr + 8 * i) * n + col) =
+        *reinterpret_cast<float4*>(&dst[(tr + 8 * i) * x.ldf + col]) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
-  __syncthreads();
-  float* other = x.qa; x.qa = x.qb; x.qb = other;
+  cl.sync();
 }
 
-// Rows of Q^T scaled to unit norm (floor 1e-20), in place.
+// One polish step: Q^T <- colunit(Q^T M), two cluster barriers. The sums
+// of squares come from the tiles (the 32 lanes of a warp hold 128 columns
+// of a row, two warps a row), so the barrier inside big_norms also says
+// that every block is done reading the old Q^T.
 template <int KT>
-__device__ void big_colunit(Big<KT>& x) {
-  constexpr int kp = 16 * KT;
-  const int n = x.n, ne4 = x.ne / 4;
-  for (int r = x.warp; r < kp; r += kBigWarps) {
+__device__ void big_polish_f32(Big<KT>& x) {
+  constexpr int R = 2 * KT;
+  const int tr = x.tid >> 6;
+  float acc[R][4];
+  big_power_f32(x, acc);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
     float s = 0.f;
-    for (int c = x.lane; c < ne4; c += 32) {
-      const float4 v = *reinterpret_cast<const float4*>(x.qa + r * n + 4 * c);
-      s = fmaf(v.x, v.x, s);
-      s = fmaf(v.y, v.y, s);
-      s = fmaf(v.z, v.z, s);
-      s = fmaf(v.w, v.w, s);
-    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s = fmaf(acc[i][u], acc[i][u], s);
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn(s), 1e-20f);
+    if (x.lane == 0) x.redw[2 * (tr + 8 * i) + (x.warp & 1)] = s;
   }
   __syncthreads();
-  for (int idx = x.tid; idx < kp * ne4; idx += kBigThreads) {
-    const int r = idx / ne4, c = idx - r * ne4;
-    float4* p = reinterpret_cast<float4*>(x.qa + r * n + 4 * c);
-    const float d = x.red[r];
-    float4 q = *p;
-    q.x = __fdiv_rn(q.x, d);
-    q.y = __fdiv_rn(q.y, d);
-    q.z = __fdiv_rn(q.z, d);
-    q.w = __fdiv_rn(q.w, d);
-    *p = q;
+  big_norms(x, x.tid < x.kp ? x.redw[2 * x.tid] + x.redw[2 * x.tid + 1] : 0.f);
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const float d = x.red[tr + 8 * i];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = __fdiv_rn(acc[i][u], d);
   }
-  __syncthreads();
+  big_put_f32(x, acc, false);
 }
 
-// G = lo(Q^T) lo(Q^T)^T (f32 when LO is false) into x.gram; with
-// `rounded` the stored values are lo(G), which is all the NS update reads.
-template <int KT, bool LO>
-__device__ void big_gram(Big<KT>& x, bool rounded) {
+// One f32 power step of a round (lo = 0): Q^T <- Q^T M.
+template <int KT>
+__device__ void big_step_f32(Big<KT>& x) {
+  float acc[2 * KT][4];
+  big_power_f32(x, acc);
+  cg::this_cluster().sync();   // every block is done reading the old Q^T
+  big_put_f32(x, acc, false);
+}
+
+// This block's part of G = Q^T Q in f32, from its own columns of the copy
+// in shared memory: 4x4 tiles (rows ta + kq*i, tb + kq*j) of the upper
+// triangle, mirrored (so G is symmetric bit for bit). Four lanes share a
+// tile, each taking a slice of the block's columns, and sum their parts by
+// shuffle (pairwise, a fixed order). The lanes of a tile sit 8 apart, so
+// the 8 lanes of a 128-bit load phase read the same slice of 8 different
+// tiles.
+template <int KT>
+__device__ void big_gram_f32(Big<KT>& x) {
   constexpr int kp = 16 * KT, kq = kp / 4, tiles = kq * (kq + 1) / 2;
-  const int n = x.n, ne4 = x.ne / 4;
-  for (int tile = x.warp; tile < tiles; tile += kBigWarps) {
-    int ta = 0, tb = tile;
+  constexpr int c = 4, per = 32 / c;                   // tiles a warp turn
+  const int own = 16 * (x.s1 - x.s0);
+  const float* qt = x.qf + 16 * x.s0;
+  const int sub = x.lane / per;                        // this lane's slice
+  const int depth = (own / 4 + c - 1) / c * 4;         // of one lane
+  float* part = x.gpart0 + x.par * kp * kp;
+  for (int t0 = x.warp * per; t0 < tiles; t0 += kBigWarps * per) {
+    const int tile = t0 + x.lane % per;
+    const bool valid = tile < tiles;   // the others only join the shuffles
+    int ta = 0, tb = valid ? tile : 0;
     while (tb >= kq - ta) { tb -= kq - ta; ++ta; }
     tb += ta;
     float acc[4][4];
@@ -1032,14 +1372,15 @@ __device__ void big_gram(Big<KT>& x, bool rounded) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-    for (int d = x.lane; d < ne4; d += 32) {
+#pragma unroll 2
+    for (int d = sub * depth; d < min(own, (sub + 1) * depth); d += 4) {
       float4 av[4], bv[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        av[i] = rnd4<LO>(*reinterpret_cast<const float4*>(
-            x.qa + (ta + kq * i) * n + 4 * d));
-        bv[i] = rnd4<LO>(*reinterpret_cast<const float4*>(
-            x.qa + (tb + kq * i) * n + 4 * d));
+        av[i] = *reinterpret_cast<const float4*>(
+            &qt[(ta + kq * i) * x.ldf + d]);
+        bv[i] = *reinterpret_cast<const float4*>(
+            &qt[(tb + kq * i) * x.ldf + d]);
       }
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -1056,60 +1397,94 @@ __device__ void big_gram(Big<KT>& x, bool rounded) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         float v = acc[i][j];
-        for (int off = 16; off > 0; off >>= 1)
-          v += __shfl_xor_sync(0xffffffffu, v, off);
-        if (x.lane == 4 * i + j) {   // every lane holds the sum
-          if (rounded) v = rnd<LO>(v);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        // Every lane of the tile holds the sum; lane `sub` writes row i.
+        if (valid && i == sub) {
           const int a = ta + kq * i, b = tb + kq * j;
-          x.gram[a * kp + b] = v;
-          if (ta != tb) x.gram[b * kp + a] = v;
+          part[a * kp + b] = v;
+          if (ta != tb) part[b * kp + a] = v;
         }
       }
   }
-  __syncthreads();
 }
 
-// Newton-Schulz on Q^T in the scratch: bf16-input products when LO.
-template <int KT, bool LO>
-__device__ void big_ns(Big<KT>& x, int steps) {
+// Newton-Schulz in f32, in place on the block's own columns of its copy
+// of Q^T; only the sums of squares and the partial Grams cross the
+// cluster. At the end the block's columns go to the other blocks' copies;
+// ends with a cluster barrier.
+template <int KT>
+__device__ void big_ns_f32(Big<KT>& x, int steps) {
   constexpr int R = 2 * KT, kp = 16 * KT;
-  const int n = x.n, ne = x.ne, ne4 = ne / 4;
+  const int own4 = 4 * (x.s1 - x.s0);
   const int tc = x.tid & 63, tr = x.tid >> 6;
-  big_colunit(x);
-  big_gram<KT, LO>(x, false);
+  const bool live = tc < own4;
+  float* qt = x.qf + 16 * x.s0 + 4 * tc;     // the thread's columns, row 0
+  // Rows to unit norm over the cluster.
+  for (int r = x.warp; r < kp; r += kBigWarps) {
+    float s = 0.f;
+    for (int c = x.lane; c < own4; c += 32) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          &x.qf[r * x.ldf + 16 * x.s0 + 4 * c]);
+      s = fmaf(v.x, v.x, s);
+      s = fmaf(v.y, v.y, s);
+      s = fmaf(v.z, v.z, s);
+      s = fmaf(v.w, v.w, s);
+    }
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (x.lane == 0) x.redw[r] = s;
+  }
+  __syncthreads();
+  big_norms(x, x.tid < kp ? x.redw[x.tid] : 0.f);
+  float q[R][4];   // the thread's tile, kept in registers between steps
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (live) v = *reinterpret_cast<const float4*>(&qt[(tr + 8 * i) * x.ldf]);
+    const float d = x.red[tr + 8 * i];
+    q[i][0] = __fdiv_rn(v.x, d);
+    q[i][1] = __fdiv_rn(v.y, d);
+    q[i][2] = __fdiv_rn(v.z, d);
+    q[i][3] = __fdiv_rn(v.w, d);
+    if (live)
+      *reinterpret_cast<float4*>(&qt[(tr + 8 * i) * x.ldf]) =
+          make_float4(q[i][0], q[i][1], q[i][2], q[i][3]);
+  }
+  __syncthreads();
+  big_gram_f32(x);
+  big_gram_reduce<false>(x);
   gershgorin(x);
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
-  for (int idx = x.tid; idx < kp * ne4; idx += kBigThreads) {
-    const int r = idx / ne4, c = idx - r * ne4;
-    float4* p = reinterpret_cast<float4*>(x.qa + r * n + 4 * c);
-    float4 q = *p;
-    q.x = __fmul_rn(q.x, sc);
-    q.y = __fmul_rn(q.y, sc);
-    q.z = __fmul_rn(q.z, sc);
-    q.w = __fmul_rn(q.w, sc);
-    *p = q;
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) q[i][u] = __fmul_rn(q[i][u], sc);
+    if (live)
+      *reinterpret_cast<float4*>(&qt[(tr + 8 * i) * x.ldf]) =
+          make_float4(q[i][0], q[i][1], q[i][2], q[i][3]);
   }
   for (int idx = x.tid; idx < kp * kp; idx += kBigThreads)
-    x.gram[idx] = rnd<LO>(__fmul_rn(x.gram[idx], sc2));
+    x.gram[idx] = __fmul_rn(x.gram[idx], sc2);
   __syncthreads();
   for (int it = 0; it < steps; ++it) {
-    if (it) big_gram<KT, LO>(x, true);
-    for (int c0 = 0; c0 < ne; c0 += kBigCols) {
-      const int col = c0 + 4 * tc;
-      if (col >= ne) continue;
-      float acc[R][4];
+    if (it) {
+      big_gram_f32(x);
+      big_gram_reduce<false>(x);
+    }
+    float acc[R][4];
 #pragma unroll
-      for (int i = 0; i < R; ++i)
+    for (int i = 0; i < R; ++i)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+    if (live) {
 #pragma unroll 2
       for (int b = 0; b < kp; b += 4) {
         float4 qv[4];
 #pragma unroll
         for (int u = 0; u < 4; ++u)
-          qv[u] = rnd4<LO>(*reinterpret_cast<const float4*>(
-              x.qa + (b + u) * n + col));
+          qv[u] = *reinterpret_cast<const float4*>(&qt[(b + u) * x.ldf]);
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const float4 g = *reinterpret_cast<const float4*>(
@@ -1117,132 +1492,249 @@ __device__ void big_ns(Big<KT>& x, int steps) {
           fma_1x4x4(acc[i], g, qv);
         }
       }
+    }
+    // In place: every thread is done reading these columns first.
+    __syncthreads();
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int at = (tr + 8 * i) * n + col;
-        float4 q = *reinterpret_cast<const float4*>(x.qa + at);
-        q.x = __fsub_rn(__fmul_rn(1.5f, q.x), __fmul_rn(0.5f, acc[i][0]));
-        q.y = __fsub_rn(__fmul_rn(1.5f, q.y), __fmul_rn(0.5f, acc[i][1]));
-        q.z = __fsub_rn(__fmul_rn(1.5f, q.z), __fmul_rn(0.5f, acc[i][2]));
-        q.w = __fsub_rn(__fmul_rn(1.5f, q.w), __fmul_rn(0.5f, acc[i][3]));
-        *reinterpret_cast<float4*>(x.qb + at) = q;
-      }
+    for (int i = 0; i < R; ++i) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        q[i][u] = __fsub_rn(__fmul_rn(1.5f, q[i][u]),
+                            __fmul_rn(0.5f, acc[i][u]));
+      if (live)
+        *reinterpret_cast<float4*>(&qt[(tr + 8 * i) * x.ldf]) =
+            make_float4(q[i][0], q[i][1], q[i][2], q[i][3]);
     }
     __syncthreads();
-    float* other = x.qa; x.qa = x.qb; x.qb = other;
   }
+  // No block reads another's columns inside an orthonormalization, and
+  // every block passed a cluster barrier after its last read of them.
+  big_put_f32(x, q, true);
 }
 
 template <int KT>
 __global__ void __launch_bounds__(kBigThreads, 1)
-pe_big_kernel(const float* __restrict__ m,    // (B, n, n)
-              const float* __restrict__ q0,   // (B, n, k)
-              float* __restrict__ out,        // (B, n, k)
-              float* scratch,                 // (B, 2, kp, n)
-              BigPlan p, int rounds, int orth_every, int ns_steps, int polish,
-              int final_ns, int lo) {
+pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
+                  const float* __restrict__ q0,   // (B, n, k)
+                  float* __restrict__ out,        // (B, n, k)
+                  unsigned char* scratch,         // (B, p.scratch)
+                  BigPlan p, int rounds, int orth_every, int ns_steps,
+                  int polish, int final_ns, int lo) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cl = cg::this_cluster();
   constexpr int kp = 16 * KT;
   const int n = p.n, k = p.k;
+  const int graph = blockIdx.x / p.cluster;
   Big<KT> x;
-  x.n = n; x.ne = n;
-  x.qa = scratch + (size_t)blockIdx.x * 2 * kp * n;
-  x.qb = x.qa + kp * n;
-  x.mg = m + (size_t)blockIdx.x * n * n;
-  x.as = reinterpret_cast<float*>(smem_raw + p.off_a);
-  x.bs = reinterpret_cast<float*>(smem_raw + p.off_b);
+  x.n = n; x.ne = n; x.ldq = p.ldq; x.ldf = p.ldf; x.ldp = p.ldp;
+  x.slabs = p.slabs;
+  x.rank = (int)cl.block_rank(); x.nblk = p.cluster;
+  unsigned char* mlo = scratch + (size_t)graph * p.scratch;
+  x.mlo = mlo;
+  x.mg = m + (size_t)graph * n * n;
+  x.qlo0 = reinterpret_cast<bf16*>(smem_raw);
+  x.qf = reinterpret_cast<float*>(smem_raw);
+  x.ring = smem_raw + p.off_ring;
+  x.gpart0 = reinterpret_cast<float*>(smem_raw + p.off_ring);
   x.gram = reinterpret_cast<float*>(smem_raw + p.off_gram);
+  x.glo = reinterpret_cast<bf16*>(smem_raw + p.off_glo);
+  x.redw = reinterpret_cast<float*>(smem_raw + p.off_redw);
+  x.redc = reinterpret_cast<float*>(smem_raw + p.off_redc);
   x.red = reinterpret_cast<float*>(smem_raw + p.off_red);
   x.scal = x.red + kp;
   x.tid = threadIdx.x; x.warp = threadIdx.x >> 5; x.lane = threadIdx.x & 31;
-  const float* qg = q0 + (size_t)blockIdx.x * n * k;
+  x.cur = 0; x.par = 0;
+  const float* qg = q0 + (size_t)graph * n * k;
 
-  // extent: 1 + the last row or column of M or Q^T with a non-zero.
+  // extent: 1 + the last row or column of M or Q^T with a non-zero. The
+  // blocks split the rows of M; the same pass writes lo(M) in tiles.
   int* extent = reinterpret_cast<int*>(x.scal + 1);
+  int* extc = extent + 1;                 // (kMaxCluster) every block's
   if (x.tid == 0) *extent = 0;
-  __syncthreads();
+  // Also: every block of the cluster runs before any writes to another.
+  cl.sync();
   int ext = 0;
-  const int nq = n / 4;
-  for (int idx = x.tid; idx < n * nq; idx += kBigThreads) {
-    const int j = idx / nq, c4 = idx - j * nq;
+  const int nq = n / 4, share = n * nq / x.nblk;
+#pragma unroll 4
+  for (int idx = x.rank * share + x.tid; idx < (x.rank + 1) * share;
+       idx += kBigThreads) {
+    const int j = idx / nq, c = 4 * (idx - j * nq);
     const float4 v = __ldg(reinterpret_cast<const float4*>(x.mg) + idx);
     if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-      ext = max(ext, max(j + 1, 4 * c4 + 4));
+      ext = max(ext, max(j + 1, c + 4));
+    if (lo) {
+      const int jr = j & 15;
+      unsigned char* d = mlo + ((size_t)(j >> 4) * p.slabs + (c >> 4)) * kTile
+          + jr * 32 + ((((c >> 3) & 1) ^ ((jr >> 2) & 1)) * 16) + (c & 7) * 2;
+      __nv_bfloat162 lo01 = __floats2bfloat162_rn(v.x, v.y);
+      __nv_bfloat162 lo23 = __floats2bfloat162_rn(v.z, v.w);
+      uint2 w;
+      w.x = *reinterpret_cast<uint32_t*>(&lo01);
+      w.y = *reinterpret_cast<uint32_t*>(&lo23);
+      *reinterpret_cast<uint2*>(d) = w;
+    }
   }
-  // Q^T from q0 (rows >= k stay zero); the other buffer starts as zeros,
-  // so the columns past the extent, which no step writes, read as zero
-  // from whichever buffer holds the result.
-  for (int idx = x.tid; idx < kp * n; idx += kBigThreads) {
-    const int r = idx / n, c = idx - r * n;
-    const float v = (r < k) ? qg[c * k + r] : 0.f;
-    if (v != 0.f) ext = max(ext, c + 1);
-    x.qa[idx] = v;
-    x.qb[idx] = 0.f;
-  }
+  for (int idx = x.rank * kBigThreads + x.tid; idx < n * k;
+       idx += kBigThreads * x.nblk)
+    if (qg[idx] != 0.f) ext = max(ext, idx / k + 1);
   ext = __reduce_max_sync(0xffffffffu, ext);
   if (x.lane == 0) atomicMax(extent, ext);
   __syncthreads();
-  x.ne = min(n, max(32, (*extent + 31) / 32 * 32));
+  if (x.tid < x.nblk) cl.map_shared_rank(extc, x.tid)[x.rank] = *extent;
+  cl.sync();   // also: lo(M) in device memory is visible to the cluster
+  ext = 0;
+  for (int r = 0; r < x.nblk; ++r) ext = max(ext, extc[r]);
+  x.ne = min(n, max(32, (ext + 31) / 32 * 32));
+  // The live slabs, dealt out in runs: the last blocks may get fewer, or
+  // none.
+  const int slabs_live = x.ne / 16;
+  const int spb = (slabs_live + x.nblk - 1) / x.nblk;
+  x.s0 = min(x.rank * spb, slabs_live);
+  x.s1 = min(x.s0 + spb, slabs_live);
 
-  for (int r = 0; r < rounds; ++r) {
-    for (int s = 0; s < orth_every; ++s) {
-      if (lo) big_power<KT, true>(x);
-      else big_power<KT, false>(x);
+  if (lo) {
+    // Q^T into this warp's fragments; padded rows (>= k) stay zero.
+    float q[KT][2][4];
+    const int g = x.lane >> 2, t = x.lane & 3, c0 = (x.s0 + x.warp) * 16;
+#pragma unroll
+    for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mt * 16 + g + 8 * (e >> 1);
+          const int col = c0 + nt * 8 + 2 * t + (e & 1);
+          q[mt][nt][e] = (x.warp_live() && row < k) ? qg[col * k + row] : 0.f;
+        }
+    big_store_lo(x, q, true);
+    for (int r = 0; r < rounds; ++r) {
+      for (int s = 0; s < orth_every; ++s) {
+        big_power_lo(x, q);
+        if (s + 1 < orth_every) big_store_lo(x, q, true);
+      }
+      big_ns_lo(x, q, ns_steps);
     }
-    if (lo) big_ns<KT, true>(x, ns_steps);
-    else big_ns<KT, false>(x, ns_steps);
+    // The rounds are done with the bf16 copies (every block passed the
+    // barrier of the last store): the f32 Q^T takes their place, each
+    // warp's columns in every block's copy.
+    if (x.warp_live()) {
+      for (int r = 0; r < x.nblk; ++r) {
+        float* dst = cl.map_shared_rank(x.qf, r);
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            const int col = c0 + nt * 8 + 2 * t;
+            *reinterpret_cast<float2*>(&dst[(mt * 16 + g) * x.ldf + col]) =
+                make_float2(q[mt][nt][0], q[mt][nt][1]);
+            *reinterpret_cast<float2*>(
+                &dst[(mt * 16 + g + 8) * x.ldf + col]) =
+                make_float2(q[mt][nt][2], q[mt][nt][3]);
+          }
+      }
+    }
+    cl.sync();
+  } else {
+    // Every block fills its own copy with all live columns.
+    for (int idx = x.tid; idx < kp * x.ne; idx += kBigThreads) {
+      const int r = idx / x.ne, c = idx - r * x.ne;
+      x.qf[r * x.ldf + c] = (r < k) ? qg[c * k + r] : 0.f;
+    }
+    __syncthreads();
+    for (int r = 0; r < rounds; ++r) {
+      for (int s = 0; s < orth_every; ++s) big_step_f32(x);
+      big_ns_f32(x, ns_steps);
+    }
   }
-  for (int s = 0; s < polish; ++s) {
-    big_power<KT, false>(x);
-    big_colunit(x);
-  }
-  if (final_ns) big_ns<KT, false>(x, final_ns);
+  for (int s = 0; s < polish; ++s) big_polish_f32(x);
+  if (final_ns) big_ns_f32(x, final_ns);
 
-  float* ob = out + (size_t)blockIdx.x * n * k;
-  for (int idx = x.tid; idx < n * k; idx += kBigThreads) {
+  // Every path above ends with a cluster barrier: the block's copy holds
+  // all live columns, and no block touches another's shared memory any
+  // more.
+  float* ob = out + (size_t)graph * n * k;
+  for (int idx = x.rank * kBigThreads + x.tid; idx < n * k;
+       idx += kBigThreads * x.nblk) {
     const int c = idx / k, r = idx - c * k;
-    ob[idx] = x.qa[r * n + c];
+    ob[idx] = c < x.ne ? x.qf[r * x.ldf + c] : 0.f;
   }
 }
+
+// 0 unknown, 1 the card places the cluster, -1 it does not; by device,
+// n / 32, kt. A device beyond the table is asked at every launch. Threads
+// that race here ask the same question and store the same answer.
+constexpr int kFitsDevices = 16;
+std::atomic<int> g_cluster_fits[kFitsDevices][832 / 32 + 1][4];
 
 template <int KT>
 int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
                void* scratch, int batch, int rounds, int orth_every,
                int ns_steps, int polish, int final_ns, int lo,
                cudaStream_t stream) {
+  auto kern = pe_cluster_kernel<KT>;
   cudaError_t err = cudaFuncSetAttribute(
-      pe_big_kernel<KT>, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
   if (err != cudaSuccess) return (int)err;
-  pe_big_kernel<KT><<<batch, kBigThreads, p.smem, stream>>>(
-      (const float*)m, (const float*)q0, (float*)out, (float*)scratch, p,
-      rounds, orth_every, ns_steps, polish, final_ns, lo);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * p.cluster, 1, 1);
+  cfg.blockDim = dim3(kBigThreads, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  std::atomic<int>* cached =
+      dev < kFitsDevices ? &g_cluster_fits[dev][p.n / 32][KT] : nullptr;
+  int fits = cached ? cached->load(std::memory_order_relaxed) : 0;
+  if (fits == 0) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    fits = clusters > 0 ? 1 : -1;
+    if (cached) cached->store(fits, std::memory_order_relaxed);
+  }
+  if (fits < 0) return (int)cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, kern, (const float*)m, (const float*)q0,
+                           (float*)out, (unsigned char*)scratch, p, rounds,
+                           orth_every, ns_steps, polish, final_ns, lo);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// plan[0..5] = threads, shared-memory bytes, kp, warps, depth split of the
+// plan[0..8] = threads, shared-memory bytes, kp, warps, depth split of the
 // tensor-core Gram, depth split of the f32 Gram (1 and 1 under the streamed
-// plan, which has neither). Returns 0, or non-zero for a shape the kernel
-// does not take.
+// plan, which splits neither), blocks per graph (the cluster), most slabs
+// of 16 columns a block takes, bytes of device scratch per graph. Returns
+// 0, or non-zero for a shape the kernel does not take.
 extern "C" int gcc_pe_plan(int n, int k, int* plan) {
   Plan p;
   BigPlan g;
   if (pe_plan(n, k, &p)) {
     plan[0] = p.threads; plan[1] = p.smem; plan[2] = p.kp; plan[3] = p.warps;
     plan[4] = p.ks; plan[5] = p.chunks;
+    plan[6] = 1; plan[7] = p.warps; plan[8] = 0;
     return 0;
   }
   if (pe_big_plan(n, k, &g)) {
     plan[0] = kBigThreads; plan[1] = g.smem; plan[2] = g.kp;
     plan[3] = kBigWarps; plan[4] = 1; plan[5] = 1;
+    plan[6] = g.cluster; plan[7] = g.spb; plan[8] = g.scratch;
     return 0;
   }
   return 1;
 }
 
-// scratch: (batch, 2, kp, n) f32 for n > 256 (the streamed plan), unused
-// and may be null else.
+// scratch: (batch, plan[8]) bytes for n > 256 (the streamed plan: the
+// bf16 copy of M per graph), unused and may be null else.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                              void* scratch, int batch, int n, int k,
                              int iters, int orth_every, int ns_steps,

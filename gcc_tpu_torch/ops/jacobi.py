@@ -12,13 +12,15 @@ then the layout is undone and a comparison-rank sort orders the pairs.
 
 :func:`jacobi_eigh` is the kernel's wrapper: a CUDA tensor launches
 ``csrc/jacobi.cu``; a CPU tensor runs :func:`jacobi_eigh_plain`, the
-same rounds as plain PyTorch. The source holds two hand-written kernels
-and the launch picks one by shape (:func:`jacobi_launch_plan`): n = 32,
-the train path, runs one warp per matrix with A and Vᵀ in registers and
-no block-wide barrier in the round loop; every other even n from 4 to
-48 runs one block per matrix over shared memory. Both round every
-operation as the plain version does, in its order, so both agree with
-it bit for bit.
+same rounds as plain PyTorch. The source holds three hand-written
+kernels and the launch picks one by shape (:func:`jacobi_launch_plan`):
+n = 32, the train path, runs one warp per matrix with A and Vᵀ in
+registers and no block-wide barrier in the round loop; n = 48, the eval
+profile's guarded finish, runs one block of 576 threads per matrix, one
+thread per 2×2 block of A and one barrier a round; every other even n
+from 4 to 48 runs one block of 256 threads per matrix over shared memory
+with two barriers a round. All round every operation as the plain
+version does, in its order, so all agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -177,6 +179,7 @@ def _device_tables(n: int, device: torch.device) -> torch.Tensor:
 _WARP_N = 32            # the n the warp-per-matrix kernel takes
 _WARPS_PER_BLOCK = 4
 _BLOCK_THREADS = 256
+_PAIR_N = 48            # the n the thread-per-2x2-block kernel takes
 
 
 def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
@@ -192,6 +195,12 @@ def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
         return dict(variant="warp-per-matrix, registers",
                     blocks=-(-batch // _WARPS_PER_BLOCK),
                     threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem)
+    if n == _PAIR_N:
+        # A and V^T double-buffered with rows padded to n + 8, the
+        # eigenvalues and three index tables; static shared memory.
+        smem = 4 * (4 * n * (n + 8) + n) + 3 * 4 * n
+        return dict(variant="thread-per-2x2-block, one barrier a round",
+                    blocks=batch, threads=(n // 2) ** 2, smem_bytes=smem)
     # A and V^T double-buffered, c/s, eigenvalues, four index tables
     smem = 4 * (4 * n * n + 2 * n) + 4 * 4 * n
     return dict(variant="block-per-matrix, shared memory", blocks=batch,
@@ -213,7 +222,8 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
     a: (B, n, n) float32, n even (32 on the train path, 48 for the eval
     profile's guarded finish). CUDA tensors launch ``csrc/jacobi.cu``
     (one launch counted: the warp-per-matrix kernel at n = 32, the
-    block-per-matrix kernel at any other n); CPU tensors run
+    thread-per-2x2-block kernel at n = 48, the block-per-matrix kernel at
+    any other n); CPU tensors run
     :func:`jacobi_eigh_plain`."""
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps, eps, descending)

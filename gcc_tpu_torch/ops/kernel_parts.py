@@ -3,14 +3,19 @@
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python -m gcc_tpu_torch.ops.kernel_parts [--graphs 4096]
+        [--cases all|train|eval|jacobi]
 
 Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
 under schedules that switch its parts off — the bf16 rounds alone, the
 power steps alone, the f32 polish alone, the f32 Newton–Schulz finish
 alone — at the training path's shapes and, on fewer graphs, at the
 shapes of embedding generation (k = 48; N = 512 and 832 take the
-kernel's streamed plan), and ``jacobi_eigh`` per sweep count, on random
-symmetric operators. Kernel 2 skips the zero padding of the
+kernel's streamed plan, a cluster of blocks per graph whose size is
+printed beside each case; a batch of 64 at N = 512 with 32 and with 384
+live nodes stands for the node path's and the graph path's buckets), and
+``jacobi_eigh`` per sweep count, on random symmetric operators (the Jacobi launches are queued behind a few ms of
+other work, so the card's time is read and not the host's rate of
+launching). Kernel 2 skips the zero padding of the
 node axis, so its time depends on how many nodes are live: the operators
 are dense (all N live, the most work a shape can ask for) except one
 case with 56 live nodes of 128, the mean of the main path's small
@@ -27,14 +32,23 @@ import subprocess
 import torch
 
 from gcc_tpu_torch.ops.jacobi import jacobi_eigh
-from gcc_tpu_torch.ops.pe import pe_subspace_iterate
+from gcc_tpu_torch.ops.pe import pe_launch_plan, pe_subspace_iterate
 
 
-def timed_ms(fn, reps: int = 5) -> float:
+def timed_ms(fn, reps: int = 5, run_ahead: bool = False) -> float:
+    """Mean device time of fn() over reps calls (CUDA events). A launch
+    shorter than the host takes to enqueue it (~50 us through the
+    wrappers) would be timed at the host's rate: ``run_ahead`` first
+    queues a few ms of other work, so the launches are all enqueued
+    before the card reaches them."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if run_ahead:
+        busy = torch.empty(4096, 4096, device="cuda")
+        for _ in range(2):
+            torch.mm(busy, busy)
     start.record()
     for _ in range(reps):
         fn()
@@ -66,6 +80,8 @@ SCHEDULES = (
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graphs", type=int, default=4096)
+    ap.add_argument("--cases", default="all",
+                    choices=("all", "train", "eval", "jacobi"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_parts: needs an NVIDIA card")
@@ -75,12 +91,13 @@ def main() -> None:
         check=True).stdout.strip())
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
-    for n, k, live, g in ((128, 32, 128, args.graphs),
-                          (128, 32, 56, args.graphs),
-                          (256, 32, 256, args.graphs),
-                          (256, 48, 256, args.graphs),
-                          (512, 48, 512, 128), (512, 48, 384, 128),
-                          (832, 48, 832, 64)):
+    train = ((128, 32, 128, args.graphs), (128, 32, 56, args.graphs),
+             (256, 32, 256, args.graphs), (256, 48, 256, args.graphs))
+    evals = ((512, 48, 512, 128), (512, 48, 384, 128), (512, 48, 384, 64),
+             (512, 48, 32, 64), (832, 48, 832, 64))
+    pe_cases = {"all": train + evals, "train": train, "eval": evals,
+                "jacobi": ()}[args.cases]
+    for n, k, live, g in pe_cases:
         a = torch.rand(g, n, n, device=dev, generator=gen) / n
         m = a + a.transpose(1, 2) + torch.eye(n, device=dev)
         q0 = torch.randn(g, n, k, device=dev, generator=gen)
@@ -91,15 +108,18 @@ def main() -> None:
         for name, kw in SCHEDULES:
             kw = dict(dict(iters=16), **kw)
             ms = timed_ms(lambda: pe_subspace_iterate(m, q0, **kw))
-            print(f"pe ({g}, {n}, {n}) k={k} live={live} {name}: {ms:.4f} "
-                  "ms", flush=True)
+            print(f"pe ({g}, {n}, {n}) k={k} live={live} cluster="
+                  f"{pe_launch_plan(n, k)['cluster']} {name}: {ms:.4f} ms",
+                  flush=True)
         del a, m, q0
-    for n, g in ((32, args.graphs), (48, args.graphs), (48, 64)):
+    jacobi_cases = ((32, args.graphs), (48, args.graphs), (48, 128), (48, 64))
+    for n, g in jacobi_cases if args.cases in ("all", "jacobi") else ():
         t = torch.randn(g, n, n, device=dev, generator=gen)
         t = 0.5 * (t + t.transpose(1, 2))
         for sweeps in (0, 1, 3):
             ms = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps,
-                                              descending=True), 20)
+                                              descending=True), 20,
+                          run_ahead=True)
             print(f"jacobi ({g}, {n}, {n}) sweeps={sweeps}: {ms:.4f} ms",
                   flush=True)
 

@@ -13,19 +13,27 @@ launches ``csrc/pe.cu``; a CPU tensor runs
 :func:`pe_subspace_iterate_plain`, the same steps as plain PyTorch.
 
 The kernel runs the bf16-input products (power steps, the rounds' Gram
-and G·Qᵀ) on the tensor cores and the f32 work on the CUDA cores, one
-block of 2N threads per graph; :func:`pe_launch_plan` mirrors its launch
-plan. M is read as the reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·
-M[j, c]: ``m_shift`` is symmetric as a matrix but not bit for bit (it is
-formed as ``(a·inv_row)·inv_col``), so neither version may read M[c, j]
-in place of M[j, c]. N is padded to a multiple of 32, k ≤ 48 is padded
-to 16, 32 or 48 inside the kernel. Two launch plans serve the shapes:
-"shared" for N ≤ 256 (M's bf16 copy in shared memory, as above) and
-"streamed" for 256 < N ≤ 832, the largest multiple of 32 with
-N·N·6 ≤ 4 MiB (M streamed from device memory for every power step, Qᵀ in
-a device scratch that the wrapper allocates, every product on the CUDA
-cores with operands rounded to bf16 for the rounds, one block of 512
-threads per graph). Larger N raises.
+and G·Qᵀ) on the tensor cores and the f32 work on the CUDA cores;
+:func:`pe_launch_plan` mirrors its launch plan. M is read as the
+reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·M[j, c]: ``m_shift`` is
+symmetric as a matrix but not bit for bit (it is formed as
+``(a·inv_row)·inv_col``), so neither version may read M[c, j] in place of
+M[j, c]. N is padded to a multiple of 32, k ≤ 48 is padded to 16, 32 or
+48 inside the kernel. Two launch plans serve the shapes:
+
+* "shared" for N ≤ 256: one block of 2N threads per graph, M's bf16 copy
+  in shared memory;
+* "streamed" for 256 < N ≤ 832, the largest multiple of 32 with
+  N·N·6 ≤ 4 MiB: a thread block cluster per graph (2 blocks up to N =
+  512, 4 above; 512 threads a block) whose blocks split the live columns
+  of Qᵀ in slabs of 16, one warp a slab. The kernel makes a bf16 copy of
+  M once, in 16×16 tiles, in a device scratch that the wrapper allocates,
+  and every warp streams its own tiles of it through a private
+  ``cp.async`` ring for each power step; Qᵀ stays on the chip, in
+  registers and in a copy in every block's shared memory that the blocks
+  update through distributed shared memory.
+
+Larger N raises.
 """
 
 from __future__ import annotations
@@ -97,11 +105,58 @@ def pe_subspace_iterate_plain(m: torch.Tensor, q0: torch.Tensor,
     return qt.transpose(1, 2)
 
 
+_CLUSTER_MAX = 4        # blocks per graph the streamed plan uses at most
+_RING_BYTES = 16 * 4 * 512   # 16 warps x 4 stages x one 16x16 bf16 tile
+
+
+def _align16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def _streamed_plan(n_pad: int, kp: int) -> dict:
+    """The streamed plan (256 < N <= 832), as ``pe_big_plan`` in
+    ``csrc/pe.cu`` computes it: a cluster of blocks per graph that split
+    the columns of Qᵀ in slabs of 16."""
+    cluster = 2 if n_pad <= 512 else _CLUSTER_MAX
+    slabs = n_pad // 16
+    spb = -(-slabs // cluster)
+    # Static split of all slabs; the kernel deals out the live ones the
+    # same way (ceil(live / cluster) a block, the last blocks fewer).
+    block_slabs = [max(0, min(spb, slabs - r * spb)) for r in range(cluster)]
+    kk = kp * kp
+    # Two bf16 copies of Q^T (rows padded by 8); the f32 steps keep one
+    # f32 copy of Q^T in the same bytes.
+    smem = _align16(2 * kp * (n_pad + 8) * 2)
+    # The warps' rings of M tiles, or the f32 power steps' three panels of
+    # 16 rows of f32 M (the partial Grams reuse them); then G, its bf16
+    # copy, the sums of squares per warp and per block, the row norms, two
+    # scalars and the blocks' extents.
+    smem += max(_RING_BYTES, 3 * 16 * 16 * spb * 4)
+    smem += kk * 4 + _align16(kp * (kp + 8) * 2)
+    smem += 16 * kp * 4 + _CLUSTER_MAX * kp * 4 + kp * 4 + 16 + _CLUSTER_MAX * 4
+    if smem > _MAX_SMEM or spb > 16:
+        raise ValueError(
+            f"pe kernel: N={n_pad}, kp={kp} needs {smem} B of shared memory "
+            f"and {spb} warps per block (limits {_MAX_SMEM}, 16)")
+    return dict(n_pad=n_pad, kp=kp, threads=512, warps=16,
+                smem_bytes=smem, gram_split=1, gram_f32_split=1,
+                plan="streamed", cluster=cluster, slabs_per_block=spb,
+                block_slabs=block_slabs,
+                scratch_bytes=n_pad * n_pad * 2,
+                variant=f"cluster of {cluster} blocks per graph; mma.sync "
+                        f"m16n8k16 bf16 on a bf16 copy of M streamed by "
+                        f"cp.async, {kp // 16} row tile(s) x 16 columns per "
+                        f"warp; f32 4x{kp // 8} register tiles")
+
+
 def pe_launch_plan(n: int, k: int) -> dict:
     """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
     width ``k``, as ``pe_plan`` in ``csrc/pe.cu`` computes it: threads
     per block, bytes of dynamic shared memory, the padded sizes, the
-    splits of the two Gram products and the tile variant. Raises
+    splits of the two Gram products, the tile variant and, for the
+    streamed plan, the blocks per graph (``cluster``), the slabs of 16
+    columns each block takes when all N nodes are live (``block_slabs``)
+    and the bytes of device scratch per graph. Raises
     ``ValueError`` with the numbers on a shape the kernel does not
     take."""
     n_pad = -(-n // 32) * 32
@@ -110,15 +165,7 @@ def pe_launch_plan(n: int, k: int) -> dict:
                          f"1 <= k <= 48, got N={n}, k={k}")
     kp = -(-k // 16) * 16
     if n_pad > 256:
-        # The streamed plan: staged chunks of Q^T (kp x 36) and of M
-        # (32 x 256), G, the row norms and two scalars.
-        smem = kp * 36 * 4 + 32 * 256 * 4 + kp * kp * 4 + kp * 4 + 16
-        return dict(n_pad=n_pad, kp=kp, threads=512, warps=16,
-                    smem_bytes=smem, gram_split=1, gram_f32_split=1,
-                    plan="streamed", scratch_floats=2 * kp * n_pad,
-                    variant=f"f32 FMA on bf16-rounded operands, M streamed "
-                            f"in 32x256 chunks; f32 4x{kp // 8} register "
-                            f"tiles")
+        return _streamed_plan(n_pad, kp)
     kt = kp // 16
     threads, warps = 2 * n_pad, n_pad // 16
     ldm = ldq = n_pad + 8
@@ -128,9 +175,7 @@ def pe_launch_plan(n: int, k: int) -> dict:
     tiles4 = (kp // 4) * (kp // 4 + 1) // 2      # upper triangle of 4x4s
     chunks = max(d for d in (1, 2, 4) if d == 1 or tiles4 * d <= threads)
 
-    def align16(x):
-        return -(-x // 16) * 16
-
+    align16 = _align16
     kk = kp * kp
     smem = align16(max(n_pad * ldm * 2, 2 * kp * ldt * 4))
     smem += kk * 4 + warps * kp * 4 + kp * 4 + 16
@@ -144,7 +189,8 @@ def pe_launch_plan(n: int, k: int) -> dict:
             f"{threads} threads per block (limits {_MAX_SMEM}, 1024)")
     return dict(n_pad=n_pad, kp=kp, threads=threads, warps=warps,
                 smem_bytes=smem, gram_split=ks, gram_f32_split=chunks,
-                plan="shared", scratch_floats=0,
+                plan="shared", cluster=1, slabs_per_block=warps,
+                block_slabs=[warps], scratch_bytes=0,
                 variant=f"mma.sync m16n8k16 bf16, {kt} row tile(s) x 16 "
                         f"columns per warp; f32 4x{2 * kt} register tiles")
 
@@ -206,7 +252,7 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
     lib = _pe_lib()
     m, q0 = m.contiguous(), q0.contiguous()
     out = torch.empty((b, n_pad, k), dtype=torch.float32, device=m.device)
-    scratch = torch.empty((b, plan["scratch_floats"]), dtype=torch.float32,
+    scratch = torch.empty((b, plan["scratch_bytes"]), dtype=torch.uint8,
                           device=m.device)
     with torch.cuda.device(m.device):
         err = lib.gcc_pe_launch(

@@ -68,9 +68,9 @@ def test_featurize_kernel_matches_plain(cuda_device, n_max):
 
 @pytest.mark.parametrize("n", [8, 32, 48])
 def test_jacobi_kernel_matches_plain(cuda_device, n):
-    """The kernels (one warp per matrix at n = 32, one block per matrix
-    else) run the plain version's rounds with correctly rounded f32
-    operations: results within 1e-6."""
+    """The kernels (one warp per matrix at n = 32, one thread per 2x2
+    block at n = 48, one block per matrix else) run the plain version's
+    rounds with correctly rounded f32 operations: results within 1e-6."""
     a = torch.randn(64, n, n, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(n))
     a = 0.5 * (a + a.transpose(1, 2))
@@ -97,6 +97,28 @@ def test_jacobi_warp_kernel_batches(cuda_device, batch):
     w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=3, descending=True)
     assert (w - w0).abs().max().item() <= 1e-6
     assert (v - v0).abs().max().item() <= 1e-6
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 2777])
+def test_jacobi_pair_kernel_batches(cuda_device, batch):
+    """n = 48 at a batch of one, a few, the serve path's 64 and one of
+    several waves of blocks; a diagonal matrix and
+    repeated eigenvalues among them; both orders; sweeps = 0 only sorts.
+    Equal to the plain version bit for bit."""
+    a = torch.randn(batch, 48, 48, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(batch))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(48, device=cuda_device).float() // 2)
+    assert jacobi.jacobi_launch_plan(48, batch)["variant"].startswith(
+        "thread-per-2x2-block")
+    for desc in (False, True):
+        for sweeps in (0, 3):
+            before = jacobi.jacobi_eigh.launches
+            w, v = jacobi.jacobi_eigh(a, sweeps=sweeps, descending=desc)
+            assert jacobi.jacobi_eigh.launches == before + 1
+            w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=sweeps,
+                                              descending=desc)
+            assert torch.equal(w, w0) and torch.equal(v, v0)
 
 
 def _pe_case(device, n_max, k, graphs, seed=1, e_tot=4096, id_bits=8):
@@ -158,10 +180,15 @@ def test_pe_kernel_shapes(cuda_device, n_max, k, graphs):
     (832, 48, 4),      # the largest shape the kernel takes
     (320, 16, 4),      # one row tile
     (512, 48, 140),    # more blocks than SMs
+    (352, 48, 6),      # 22 slabs of 16 columns over 2 blocks
+    (544, 32, 5),      # 34 slabs over 4 blocks: 9, 9, 9, 7
+    (800, 48, 3),      # 50 slabs over 4 blocks: 13, 13, 13, 11
 ])
 def test_pe_streamed_plan_matches_plain(cuda_device, n_max, k, graphs):
-    """256 < N <= 832: M streamed from device memory, every product on
-    the CUDA cores; the same limits as the shared plan."""
+    """256 < N <= 832: a cluster of blocks per graph, the rounds on the
+    tensor cores against a bf16 copy of M streamed from device memory;
+    the same limits as the shared plan. The graphs have 1 to N nodes, so
+    the live slabs split unevenly and some blocks get none."""
     assert pe.pe_launch_plan(n_max, k)["plan"] == "streamed"
     _pe_compare(*_pe_case(cuda_device, n_max, k, graphs, e_tot=16384,
                           id_bits=16))
@@ -179,6 +206,28 @@ def test_pe_streamed_plan_small_graphs_stay_finite(cuda_device):
     got = pe.pe_subspace_iterate(m_shift, q0, iters=16)
     assert torch.isfinite(got).all()
     assert got[1, 20:].abs().max().item() == 0 and got[2].abs().max() == 0
+
+
+def test_pe_streamed_plan_batch_of_one(cuda_device):
+    """A cluster's result does not depend on the batch around it: each
+    graph alone equals the same graph in a batch, bit for bit."""
+    m_shift, q0 = _pe_case(cuda_device, 512, 48, 5, e_tot=16384, id_bits=16)
+    for lo in (False, True):
+        full = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=lo)
+        for i in (0, 4):
+            one = pe.pe_subspace_iterate(m_shift[i:i + 1], q0[i:i + 1],
+                                         iters=16, power_lo=lo)
+            assert one.shape == (1, 512, 48) and torch.equal(one[0], full[i])
+
+
+@pytest.mark.parametrize("kw", [
+    dict(orth_every=1, ns_steps=1, polish=0, final_ns=0),
+    dict(orth_every=3, ns_steps=2, polish=1, final_ns=3),
+    dict(orth_every=16, ns_steps=0, polish=0, final_ns=8),
+])
+def test_pe_streamed_plan_schedules(cuda_device, kw):
+    _pe_compare(*_pe_case(cuda_device, 512, 48, 8, e_tot=16384, id_bits=16),
+                **kw)
 
 
 def test_pe_kernel_refuses_beyond_832(cuda_device):
@@ -220,13 +269,16 @@ def test_pe_plan_mirrors_the_source(cuda_device):
     import ctypes
 
     lib = pe._pe_lib()
-    out = (ctypes.c_int * 6)()
-    for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 512, 832):
+    out = (ctypes.c_int * 9)()
+    for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 512, 544,
+              800, 832):
         for k in (1, 8, 16, 17, 32, 33, 48):
             assert lib.gcc_pe_plan(n, k, out) == 0
             plan = pe.pe_launch_plan(n, k)
             assert list(out) == [plan["threads"], plan["smem_bytes"],
                                  plan["kp"], plan["warps"],
-                                 plan["gram_split"], plan["gram_f32_split"]]
+                                 plan["gram_split"], plan["gram_f32_split"],
+                                 plan["cluster"], plan["slabs_per_block"],
+                                 plan["scratch_bytes"]]
     assert lib.gcc_pe_plan(864, 32, out) != 0
     assert lib.gcc_pe_plan(128, 49, out) != 0

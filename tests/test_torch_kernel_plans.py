@@ -22,7 +22,8 @@ def test_pe_plan_fits_a_block(n, k):
     assert plan["threads"] == 32 * plan["warps"]
     assert plan["kp"] in (16, 32, 48) and 0 <= plan["kp"] - k < 16
     assert plan["variant"].startswith("mma.sync m16n8k16")
-    assert plan["plan"] == "shared" and plan["scratch_floats"] == 0
+    assert plan["plan"] == "shared" and plan["scratch_bytes"] == 0
+    assert plan["cluster"] == 1 and plan["block_slabs"] == [n // 16]
     # The tensor-core Gram splits its depth into whole steps of 16
     # columns; 1, 2 or 4 lanes share a tile of the f32 Gram.
     assert plan["warps"] % plan["gram_split"] == 0
@@ -31,19 +32,41 @@ def test_pe_plan_fits_a_block(n, k):
     assert plan["smem_bytes"] >= n * (n + 8) * 2
 
 
-@pytest.mark.parametrize("k", [32, 48])
-@pytest.mark.parametrize("n", [288, 512, 832])
+@pytest.mark.parametrize("k", [8, 16, 32, 48])
+@pytest.mark.parametrize("n", [288, 320, 352, 512, 800, 832])
 def test_pe_streamed_plan_fits_a_block(n, k):
     """Above N = 256 M's bf16 copy no longer fits shared memory: the
-    streamed plan keeps M in device memory and Qᵀ in a scratch."""
+    streamed plan keeps it in a device scratch and splits a graph's
+    columns of Qᵀ, in slabs of 16, over a cluster of blocks."""
     plan = pe.pe_launch_plan(n, k)
     assert plan["plan"] == "streamed" and plan["n_pad"] == n
     assert plan["threads"] == 32 * plan["warps"] <= MAX_THREADS
     assert 0 < plan["smem_bytes"] <= MAX_SMEM
-    assert plan["kp"] in (32, 48) and 0 <= plan["kp"] - k < 16
-    assert plan["scratch_floats"] == 2 * plan["kp"] * n
-    # Nothing of size N^2 or k*N is in shared memory.
-    assert plan["smem_bytes"] < 64 * 1024
+    assert plan["kp"] in (16, 32, 48) and 0 <= plan["kp"] - k < 16
+    # 2 blocks per graph up to N = 512 (64 graphs are 128 blocks on 132
+    # SMs), 4 above.
+    assert plan["cluster"] == (2 if n <= 512 else 4)
+    # The split may be ragged: ceil(slabs / cluster) a block, the last
+    # takes what is left; one warp a slab, so at most 16 a block; no slab
+    # beyond the cluster.
+    slabs = plan["block_slabs"]
+    assert len(slabs) == plan["cluster"] and sum(slabs) == n // 16
+    assert max(slabs) == plan["slabs_per_block"] <= plan["warps"]
+    assert all(s == plan["slabs_per_block"] for s in slabs[:-1])
+    assert 0 < slabs[-1] <= plan["slabs_per_block"]
+    # Shared memory holds both bf16 copies of Q^T (rows padded by 8) and
+    # a ring of four 512-byte tiles of M per warp; the scratch is the
+    # bf16 copy of M and nothing else (Q^T never leaves the chip).
+    assert plan["smem_bytes"] >= 2 * plan["kp"] * (n + 8) * 2 + 16 * 4 * 512
+    assert plan["scratch_bytes"] == n * n * 2
+
+
+@pytest.mark.parametrize("n,slabs", [(544, [9, 9, 9, 7]),
+                                     (800, [13, 13, 13, 11]),
+                                     (832, [13, 13, 13, 13]),
+                                     (352, [11, 11]), (288, [9, 9])])
+def test_pe_streamed_plan_ragged_split(n, slabs):
+    assert pe.pe_launch_plan(n, 48)["block_slabs"] == slabs
 
 
 def test_pe_plan_ends_where_the_reference_kernel_does():
@@ -78,9 +101,24 @@ def test_jacobi_plan_fits_a_block(n):
         assert plan["variant"].startswith("warp-per-matrix")
         assert plan["blocks"] * (plan["threads"] // 32) >= 4097
         assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
+    elif n == 48:
+        assert plan["variant"].startswith("thread-per-2x2-block")
+        assert plan["blocks"] == 4097
+        assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
     else:
         assert plan["variant"].startswith("block-per-matrix")
         assert plan["blocks"] == 4097
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 128, 2777, 4096])
+def test_jacobi_pair_plan(batch):
+    """n = 48: one block per matrix, one thread per 2x2 block of A (24 x 24
+    of them), whatever the batch."""
+    plan = jacobi.jacobi_launch_plan(48, batch)
+    assert plan["variant"].startswith("thread-per-2x2-block")
+    assert plan["threads"] == 576 and plan["blocks"] == batch
+    # A and V^T double-buffered, rows padded to 56 floats.
+    assert plan["smem_bytes"] >= 4 * 48 * 56 * 4
 
 
 @pytest.mark.parametrize("n", [3, 5, 33, 50, 64, 2, 0])
