@@ -8,17 +8,17 @@ commands that run the encoder:
   python -m gcc_tpu_torch.cli synth-corpus --out data/corpus
   python -m gcc_tpu_torch.cli ingest --out data/corpus graph1.edgelist ...
   python -m gcc_tpu_torch.cli pretrain --corpus data/corpus --out saved [--moco ...]
+  python -m gcc_tpu_torch.cli finetune --ckpt saved/<run>/current --dataset imdb-binary [--cv]
   python -m gcc_tpu_torch.cli generate --ckpt saved/<run>/current --dataset usa_airport
   python -m gcc_tpu_torch.cli eval-node --dataset usa_airport --emb <npy>
   python -m gcc_tpu_torch.cli eval-graph --dataset imdb-binary --emb <npy>
   python -m gcc_tpu_torch.cli eval-sim --dataset kdd_icdm --emb1 <npy> --emb2 <npy>
-
-``finetune`` is not registered: finetuning is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 
 import numpy as np
@@ -181,6 +181,43 @@ def cmd_pretrain(args):
     print(summary)
 
 
+def cmd_finetune(args):
+    from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
+    from gcc_tpu_torch.training.checkpoint import load_checkpoint, load_config
+    from gcc_tpu_torch.training.finetune import (
+        GraphLabeledData,
+        NodeLabeledData,
+        run_finetune_cv,
+    )
+
+    pretrained = None
+    if args.ckpt:
+        cfg = load_config(os.path.dirname(args.ckpt))
+        pretrained = load_checkpoint(args.ckpt)["model"]
+    else:
+        cfg = _cfg_from_args(args)
+    cfg = dataclasses.replace(cfg, epochs=args.epochs, seed=args.seed,
+                              batch_size=args.batch_size)
+
+    if args.dataset in GRAPH_CLASSIFICATION_DSETS:
+        from gcc_tpu_torch.data.tu import load_tu_dataset
+
+        graphs, labels = load_tu_dataset(args.dataset, args.data_root)
+        data = GraphLabeledData(graphs, labels, n_max=args.n_max,
+                                e_max=args.e_max)
+    else:
+        from gcc_tpu_torch.data.formats import (
+            create_node_classification_dataset,
+        )
+
+        nd = create_node_classification_dataset(args.dataset, args.data_root)
+        data = NodeLabeledData(nd.graph, nd.y, cfg, n_max=args.n_max,
+                               e_max=args.e_max)
+    folds = range(10) if args.cv else [args.fold_idx]
+    print(run_finetune_cv(cfg, data, pretrained, folds=folds,
+                          device=args.device))
+
+
 def cmd_generate(args):
     from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
     from gcc_tpu_torch.generate import generate_embeddings, node_subgraphs
@@ -284,6 +321,16 @@ def main(argv=None):
     _add_train_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_pretrain)
+
+    p = sub.add_parser("finetune")
+    p.add_argument("--ckpt", default="",
+                   help="pretrained checkpoint (omit to train from scratch)")
+    p.add_argument("--cv", action="store_true", help="run all 10 folds")
+    p.add_argument("--fold-idx", type=int, default=0)
+    p.add_argument("--data-root", default="data")
+    _add_train_flags(p)  # includes --n-max/--e-max bucket flags
+    _add_device_flag(p)
+    p.set_defaults(fn=cmd_finetune)
 
     p = sub.add_parser("generate")
     p.add_argument("--ckpt", required=True)

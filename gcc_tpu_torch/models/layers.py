@@ -1,5 +1,6 @@
-"""Shared model building blocks: masked BatchNorm, degree embedding,
-torch-default initialization from an explicit generator.
+"""Shared model building blocks: masked BatchNorm and its
+squeeze-and-excitation substitute, degree embedding, torch-default
+initialization from an explicit generator.
 
 Counterpart of ``gcc_tpu/models/layers.py``. Padded nodes must not
 pollute batch statistics, so BatchNorm normalizes over real nodes only.
@@ -62,6 +63,32 @@ class MaskedBatchNorm(nn.Module):
                 self.momentum * var.detach() * unbias)
         y = (x - mean) * torch.rsqrt(var + self.eps)
         return y * self.weight + self.bias
+
+
+class SELayer(nn.Module):
+    """Squeeze-and-excitation reweighting, the reference's optional
+    BatchNorm substitute (``gcc_tpu/models/gin.py:36-53``, reference
+    gin.py:16-39): the mean over ALL real nodes of the whole batch, then
+    Linear(c → max(1, ⌊√c⌋)), ELU, Linear(→ c), sigmoid, scaling every
+    node's features. Same in train and eval mode; no buffers."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        se = max(1, int(channels ** 0.5))
+        self.linear0 = nn.Linear(channels, se)
+        self.linear1 = nn.Linear(se, channels)
+
+    def reset_parameters(self, gen: torch.Generator | None) -> None:
+        init_linear_(self.linear0, gen)
+        init_linear_(self.linear1, gen)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        dims = tuple(range(x.dim() - 1))
+        count = torch.clamp_min(mask.sum(), 1.0)
+        x_global = (x * mask[..., None]).sum(dim=dims) / count
+        s = torch.sigmoid(self.linear1(nn.functional.elu(
+            self.linear0(x_global))))
+        return x * s
 
 
 class DegreeEmbedding(nn.Module):

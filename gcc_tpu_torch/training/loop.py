@@ -59,9 +59,14 @@ def run_pretrain(
     are rounded down to a whole number of dispatches). Small datasets
     fall back to one epoch per dispatch.
 
-    dp_devices: more than one device (and more than one process) is the
-    reference's data-parallel path, which is not ported yet: raises
-    ``NotImplementedError``.
+    An E2E run (``moco`` False) whose ``e2e_split`` spec applies to the
+    stacked dispatches takes the size split, and every metrics line
+    carries ``e2e_split_overflow``.
+
+    Not ported yet, and refused with ``NotImplementedError``: more than
+    one device (``dp_devices`` > 1, the reference's data-parallel path)
+    and the padded pairs wire (``compact_wire`` False). Routed emission
+    with E2E is refused with ``ValueError``, as in the reference.
 
     The reference warms its large-bucket program with a throwaway step on
     empty graphs before a routed run, so that a compile does not stall
@@ -144,12 +149,23 @@ def run_pretrain(
             # One transfer per metric and dispatch; it waits for that
             # dispatch only, later ones stay queued on the device.
             host = {k: v.tolist() for k, v in m.items()}
+            overflow = host.get("e2e_split_overflow")
             for j, loss in enumerate(host["loss"]):
                 s = s0 + j
                 loss_meter.update(loss)
-                mfile.write(json.dumps(
-                    {"step": s, "loss": loss, "prob": host["prob"][j],
-                     "grad_norm": host["grad_norm"][j]}) + "\n")
+                rec = {"step": s, "loss": loss, "prob": host["prob"][j],
+                       "grad_norm": host["grad_norm"][j]}
+                if overflow is not None:
+                    # Size-split E2E: > 0 means pairs beyond the large
+                    # classes' capacity were forced into a smaller bucket
+                    # and lost edges this step — surface it.
+                    rec["e2e_split_overflow"] = overflow[j]
+                    if overflow[j]:
+                        log_fn(f"WARNING step {s}: e2e split overflow "
+                               f"{overflow[j]} pairs truncated — raise the "
+                               f"large-class capacity in "
+                               f"ContrastConfig.e2e_split")
+                mfile.write(json.dumps(rec) + "\n")
                 tb.scalar("moco_loss", loss, s)
                 tb.scalar("moco_prob", host["prob"][j], s)
                 if (s + 1) % cfg.print_freq == 0:

@@ -24,9 +24,16 @@ from the query forward's BatchNorm buffers), (B, B) in-batch logits with
 the positives on the diagonal; no EMA update and no enqueue. With
 ``use_softmax`` False the MoCo logits pass through the reference's
 legacy NCE normalization, whose constant Z is estimated from the first
-batch and kept in the state (``nce_z``). The size-split E2E step of the
-reference (``ContrastConfig.e2e_split``) is not ported: a dispatch the
-reference would split raises ``NotImplementedError``.
+batch and kept in the state (``nce_z``).
+
+Where ``ContrastConfig.e2e_split`` applies to an E2E dispatch (stacked
+compact wire, a spec whose classes fit the batch and the bucket), the
+dispatch is size-split as the reference splits it
+(``gcc_tpu/training/pretrain.py:321-540``): :func:`featurize_e2e_split`
+slots each step's pairs into ascending node buckets, one featurize per
+bucket, and :func:`e2e_split_step` encodes each view's bucket in its own
+BatchNorm forward before the in-batch loss on the concatenated
+embeddings.
 """
 
 from __future__ import annotations
@@ -49,9 +56,11 @@ from gcc_tpu_torch.contrastive import (
 )
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.features.featurize import BatchFeatures, featurize_compact
+from gcc_tpu_torch.features.positional import laplacian_positional_embedding
 from gcc_tpu_torch.graph.batch import CompactWireBatch
 from gcc_tpu_torch.models import GraphEncoder
-from gcc_tpu_torch.training.optim import build_optimizer, clip_by_global_norm_
+from gcc_tpu_torch.ops.aggregate import node_degrees
+from gcc_tpu_torch.training.optim import build_optimizer, clip_gradients_
 from gcc_tpu_torch.training.schedules import lr_at
 from gcc_tpu_torch.wire import wire_to_device
 
@@ -61,7 +70,7 @@ class PretrainState:
     cfg: TrainConfig
     model: GraphEncoder       # query encoder (trained)
     ema_model: GraphEncoder   # key encoder: EMA params, own BN buffers
-    optimizer: torch.optim.Adam
+    optimizer: torch.optim.Optimizer
     queue: MoCoQueue
     dropout_gen: torch.Generator
     total_steps: int
@@ -157,29 +166,48 @@ def train_step(state: PretrainState, feats_q: BatchFeatures,
     else:
         q_emb = model(feats_q, gen=state.dropout_gen)
         k_emb = model(feats_k, gen=state.dropout_gen)
-        logits = e2e_logits(q_emb, k_emb, cfg.contrast.nce_t)
-        labels = torch.arange(logits.shape[0], device=logits.device)
-        loss = nce_softmax_loss(logits, labels)
-        prob = torch.diagonal(logits).mean()
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    params = list(model.parameters())
-    grad_norm = clip_by_global_norm_(params, cfg.optim.clip_norm)
-    lr = lr_at(state.step, cfg.optim.learning_rate, state.total_steps,
-               cfg.optim.warmup)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
+        loss, prob = _in_batch_loss(q_emb, k_emb, cfg.contrast.nce_t)
+    grad_norm = optimizer_update(state, loss)
     if moco:
         with torch.no_grad():
             alpha = cfg.contrast.alpha
             ema_params = list(ema.parameters())
             torch._foreach_mul_(ema_params, alpha)
-            torch._foreach_add_(ema_params, params, alpha=1.0 - alpha)
+            torch._foreach_add_(ema_params, list(model.parameters()),
+                                alpha=1.0 - alpha)
         enqueue(state.queue, k_emb)
     state.step += 1
     return {"loss": loss.detach(), "prob": prob.detach(),
             "grad_norm": grad_norm}
+
+
+def _in_batch_loss(q_emb: torch.Tensor, k_emb: torch.Tensor,
+                   temperature: float):
+    """E2E InfoNCE over (B, B) in-batch logits, positives on the
+    diagonal: (loss, mean positive logit)."""
+    logits = e2e_logits(q_emb, k_emb, temperature)
+    labels = torch.arange(logits.shape[0], device=logits.device)
+    return nce_softmax_loss(logits, labels), torch.diagonal(logits).mean()
+
+
+def optimizer_update(state, loss: torch.Tensor,
+                     clip_mode: str = "norm") -> torch.Tensor:
+    """Backpropagate ``loss`` into ``state.model`` (and a finetune
+    state's head), then the chain: clip, L2 decay + optimizer at the
+    warmup-linear rate of update ``state.step``. Returns the gradient's
+    global norm before clipping (a device scalar)."""
+    cfg = state.cfg
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    params = [p for group in state.optimizer.param_groups
+              for p in group["params"]]
+    grad_norm = clip_gradients_(params, cfg.optim, clip_mode)
+    lr = lr_at(state.step, cfg.optim.learning_rate, state.total_steps,
+               cfg.optim.warmup)
+    for group in state.optimizer.param_groups:
+        group["lr"] = lr
+    state.optimizer.step()
+    return grad_norm
 
 
 def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
@@ -209,29 +237,176 @@ def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     return feats.map(lambda x: x.reshape((k_steps, 2 * bsz) + x.shape[1:]))
 
 
+_DUMP_SLOTS = 1024
+
+
+def e2e_split_slots(n_q: torch.Tensor, n_k: torch.Tensor, classes):
+    """Slotting of the size split (``gcc_tpu/training/pretrain.py:395-
+    410``): a pair's class is the first bucket that holds BOTH views
+    (the larger of n_q, n_k); a stable sort by class gives the slot
+    order, the first cap_0 slots going to bucket 0, the next cap_1 to
+    bucket 1, and so on. Returns (order, rank, overflow): (K, B) slot →
+    pair, (K, B) pair → slot, and (K,) int32 — the most pairs any class
+    boundary has beyond the slots above it (those are forced into a
+    smaller bucket, and their edges outside it are dropped)."""
+    mx = torch.maximum(n_q, n_k)
+    cls = torch.zeros_like(mx)
+    for n_b, _ in classes[:-1]:
+        cls = cls + (mx > n_b).to(mx.dtype)
+    order = torch.argsort(cls, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1)
+    b = mx.shape[1]
+    overflow = torch.zeros(mx.shape[0], dtype=torch.int32, device=mx.device)
+    above = b
+    for k in range(1, len(classes)):
+        above -= classes[k - 1][1]
+        over = (cls >= k).sum(dim=1).to(torch.int32) - above
+        overflow = torch.maximum(overflow, torch.clamp_min(over, 0))
+    return order, rank, overflow
+
+
+def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
+                        pos_size: int, pe_method: str, classes,
+                        n_max: int | None = None, device="cuda"):
+    """Size-routed featurization of a stacked E2E dispatch
+    (``gcc_tpu/training/pretrain.py:342-470``). Per step the pairs are
+    slotted by :func:`e2e_split_slots` into the ascending ``classes``
+    ((n_0, cap_0), ..., (n_max, cap_last)); each class's adjacency is one
+    flat scatter-add over both views' packed edges, routed by slot rank,
+    dropping edges outside the class's bucket, and its PE is one
+    train-profile call (on the card: one launch each of Kernels 2 and 3).
+
+    Returns (feats_tuple, overflow): one BatchFeatures per class with
+    (K, 2·cap, ...) leaves — per step [:cap] the query views, [cap:] the
+    key views — and overflow (K,) int32."""
+    device = resolve_device(device)
+    n_max = wires_q.n_max or n_max
+    if n_max is None:
+        raise ValueError("n_max required to featurize an unrouted wire batch")
+    eq, mq = wire_to_device(wires_q, device)
+    ek, mk = wire_to_device(wires_k, device)
+    k_steps, _, b = mq.shape
+    if sum(c for _, c in classes) != b:
+        raise ValueError(f"classes {classes} do not fill a batch of {b}")
+    order, rank, overflow = e2e_split_slots(mq[:, 0], mk[:, 0], classes)
+    mask_bits = (1 << wires_q.id_bits) - 1
+    e_tot = eq.shape[-1]
+    e_iota = torch.arange(e_tot, device=device, dtype=torch.int64)
+    t_iota = torch.arange(k_steps, device=device, dtype=torch.int64)
+    # Per side: every edge's graph (its slot rank), ids, and liveness.
+    sides = []
+    for edges, meta in ((eq, mq), (ek, mk)):
+        cum = torch.cumsum(meta[:, 1].to(torch.int64), dim=1)
+        gid = torch.searchsorted(cum, e_iota.expand(k_steps, e_tot)
+                                 .contiguous(), right=True).clamp_(max=b - 1)
+        packed = edges.to(torch.int64)
+        sides.append((torch.gather(rank, 1, gid),
+                      packed & mask_bits, (packed >> wires_q.id_bits)
+                      & mask_bits, e_iota[None, :] < cum[:, -1:]))
+
+    out = []
+    lo = 0
+    for n_b, c_b in classes:
+        hi = lo + c_b
+        sel = order[:, lo:hi]
+        n_nodes = torch.cat([torch.gather(mq[:, 0], 1, sel),
+                             torch.gather(mk[:, 0], 1, sel)], dim=1)
+        seed = torch.cat([torch.gather(mq[:, 2], 1, sel),
+                          torch.gather(mk[:, 2], 1, sel)], dim=1)
+        iota_n = torch.arange(n_b, device=device, dtype=n_nodes.dtype)
+        node_mask = (iota_n < n_nodes[..., None]).to(torch.float32)
+        seed_flag = (iota_n == seed[..., None]).to(torch.float32) * node_mask
+        rows = k_steps * 2 * c_b
+        # Dropped edges land in a dump past the end, sliced off; spread
+        # over _DUMP_SLOTS addresses so their atomic adds do not queue on
+        # one.
+        dump = rows * n_b * n_b
+        flat = torch.zeros(dump + _DUMP_SLOTS, dtype=torch.float32,
+                           device=device)
+        for side, (r, src, dst, live) in enumerate(sides):
+            keep = live & (r >= lo) & (r < hi) & (src < n_b) & (dst < n_b)
+            row = t_iota[:, None] * (2 * c_b) + side * c_b + (r - lo)
+            tgt = torch.where(keep, row * (n_b * n_b) + dst * n_b + src,
+                              dump + e_iota % _DUMP_SLOTS)
+            flat.index_add_(0, tgt.reshape(-1),
+                            torch.ones(tgt.numel(), dtype=torch.float32,
+                                       device=device))
+        adj = flat[:dump].view(rows, n_b, n_b)
+        nm_flat = node_mask.reshape(rows, n_b)
+        pos = laplacian_positional_embedding(
+            nm_flat, n_nodes.reshape(rows), pos_size, adj=adj,
+            method=pe_method, profile="train")
+        deg = node_degrees(adj).to(torch.int32)
+        shape = lambda x: x.reshape((k_steps, 2 * c_b) + x.shape[1:])  # noqa: E731
+        out.append(BatchFeatures(pos=shape(pos), degrees=shape(deg),
+                                 seed_flag=seed_flag, node_mask=node_mask,
+                                 adj=shape(adj)))
+        lo = hi
+    return tuple(out), overflow
+
+
+def e2e_split_step(state: PretrainState, feats_tuple
+                   ) -> dict[str, torch.Tensor]:
+    """One E2E step over size-split features (one step's slice of
+    :func:`featurize_e2e_split`; ``make_e2e_split_step``): 2·n_cls
+    sub-forwards, all query classes then all key classes — q and k rows
+    never share a BatchNorm forward — with the running buffers threaded
+    through them in that order and one dropout draw each; the in-batch
+    loss on the concatenated embeddings; the same update as
+    :func:`train_step`."""
+    model = state.model
+    model.train()
+    embs = ([], [])
+    for view in (0, 1):
+        for f in feats_tuple:
+            c = f.node_mask.shape[0] // 2
+            embs[view].append(model(f.map(lambda x: x[view * c:(view + 1) * c]),
+                                    gen=state.dropout_gen))
+    loss, prob = _in_batch_loss(torch.cat(embs[0]), torch.cat(embs[1]),
+                                state.cfg.contrast.nce_t)
+    grad_norm = optimizer_update(state, loss)
+    state.step += 1
+    return {"loss": loss.detach(), "prob": prob.detach(),
+            "grad_norm": grad_norm}
+
+
+def _stack_metrics(per_step: list[dict]) -> dict[str, torch.Tensor]:
+    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+
 def train_dispatch(state: PretrainState, wires_q: CompactWireBatch,
                    wires_k: CompactWireBatch, n_max: int | None = None
                    ) -> dict[str, torch.Tensor]:
     """K train steps over one stacked dispatch item (the port's
     counterpart of make_packed_multi_step): featurize all K steps once,
-    then step through them. Returns (K,) device tensors per metric."""
-    contrast = state.cfg.contrast
-    if not contrast.moco and np.ndim(wires_q.meta) == 3 and parse_e2e_split(
-            contrast.e2e_split, np.shape(wires_q.meta)[-1],
-            wires_q.n_max or n_max):
-        raise NotImplementedError(
-            f"E2E with e2e_split={contrast.e2e_split!r} at batch "
-            f"{np.shape(wires_q.meta)[-1]}, bucket {wires_q.n_max or n_max}: "
-            "the size-split E2E step is not ported yet; set "
-            "ContrastConfig.e2e_split='' for the plain E2E step")
+    then step through them. Returns (K,) device tensors per metric. An
+    E2E dispatch on a stacked wire whose batch and bucket the
+    ``e2e_split`` spec applies to takes the size split and also returns
+    ``e2e_split_overflow``."""
+    cfg = state.cfg
+    contrast = cfg.contrast
+    classes = None
+    if not contrast.moco and contrast.e2e_split and np.ndim(wires_q.meta) == 3:
+        classes = parse_e2e_split(contrast.e2e_split,
+                                  np.shape(wires_q.meta)[-1],
+                                  wires_q.n_max or n_max)
+    if classes:
+        feats, overflow = featurize_e2e_split(
+            wires_q, wires_k, cfg.encoder.positional_embedding_size,
+            cfg.encoder.pe_method, classes, n_max=n_max, device=state.device)
+        metrics = _stack_metrics([
+            e2e_split_step(state, tuple(f.map(lambda x: x[t]) for f in feats))
+            for t in range(overflow.shape[0])])
+        metrics["e2e_split_overflow"] = overflow
+        return metrics
     feats = featurize_stacked(wires_q, wires_k,
-                              state.cfg.encoder.positional_embedding_size,
+                              cfg.encoder.positional_embedding_size,
                               n_max=n_max, device=state.device,
-                              pe_method=state.cfg.encoder.pe_method)
+                              pe_method=cfg.encoder.pe_method)
     bsz = feats.node_mask.shape[1] // 2
     per_step = []
     for t in range(feats.node_mask.shape[0]):
         f = feats.map(lambda x: x[t])
         per_step.append(train_step(state, f.map(lambda x: x[:bsz]),
                                    f.map(lambda x: x[bsz:])))
-    return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+    return _stack_metrics(per_step)

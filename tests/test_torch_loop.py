@@ -3,6 +3,7 @@ CPU (corpus → pipeline → run_pretrain → checkpoint → generate →
 evaluate), and its E2E and legacy-NCE steps against gcc_tpu's step at
 bridged weights."""
 
+import ast
 import copy
 import dataclasses
 import json
@@ -61,7 +62,6 @@ from gcc_tpu_torch.training.optim import build_optimizer  # noqa: E402
 from gcc_tpu_torch.training.pretrain import (  # noqa: E402
     PretrainState,
     create_pretrain_state,
-    parse_e2e_split,
     train_dispatch,
     train_step,
 )
@@ -205,30 +205,14 @@ def test_run_pretrain_refuses_what_it_does_not_run(tmp_path, corpus):
     with pytest.raises(NotImplementedError, match="dp_devices=2"):
         run_pretrain(tiny_cfg(moco=True), corpus, out, tiny_pcfg(),
                      log_fn=_quiet, dp_devices=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="compact_wire=False"):
+        run_pretrain(tiny_cfg(moco=True), corpus, out,
+                     tiny_pcfg(compact_wire=False), log_fn=_quiet,
+                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_pretrain(tiny_cfg(moco=True), corpus, out, tiny_pcfg(),
                          log_fn=_quiet)
-
-
-def test_e2e_split_is_refused_where_the_reference_would_split(corpus):
-    """The reference splits an E2E dispatch by size when the split spec
-    applies to the batch (Σcap < B, buckets below n_max); the port raises
-    there, and runs the plain step where the spec does not apply."""
-    assert parse_e2e_split("128:240", 8, 32) is None
-    assert parse_e2e_split("16:4", 8, 32) == ((16, 4), (32, 4))
-    assert parse_e2e_split("", 8, 32) is None
-    pcfg = tiny_pcfg(emit="stacked", super_batch=2)
-    cfg = tiny_cfg(moco=False, e2e_split="16:4")
-    with PretrainPipeline(CorpusStore.open(corpus), cfg.sampler, pcfg,
-                          seed=0) as pipe:
-        wq, wk = next(pipe)
-    state = create_pretrain_state(cfg, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="e2e_split='16:4'"):
-        train_dispatch(state, wq, wk, n_max=32)
-    plain = create_pretrain_state(tiny_cfg(moco=False), 8, device="cpu")
-    metrics = train_dispatch(plain, wq, wk, n_max=32)
-    assert metrics["loss"].shape == (2,) and plain.step == 2
 
 
 def test_checkpoint_mismatch_is_a_readable_error(tmp_path, corpus):
@@ -387,14 +371,8 @@ def test_e2e_and_legacy_nce_steps_match_jax(moco, use_softmax, monkeypatch):
             np.testing.assert_array_equal(x, _named_leaves(params)[name])
 
 
-def test_cli_serves_end_to_end(tmp_path, capsys):
-    """synth-corpus → pretrain → generate → eval-node through
-    ``python -m gcc_tpu_torch.cli``'s entry point on the CPU: the
-    community graph written in the airport edgelist layout, embeddings
-    from two RWR views per node, Micro-F1 above chance."""
-    from gcc_tpu_torch import cli
-
-    corpus, out, data = (str(tmp_path / d) for d in ("c", "out", "data"))
+def write_airport_layout(data: str):
+    """The community graph as the usa_airport dataset under ``data``."""
     g, y = community_graph()
     os.makedirs(os.path.join(data, "struc2vec"))
     prefix = os.path.join(data, "struc2vec", "usa-airports")
@@ -404,6 +382,49 @@ def test_cli_serves_end_to_end(tmp_path, capsys):
     with open(prefix + ".nodelabel", "w") as f:
         f.writelines(f"{u} {int(y[u].argmax())}\n"
                      for u in range(g.num_nodes))
+    return g, y
+
+
+def test_cli_pretrains_size_split_then_finetunes(tmp_path, capsys):
+    """pretrain at the E2E headline's batch and bucket (256, n_max 256),
+    where the default split spec "128:240" applies, then finetune from
+    its checkpoint, through the CLI on the CPU."""
+    from gcc_tpu_torch import cli
+
+    corpus, out, data = (str(tmp_path / d) for d in ("c", "out", "data"))
+    write_airport_layout(data)
+    cli.main(["synth-corpus", "--out", corpus, "--num-graphs", "2",
+              "--nodes-per-graph", "400", "--avg-degree", "8"])
+    cli.main(["pretrain", "--corpus", corpus, "--out", out, "--epochs", "1",
+              "--batch-size", "256", "--num-samples", "512",
+              "--num-workers", "0", "--rw-hops", "16", "--hidden-size", "16",
+              "--positional-embedding-size", "8", "--degree-embedding-size",
+              "4", "--pe-method", "eigh", "--n-max", "256", "--e-max",
+              "2048", "--device", "cpu"])
+    run_dir = os.path.join(out, os.listdir(out)[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    assert len(lines) == 2
+    assert all(rec["e2e_split_overflow"] == 0 for rec in lines)
+    capsys.readouterr()
+    cli.main(["finetune", "--ckpt", os.path.join(run_dir, "current"),
+              "--dataset", "usa_airport", "--data-root", data, "--epochs",
+              "1", "--batch-size", "8", "--n-max", "32", "--e-max", "512",
+              "--device", "cpu"])
+    res = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(res["folds"]) == 1 and 0.0 <= res["mean"] <= 1.0, res
+
+
+def test_cli_serves_end_to_end(tmp_path, capsys):
+    """synth-corpus → pretrain → generate → eval-node → finetune through
+    ``python -m gcc_tpu_torch.cli``'s entry point on the CPU: the
+    community graph written in the airport edgelist layout, embeddings
+    from two RWR views per node, Micro-F1 above chance; one finetune
+    fold from the checkpoint."""
+    from gcc_tpu_torch import cli
+
+    corpus, out, data = (str(tmp_path / d) for d in ("c", "out", "data"))
+    g, y = write_airport_layout(data)
     cli.main(["synth-corpus", "--out", corpus, "--num-graphs", "2",
               "--nodes-per-graph", "400", "--avg-degree", "8"])
     cli.main(["pretrain", "--corpus", corpus, "--out", out, "--epochs", "3",
@@ -425,5 +446,9 @@ def test_cli_serves_end_to_end(tmp_path, capsys):
     printed = capsys.readouterr().out
     assert "Micro-F1" in printed
     assert float(printed.split(":")[1].strip(" }\n")) > 0.6, printed
-    with pytest.raises(SystemExit):
-        cli.main(["finetune"])          # not registered until it is ported
+    cli.main(["finetune", "--ckpt", os.path.join(run_dir, "current"),
+              "--dataset", "usa_airport", "--data-root", data, "--epochs",
+              "1", "--batch-size", "8", "--n-max", "32", "--e-max", "512",
+              "--device", "cpu"])
+    res = ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1])
+    assert len(res["folds"]) == 1 and 0.0 <= res["mean"] <= 1.0, res
