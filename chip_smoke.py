@@ -6,8 +6,9 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the three CUDA kernels (one nvcc per source, in parallel) and
-   the host sampler.
+2. Builds the three CUDA kernels (one nvcc per source, in parallel, in
+   the background while the host sampler is built and step 3 makes and
+   samples the corpus).
 3. Samples real wire batches with the port's routed pipeline on a
    synthetic corpus (bucket-128 dispatches, and the first bucket-256
    dispatches, which hold the pairs with a subgraph of more than 128
@@ -35,8 +36,8 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    e_max 2048, 64 steps per dispatch: one routed dispatch in bucket 128
    and one in bucket 256 — with the kernels' launch counters zeroed just
    before each and read just after; then times the featurize of one
-   routed dispatch alone and profiles one more routed dispatch
-   (torch.profiler: wall, device busy time, top kernels).
+   routed dispatch alone and profiles the first 8 steps of one more
+   routed dispatch (torch.profiler: wall, device busy time, top kernels).
 6. Runs the serve path at full width through the entry points:
    run_pretrain (an epoch of 4 routed dispatches, checkpoint) →
    load_checkpoint (restored parameters equal the live ones bit for bit)
@@ -56,9 +57,10 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    parameters moved, queue advanced.
 8. Runs the reference's E2E headline (bench.py e2e: batch 256, in-batch
    negatives, n_max 256, e_max 2048, stacked, 8 steps per dispatch, the
-   size split "128:240"): run_pretrain for an epoch of 3 dispatches (a
+   size split "128:240"): run_pretrain for an epoch of 2 dispatches (a
    checkpoint), one dispatch with the launch counters zeroed (Kernels 2
-   and 3 once per size class) and one profiled, Kernels 2 and 3 held
+   and 3 once per size class) and the first 2 steps of one profiled,
+   Kernels 2 and 3 held
    against their plain versions at the two classes' shapes, and one
    step's features and loss on the card against the CPU (the PE's row
    cosines held to Kernel 2's bf16 limits; its coordinates printed
@@ -68,7 +70,28 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    held-out graphs above 0.7), Kernels 2 and 3 held at that shape; then
    1 epoch on the community graph's nodes through the finetune command
    (`gcc_tpu_torch.cli finetune`, the graph written as a dataset).
-10. Prints one {"kernels": [...]} JSON line (one entry per kernel and
+10. Runs entire graphs beyond the dense bucket through
+   generate_graph_embeddings (from the serve path's checkpoint, n_max
+   512): 3 graphs within n_max, 16 REDDIT-shaped graphs of 1,000-3,782
+   nodes, one of 8,000 nodes at the dense envelope's density (all on the
+   dense schedule) and one at com-DBLP's size (317,080 nodes, 1,049,866
+   edges; ring schedule) in one call, Kernel 3 launched twice per giant
+   graph; then each giant graph alone against the port's CPU path: the
+   span of the iterated PE basis and the PE itself (row cosines, sampled
+   above 8,192 nodes; each graph's mean held to 3x the CPU path's own
+   change under a 1-ulp change of the edge weights, its witness, plus
+   1e-4), giant_gin_encode on identical features, the embeddings beside
+   their witness, row order; times by schedule, the com-DBLP-size
+   graph's PE and encode, two profiles; Kernel 3 held at (1, 48, 48) with
+   5 sweeps on the matrices of the largest REDDIT-shaped graph's finish.
+11. Runs run_pretrain for 16 steps over the padded pairs wire
+   (compact_wire=False) with two forked sampler processes at the
+   training path's width (n_max 128), Kernels 2 and 3 held against
+   their plain versions (timed) on the first step's operator, (64, 128,
+   128) at k = 32, and its Rayleigh-Ritz matrices, (64, 32, 32) with 3
+   sweeps; and one forward and one MoCo step of an encoder without
+   degree input.
+12. Prints one {"kernels": [...]} JSON line (one entry per kernel and
    shape, with the path that runs it), the nvidia-smi line again, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -158,7 +181,31 @@ E2E_LOSS_DIFF = 0.02
 # The reference's E2E headline (bench.py e2e): batch 256, in-batch
 # negatives, n_max 256, e_max 2048, stacked emission, 8 steps per
 # dispatch, the size split "128:240" (ContrastConfig.e2e_split's default).
-E2E_BATCH, E2E_STEPS, E2E_SPEC, E2E_DISPATCHES = 256, 8, "128:240", 3
+E2E_BATCH, E2E_STEPS, E2E_SPEC, E2E_DISPATCHES = 256, 8, "128:240", 2
+# The giant path (generate_graph_embeddings beyond n_max 512): REDDIT-
+# shaped graphs (1,000-3,782 nodes, mean degree ~2.3; dense schedule),
+# one graph of 8,000 nodes at the dense envelope's density (>= 0.4%:
+# 136,000 undirected edges, 0.425%) and one at com-DBLP's size (317,080
+# nodes, 1,049,866 undirected edges, GCC paper Table 1; ring schedule).
+REDDIT_COUNT, REDDIT_NODES, REDDIT_CHORDS = 16, (1000, 3782), 0.15
+DENSE_GIANT = (8000, 136_000)
+DBLP_GIANT = (317_080, 1_049_866)
+GIANT_COS_SAMPLE = 4096   # rows whose cosines are compared above 8k nodes
+GIANT_ENCODE_LIMIT = 1e-4
+# The giant PE's row cosines, card vs CPU, mean per graph: the CPU path's
+# own change under a 1-ulp change of the edge weights (its witness) is one
+# draw of the rounding noise the card's other order of summation also
+# draws, so each graph's mean is held to WITNESS_FACTOR x its witness's
+# + PE_MEAN_LIMIT. (A fixed 1e-4 fails on graphs whose own witness is
+# larger: the 5-sweep f32 Jacobi finish mixes near-degenerate Ritz pairs.
+# In the runs PERF.md records the card's mean was 0.12-2.9x its witness's.)
+WITNESS_FACTOR = 3
+GIANT_SWEEPS = 5          # Kernel 3 in the giant PE's finish
+PADDED_STEPS = 16         # run_pretrain steps over the padded pairs wire
+# Steps of the profiled training and E2E dispatches: reading a profile
+# takes ~0.5 ms of host time per kernel launch it holds (a whole routed
+# dispatch holds ~100k), so a profile covers the first steps only.
+PROFILED_STEPS, E2E_PROFILED_STEPS = 8, 2
 # Finetuning: the graph path at n_max 512, batch 32 (entire graphs, eval
 # PE profile), 3 epochs; the node path 1 epoch.
 FT_BATCH, FT_EPOCHS, FT_MIN_F1 = 32, 3, 0.7
@@ -373,15 +420,15 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False):
     return out, q
 
 
-def check_jacobi(t, check, timed=True, key=None):
+def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS):
     import torch
 
     from gcc_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_plain
 
     b, n, _ = t.shape
-    w, v = jacobi_eigh(t, sweeps=RR_SWEEPS, descending=True)
+    w, v = jacobi_eigh(t, sweeps=sweeps, descending=True)
     torch.cuda.synchronize()
-    w0, v0 = jacobi_eigh_plain(t, sweeps=RR_SWEEPS, descending=True)
+    w0, v0 = jacobi_eigh_plain(t, sweeps=sweeps, descending=True)
     err = max((w - w0).abs().max().item(), (v - v0).abs().max().item())
     # Same rounds, every operation correctly rounded in both versions.
     check(err <= 1e-6, f"jacobi ({b}, {n}, {n}): max abs err {err:.3g} "
@@ -390,25 +437,27 @@ def check_jacobi(t, check, timed=True, key=None):
           f"jacobi ({b}, {n}, {n}): finite")
     if not timed:
         return None
-    ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=RR_SWEEPS,
-                                        descending=True), 20, run_ahead=True)
-    ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=RR_SWEEPS,
+    ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps, descending=True),
+                    20, run_ahead=True)
+    ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
                                               descending=True), 3)
-    ms_l = timed_ms(lambda: torch.linalg.eigh(t), 5)
+    ms_l = timed_ms(lambda: torch.linalg.eigh(t), 5, run_ahead=True)
     # Operations per round, f32: the row mix and the column mix of A and
     # the V^T update, 3 n^2 each (two products and a sum per entry), and
     # about 20 per pivot pair for the rotation; sweeps (n-1) rounds.
-    ops = b * RR_SWEEPS * (n - 1) * (9 * n * n + 10 * n)
+    ops = b * sweeps * (n - 1) * (9 * n * n + 10 * n)
     nbytes = b * (2 * n * n + n) * 4
     bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-    print(f"jacobi ({b}, {n}, {n}) sweeps={RR_SWEEPS}: kernel {ms_k:.4f} ms, "
+    print(f"jacobi ({b}, {n}, {n}) sweeps={sweeps}: kernel {ms_k:.4f} ms, "
           f"plain {ms_p:.4f} ms, torch.linalg.eigh {ms_l:.4f} ms, bound "
           f"{bound:.4f} ms (operations)"
           + versus("jacobi", key if key is not None else n, ms_k, bound),
           flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES
-                else "bytes", max_abs_err=err, shape=f"({b}, {n}, {n})")
+                else "bytes", max_abs_err=err,
+                shape=f"({b}, {n}, {n})"
+                + ("" if sweeps == RR_SWEEPS else f", {sweeps} sweeps"))
 
 
 def rr_matrices(m_shift, q):
@@ -429,6 +478,7 @@ def profiled_idle_share(fn, label: str) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    t_all = time.time()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
@@ -451,10 +501,19 @@ def profiled_idle_share(fn, label: str) -> None:
     launches = sum(e.count for e in kernels)
     print(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), "
           f"{launches} kernel launches, device busy {busy_ms:.1f} ms, idle "
-          f"share {1 - busy_ms / wall_ms:.3f}", flush=True)
+          f"share {1 - busy_ms / wall_ms:.3f} (the profiler's own set-up and "
+          f"reading {time.time() - t_all - wall_ms / 1e3:.1f} s)", flush=True)
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}",
               flush=True)
+
+
+def first_steps(wire, steps: int):
+    """The first `steps` steps of a stacked wire batch."""
+    import dataclasses
+
+    return dataclasses.replace(wire, edges=wire.edges[:steps],
+                               meta=wire.meta[:steps])
 
 
 def where_the_time_goes(state, item, cfg):
@@ -469,8 +528,9 @@ def where_the_time_goes(state, item, cfg):
                                                  n_max=N_MAX), 3)
     print(f"featurize of one routed dispatch ({2 * STEPS * BATCH} graphs, "
           f"N={item[0].n_max}): {feat_ms:.3f} ms (CUDA events)", flush=True)
-    profiled_idle_share(lambda: train_dispatch(state, *item, n_max=N_MAX),
-                        "routed dispatch")
+    head = [first_steps(w, PROFILED_STEPS) for w in item]
+    profiled_idle_share(lambda: train_dispatch(state, *head, n_max=N_MAX),
+                        f"routed dispatch of its first {PROFILED_STEPS} steps")
 
 
 def random_graphs(seed: int, count: int, lo: int, hi: int):
@@ -491,6 +551,50 @@ def random_graphs(seed: int, count: int, lo: int, hi: int):
         graphs.append(CSRGraph.from_edges(u[keep], v[keep], num_nodes=n,
                                           symmetrize=True))
     return graphs
+
+
+def reddit_graphs(seed: int, count: int):
+    """Seeded graphs shaped like REDDIT-BINARY's and REDDIT-MULTI-5K's
+    large threads: lo..hi nodes (the last one exactly hi), a random
+    recursive tree (each node replies to an earlier one) plus 0.15·n
+    random chords, mean degree ~2.3."""
+    import numpy as np
+
+    from gcc_tpu_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    lo, hi = REDDIT_NODES
+    graphs = []
+    for i in range(count):
+        n = hi if i == count - 1 else int(rng.integers(lo, hi + 1))
+        parent = (rng.random(n - 1) * np.arange(1, n)).astype(np.int64)
+        chords = int(REDDIT_CHORDS * n)
+        u = np.concatenate([np.arange(1, n), rng.integers(0, n, chords)])
+        v = np.concatenate([parent, rng.integers(0, n, chords)])
+        keep = u != v
+        graphs.append(CSRGraph.from_edges(u[keep], v[keep], num_nodes=n,
+                                          symmetrize=True))
+    return graphs
+
+
+def uniform_graph(seed: int, n: int, undirected_edges: int):
+    """A seeded graph of n nodes and exactly `undirected_edges` distinct
+    undirected edges drawn uniformly (no self-loops), both directions
+    stored."""
+    import numpy as np
+
+    from gcc_tpu_torch.graph.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+    draw = int(undirected_edges * 1.05) + 1024
+    u, v = rng.integers(0, n, draw), rng.integers(0, n, draw)
+    keep = u != v
+    key = np.unique(np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep])
+    key = rng.permutation(key)[:undirected_edges]
+    if len(key) < undirected_edges:
+        raise ValueError("too few distinct edges drawn")
+    return CSRGraph.from_edges(key // n, key % n, num_nodes=n,
+                               symmetrize=True)
 
 
 def community_graph(seed: int, n_comm: int, size: int):
@@ -789,12 +893,6 @@ def serve_path(ops, cfg, corpus_dir, out_dir, check, results):
           f"graph embeddings at n_max=832: finite, launches {launches}")
     eval_launches[("pe", 832)] = launches["pe"]
     eval_launches[("jacobi", GEN_BATCH)] += launches["jacobi"]
-    try:
-        generate.generate_graph_embeddings(cfg2, state, big, **gen)
-        refused = False
-    except NotImplementedError:
-        refused = True
-    check(refused, "graphs beyond n_max raise NotImplementedError")
 
     profiled_idle_share(lambda: generate.generate_embeddings(
         cfg2, state, subs[:8 * GEN_BATCH], **gen), "stretch of 8 encode calls")
@@ -967,8 +1065,10 @@ def e2e_path(ops, corpus_dir, out_dir, check, results):
           "plain-version call")
     e2e_launches = {name: launches[name] // len(classes)
                     for name in ("pe", "jacobi")}
-    profiled_idle_share(lambda: train_dispatch(state, wq, wk, n_max=N_MAX),
-                        "E2E dispatch")
+    head = [first_steps(w, E2E_PROFILED_STEPS) for w in (wq, wk)]
+    profiled_idle_share(lambda: train_dispatch(state, *head, n_max=N_MAX),
+                        f"E2E dispatch of its first {E2E_PROFILED_STEPS} "
+                        "steps")
 
     # Kernels 2 and 3 at the classes' shapes, on this dispatch's features.
     pos = cfg.encoder.positional_embedding_size
@@ -1181,6 +1281,337 @@ def finetune_path(ops, cfg, ckpt, check, results):
     return ft_launches
 
 
+def row_cosine_errors(a, b, n, seed=0):
+    """Mean and max |a·aᵀ - b·bᵀ| over the first n rows (pairs of rows of
+    two (N, k) blocks, on the card), or over a seeded sample of
+    GIANT_COS_SAMPLE rows where n is larger than 8192."""
+    import numpy as np
+    import torch
+
+    a, b = a.to("cuda", torch.float32), b.to("cuda", torch.float32)
+    if n > 8192:
+        idx = torch.as_tensor(np.sort(np.random.default_rng(seed).choice(
+            n, GIANT_COS_SAMPLE, replace=False)), device="cuda")
+        a, b = a[idx], b[idx]
+    else:
+        a, b = a[:n], b[:n]
+    d = (a @ a.T - b @ b.T).abs()
+    return d.mean().item(), d.max().item()
+
+
+def span_rows(q):
+    """Row-normalized orthonormal basis of the span of q's columns (f64
+    QR): its row cosines are those of any basis of the span."""
+    import torch
+
+    basis = torch.linalg.qr(q.double()).Q
+    norm = torch.linalg.vector_norm(basis, dim=1, keepdim=True)
+    return basis / torch.where(norm == 0, torch.ones_like(norm), norm)
+
+
+def nudged(pg):
+    """The host PE partition with every nonzero edge weight moved up by
+    one ulp (the witness input)."""
+    import numpy as np
+
+    field = "adj" if hasattr(pg, "adj") else "weight"
+    a = getattr(pg, field)
+    return pg._replace(**{field: np.where(
+        a != 0, np.nextafter(a, np.float32(np.inf)), a).astype(np.float32)})
+
+
+def giant_path(ops, cfg, ckpt, check, results):
+    """Entire graphs beyond the dense bucket through
+    generate_graph_embeddings at full width (from the serve path's
+    checkpoint): a few graphs within n_max, REDDIT-shaped graphs, an
+    8,000-node graph at the dense envelope and one at com-DBLP's size, in
+    one call (launch counters zeroed just before it). Then each giant
+    graph on its own, card against the port's CPU path on the same
+    graph and weights: the iterated PE span and the PE (row cosines),
+    giant_gin_encode on identical features, the embeddings beside the
+    CPU path's own change under a 1-ulp change of the edge weights; and
+    the rows of the call held to these, in order. Adds Kernel 3's row at
+    (1, 48, 48), 5 sweeps (the giant PE's finish); returns its
+    launches."""
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.parallel import giant_features as gf
+    from gcc_tpu_torch.parallel.giant import giant_gin_encode
+    from gcc_tpu_torch.training.checkpoint import load_encoder
+
+    card = load_encoder(ckpt, cfg, device="cuda").eval()
+    host = load_encoder(ckpt, cfg, device="cpu").eval()
+    small = random_graphs(4, 3, 100, 500)
+    reddit = reddit_graphs(5, REDDIT_COUNT)
+    dense = uniform_graph(6, *DENSE_GIANT)
+    dblp = uniform_graph(7, *DBLP_GIANT)
+    giant = reddit + [dense, dblp]
+    names = [f"REDDIT-shaped {i}" for i in range(len(reddit))] + [
+        "dense 8k", "com-DBLP size"]
+    graphs = ([reddit[0], small[0]] + reddit[1:8] + [dense, small[1]]
+              + reddit[8:] + [dblp, small[2]])
+    rows = [next(i for i, x in enumerate(graphs) if x is g) for g in giant]
+    gen = dict(n_max=GEN_N_MAX, e_max=GEN_E_MAX, batch_size=GEN_BATCH)
+    generate.generate_graph_embeddings(cfg, card, graphs[:2], **gen)  # warm
+    emb, launches, plain, dt = counted(
+        ops, lambda: generate.generate_graph_embeddings(cfg, card, graphs,
+                                                        **gen))
+    print(f"generate_graph_embeddings, {len(small)} graphs within n_max "
+          f"{GEN_N_MAX} and {len(giant)} beyond ({len(reddit)} "
+          f"REDDIT-shaped of {min(g.num_nodes for g in reddit)}-"
+          f"{max(g.num_nodes for g in reddit)} nodes, {dense.num_nodes} "
+          f"nodes / {dense.num_edges} edges, {dblp.num_nodes} nodes / "
+          f"{dblp.num_edges} edges): {dt:.2f} s; kernel launches "
+          f"{launches}, plain-version calls {plain}", flush=True)
+    check(launches == {"featurize": 0, "pe": 1, "jacobi": 2 + 2 * len(giant)}
+          and not any(plain.values()),
+          f"giant routing: Kernel 2 once and Kernel 3 twice for the small "
+          f"graphs' encode call, Kernel 3 twice per giant graph {launches}, "
+          "no plain-version call")
+    norms = np.linalg.norm(emb, axis=1)
+    check(bool(np.isfinite(emb).all()) and np.abs(norms - 1).max() <= 1e-5,
+          f"all {len(graphs)} graph embeddings finite and of unit norm (max "
+          f"|norm - 1| {np.abs(norms - 1).max():.3g})")
+    small_rows = [i for i in range(len(graphs)) if i not in rows]
+    direct = generate.generate_graph_embeddings(cfg, card, small, **gen)
+    check(np.array_equal(emb[small_rows], direct),
+          "rows of the graphs within n_max equal their own call's, in order")
+
+    # Each giant graph alone: timed on the card, then card against CPU.
+    alone, timings = [], []
+    worst = {"span": (0.0, 0.0), "pe_max": 0.0, "encode": 0.0}
+    pe_means, recorded, cpu_s = [], [], 0.0
+    for name, g in zip(names, giant):
+        schedule = ("dense" if gf.dense_schedule_wins(g.num_edges,
+                                                      g.num_nodes, 1)
+                    else "ring")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        alone.append(gf.giant_graph_embedding(card, g).cpu().numpy())
+        timings.append((schedule, time.time() - t0))
+        n = g.num_nodes
+        pg_pe, pg_enc = gf.giant_partitions(g)
+        out = {}
+        t_cpu = time.time()
+        for dev, model in (("cuda", card), ("cpu", host)):
+            pe_dev = gf.place_giant_partition(pg_pe, 1, dev)
+            enc_dev = gf.place_giant_partition(pg_enc, 1, dev)
+            n_pad = pe_dev.num_nodes
+            q0 = torch.as_tensor(gf.giant_pe_basis(n_pad, n, 32, 16),
+                                 device=dev)
+            mask = (torch.arange(n_pad, device=dev) < n).to(torch.float32)
+            with torch.no_grad():
+                q = gf.giant_pe_iterate(pe_dev, q0)
+                if dev == "cuda" and g is reddit[-1]:
+                    # The two matrices Kernel 3 gets in the finish.
+                    real = gf.jacobi_eigh
+                    gf.jacobi_eigh = lambda a, **kw: (
+                        recorded.append(a.clone()) or real(a, **kw))
+                    try:
+                        pe = gf.giant_pe_finish(pe_dev, q, mask, n)
+                    finally:
+                        gf.jacobi_eigh = real
+                else:
+                    pe = gf.giant_pe_finish(pe_dev, q, mask, n)
+            out[dev] = (q, pe, pe_dev, enc_dev, mask, q0)
+        q_c, pe_c, _, enc_c, mask_c, _ = out["cuda"]
+        q_h, pe_h, _, enc_h, mask_h, q0_h = out["cpu"]
+        with torch.no_grad():
+            pe_w = gf.giant_laplacian_pe(gf.place_giant_partition(
+                nudged(pg_pe), 1, "cpu"), q0_h, mask_h, n)
+            feats_h = gf.giant_input_features(host, g, pe_h)
+            emb_h = giant_gin_encode(host, enc_h, feats_h, mask_h)
+            emb_w = giant_gin_encode(host, enc_h, gf.giant_input_features(
+                host, g, pe_w), mask_h)
+            same_in = giant_gin_encode(card, enc_c, feats_h.cuda(),
+                                       mask_c).cpu()
+            emb_c = giant_gin_encode(card, enc_c, gf.giant_input_features(
+                card, g, pe_c), mask_c).cpu()
+        span = row_cosine_errors(span_rows(q_c[:n]), span_rows(q_h[:n]), n)
+        cos = row_cosine_errors(pe_c, pe_h, n)
+        cos_w = row_cosine_errors(pe_w, pe_h, n)
+        enc_err = (same_in - emb_h).abs().max().item()
+        e2e, e2e_w = ((e - emb_h).abs().max().item() for e in (emb_c, emb_w))
+        cpu_s += time.time() - t_cpu
+        worst["span"] = tuple(map(max, worst["span"], span))
+        worst["pe_max"] = max(worst["pe_max"], cos[1])
+        worst["encode"] = max(worst["encode"], enc_err)
+        pe_means.append((name, cos[0], WITNESS_FACTOR * cos_w[0]
+                         + PE_MEAN_LIMIT))
+        print(f"giant {name} ({n} nodes, {g.num_edges} edges, {schedule}): "
+              f"{timings[-1][1] * 1e3:.1f} ms alone; card vs CPU: iterated "
+              f"span row cosines mean {span[0]:.3g} max {span[1]:.3g}; PE "
+              f"row cosines mean {cos[0]:.3g} max {cos[1]:.3g} (witness "
+              f"{cos_w[0]:.3g}, {cos_w[1]:.3g}; mean limit "
+              f"{pe_means[-1][2]:.3g}); encode on identical features "
+              f"{enc_err:.3g}; embedding max abs {e2e:.4g} (witness "
+              f"{e2e_w:.4g}); both sides with the witness "
+              f"{time.time() - t_cpu:.1f} s", flush=True)
+        if g is dblp:
+            dblp_card = out["cuda"][2:]
+        del out, q_c, pe_c, enc_c
+        torch.cuda.empty_cache()
+    print(f"giant graphs, card vs CPU with the witnesses: {cpu_s:.1f} s "
+          f"(host clock; torch on {torch.get_num_threads()} CPU threads)",
+          flush=True)
+    check(worst["span"][0] <= PE_MEAN_LIMIT
+          and worst["span"][1] <= PE_MAX_LIMIT,
+          f"giant PE, card vs CPU: iterated span row cosines of every graph "
+          f"mean <= {worst['span'][0]:.3g} <= {PE_MEAN_LIMIT}, max "
+          f"<= {worst['span'][1]:.3g} <= {PE_MAX_LIMIT}")
+    over = [(nm, m, lim) for nm, m, lim in pe_means if m > lim]
+    check(not over and worst["pe_max"] <= PE_MAX_LIMIT,
+          f"giant PE, card vs CPU: PE row cosines of every graph mean <= "
+          f"{WITNESS_FACTOR} x its witness's + {PE_MEAN_LIMIT} (largest "
+          f"share of its limit {max(m / lim for _, m, lim in pe_means):.3f}"
+          f"{'; over: ' + str(over) if over else ''}), max <= "
+          f"{worst['pe_max']:.3g} <= {PE_MAX_LIMIT}")
+    check(worst["encode"] <= GIANT_ENCODE_LIMIT,
+          f"giant_gin_encode on identical features, card vs CPU: max abs "
+          f"{worst['encode']:.3g} <= {GIANT_ENCODE_LIMIT}")
+    alone = np.stack(alone)
+    own = np.abs(emb[rows] - alone).max(axis=1)
+    dist = np.abs(emb[rows][:, None, :] - alone[None, :, :]).max(axis=2)
+    other = (dist + np.eye(len(giant)) * 9).min(axis=1)
+    check(bool((dist.argmin(axis=1) == np.arange(len(giant))).all()),
+          f"giant rows in order: each nearest its own graph's embedding "
+          f"computed alone (own max abs {own.max():.3g}; smallest margin "
+          f"to another graph's {(other - own).min():.3g})")
+    for schedule in ("dense", "ring"):
+        ts = [t for s_, t in timings if s_ == schedule]
+        print(f"giant graphs on the {schedule} schedule: {len(ts)}, "
+              f"{np.mean(ts) * 1e3:.1f} ms a graph on average (min "
+              f"{min(ts) * 1e3:.1f}, max {max(ts) * 1e3:.1f}; host clock, "
+              "synchronized)", flush=True)
+    # The com-DBLP-size graph's PE and encode on the card, on their own
+    # (its partitions as the comparison placed them).
+    pg_pe, pg_enc, mask, q0 = dblp_card
+    with torch.no_grad():
+        pe_ms = timed_ms(lambda: gf.giant_laplacian_pe(
+            pg_pe, q0, mask, dblp.num_nodes), 2)
+        feats = gf.giant_input_features(card, dblp, gf.giant_laplacian_pe(
+            pg_pe, q0, mask, dblp.num_nodes))
+        enc_ms = timed_ms(lambda: giant_gin_encode(card, pg_enc, feats,
+                                                   mask), 3)
+    print(f"com-DBLP-size graph on the card: PE {pe_ms:.2f} ms, encode "
+          f"{enc_ms:.2f} ms (CUDA events)", flush=True)
+    del pg_pe, pg_enc, q0, feats, dblp_card
+    torch.cuda.empty_cache()
+    profiled_idle_share(lambda: gf.giant_graph_embedding(card, reddit[-1]),
+                        f"giant graph of {reddit[-1].num_nodes} nodes "
+                        "(dense schedule)")
+    profiled_idle_share(lambda: gf.giant_graph_embedding(card, dblp),
+                        "com-DBLP-size graph (ring schedule)")
+
+    check(len(recorded) == 2 and all(a.shape == (1, 48, 48)
+                                     for a in recorded),
+          f"the giant PE's finish hands Kernel 3 two (1, 48, 48) matrices "
+          f"{[tuple(a.shape) for a in recorded]}")
+    check_jacobi(recorded[0], check, timed=False, sweeps=GIANT_SWEEPS)
+    results[("jacobi", "giant")] = check_jacobi(
+        recorded[1], check, key="giant", sweeps=GIANT_SWEEPS)
+    return {("jacobi", "giant"): launches["jacobi"] - 2}
+
+
+def loose_ends(ops, cfg, corpus_dir, out_dir, item, check, results):
+    """run_pretrain over the padded pairs wire (compact_wire=False) with
+    two forked sampler processes, at the training path's width (batch
+    32, queue 16384, n_max 128), and Kernels 2 and 3 held against their
+    plain versions on the operator of the run's first step; one forward
+    and one MoCo step of an encoder without degree input. Adds the
+    kernels' rows of the padded path; returns their launches."""
+    import dataclasses
+
+    import torch
+
+    from gcc_tpu_torch.features import positional
+    from gcc_tpu_torch.sampling.pipeline import PipelineConfig
+    from gcc_tpu_torch.training import (
+        create_pretrain_state,
+        featurize_stacked,
+        loop,
+        train_dispatch,
+    )
+
+    steps, workers = PADDED_STEPS, 2
+    pcfg = PipelineConfig(batch_size=BATCH, n_max=N_SMALL, e_max=E_MAX,
+                          num_samples=steps * BATCH // workers,
+                          num_workers=workers, prefetch=8,
+                          compact_wire=False, mode="process")
+    run_cfg = dataclasses.replace(cfg, epochs=1, num_workers=workers,
+                                  num_samples=pcfg.num_samples)
+    # The operator and node mask the run's first step hands the PE.
+    real_topk, first = positional.subspace_topk, []
+
+    def recording(m_shift, node_mask, *args, **kwargs):
+        if not first:
+            first.append((m_shift.clone(), node_mask.sum(1).long()))
+        return real_topk(m_shift, node_mask, *args, **kwargs)
+
+    positional.subspace_topk = recording
+    try:
+        summary, launches, plain, dt = counted(
+            ops, lambda: loop.run_pretrain(run_cfg, corpus_dir, out_dir, pcfg,
+                                           log_fn=lambda s: None,
+                                           steps_per_call=steps))
+    finally:
+        positional.subspace_topk = real_topk
+    with open(os.path.join(summary["run_dir"], "metrics.jsonl")) as f:
+        lines = [json.loads(line) for line in f]
+    print(f"run_pretrain over the padded pairs wire, {workers} forked "
+          f"sampler processes: {summary['steps']} steps in {dt:.1f} s with "
+          f"pipeline start-up (training wall {summary['wall']:.2f} s, "
+          f"{summary['wall'] / steps * 1e3:.3f} ms/step), avg loss "
+          f"{summary['avg_loss']:.4f}; kernel launches {launches}, "
+          f"plain-version calls {plain}", flush=True)
+    check(summary["steps"] == steps and len(lines) == steps
+          and [r["step"] for r in lines] == list(range(steps))
+          and all(math.isfinite(r["loss"]) for r in lines),
+          f"padded pairs wire, process mode: {len(lines)} finite metric "
+          "lines, step counter advancing")
+    check(launches == {"featurize": 0, "pe": steps, "jacobi": steps}
+          and not any(plain.values()),
+          f"padded pairs wire: Kernels 2 and 3 once a step {launches}, no "
+          "plain-version call")
+    m_shift, n_nodes = first[0]
+    k_pos = cfg.encoder.positional_embedding_size
+    print(f"padded pairs wire, first step: {m_shift.shape[0]} views at "
+          f"n_max {m_shift.shape[1]}, nodes mean "
+          f"{n_nodes.float().mean().item():.1f}", flush=True)
+    results[("pe", "padded")], q = check_pe(m_shift, n_nodes, k_pos, check,
+                                            key="padded")
+    results[("jacobi", "padded")] = check_jacobi(rr_matrices(m_shift, q),
+                                                 check, key="padded")
+    del m_shift, q, first
+
+    no_deg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, degree_input=False))
+    state = create_pretrain_state(no_deg, total_steps=1000, seed=0,
+                                  device="cuda")
+    one = [dataclasses.replace(w, edges=w.edges[:1], meta=w.meta[:1])
+           for w in item]
+    with torch.no_grad():
+        feats = featurize_stacked(
+            *one, cfg.encoder.positional_embedding_size, n_max=N_MAX)
+        state.model.eval()
+        out = state.model(feats.map(lambda x: x[0]))
+    idx0 = int(state.queue.index)
+    metrics = train_dispatch(state, *one, n_max=N_MAX)
+    print(f"encoder without degree input: input width "
+          f"{no_deg.encoder.node_input_dim}, forward {tuple(out.shape)}, "
+          f"one MoCo step loss {metrics['loss'].item():.4f}", flush=True)
+    check(bool(torch.isfinite(out).all()) and state.model.degree_embedding
+          is None and bool(torch.isfinite(metrics["loss"]).all())
+          and int(state.queue.index) == (idx0 + BATCH) % NCE_K
+          and state.step == 1,
+          "degree_input=False: finite forward and MoCo step, queue and "
+          "step advanced")
+    return {("pe", "padded"): launches["pe"],
+            ("jacobi", "padded"): launches["jacobi"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1221,25 +1652,33 @@ def main() -> int:
     dev = torch.device("cuda")
     check = Checks()
     t_start = time.time()
+    t_phase = [t_start]
 
-    # --- build: nvcc per kernel in parallel, g++ sampler beside them ----
-    t0 = time.time()
-    sampler_err = []
+    def phase(name: str) -> None:
+        now = time.time()
+        print(f"phase {name}: {now - t_phase[0]:.1f} s (at {now - t_start:.1f}"
+              " s)", flush=True)
+        t_phase[0] = now
 
-    def build_sampler():
+    # --- build: nvcc per kernel in parallel, in the background while the
+    # sampler is built (g++) and the corpus is made and sampled ----------
+    t_build = time.time()
+    libs, kernel_err = {}, []
+
+    def build_kernels():
         try:
-            sampler_build.build()
-        except (OSError, subprocess.CalledProcessError) as e:
-            sampler_err.append(e)
+            libs.update(kernel_build.build())
+        except (OSError, RuntimeError) as e:
+            kernel_err.append(e)
 
-    th = threading.Thread(target=build_sampler)
-    th.start()
-    libs = kernel_build.build()
-    th.join()
-    if sampler_err:
-        return fail(f"sampler build failed: {sampler_err[0]}")
-    print(f"built {sorted(libs)} + sampler in {time.time() - t0:.1f} s",
-          flush=True)
+    kernel_thread = threading.Thread(target=build_kernels)
+    kernel_thread.start()
+    try:
+        sampler_build.build()
+    except (OSError, subprocess.CalledProcessError) as e:
+        kernel_thread.join()
+        return fail(f"sampler build failed: {e}")
+    print(f"built the sampler in {time.time() - t_build:.1f} s", flush=True)
 
     cfg = TrainConfig(batch_size=BATCH, sampler=SamplerConfig(rw_hops=RW_HOPS),
                       contrast=ContrastConfig(moco=True, nce_k=NCE_K))
@@ -1280,6 +1719,12 @@ def main() -> int:
                   f"{n_nodes.mean():.1f}, max {n_nodes.max()}; edges per "
                   f"query graph mean {item[0].meta[:, 1, :].mean():.1f}",
                   flush=True)
+        kernel_thread.join()
+        if kernel_err:
+            return fail(f"kernel build failed: {kernel_err[0]}")
+        print(f"built {sorted(libs)} in {time.time() - t_build:.1f} s (beside "
+              "the sampler, the corpus and the sampling)", flush=True)
+        phase("build, corpus and sampling")
 
         # --- kernels vs plain versions at the training shapes -----------
         results = {}
@@ -1331,6 +1776,8 @@ def main() -> int:
             del m_shift, q, s_g, t_rr
             torch.cuda.empty_cache()
 
+        phase("kernels at the training and eval shapes")
+
         # --- training path ----------------------------------------------
         state = create_pretrain_state(cfg, total_steps=100_000, seed=0,
                                       device="cuda")
@@ -1365,19 +1812,35 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
 
+        phase("training path")
+
         # --- serve path ------------------------------------------------
         eval_launches, ckpt, cfg2 = serve_path(
             ops, cfg, corpus_dir, os.path.join(work, "out"), check, results)
+        phase("serve path")
 
         # --- alternate encoders ----------------------------------------
         alt_encoders(ops, cfg, small_items[1], check)
+        phase("alternate encoders")
 
         # --- E2E headline ----------------------------------------------
         e2e_launches = e2e_path(ops, corpus_dir, os.path.join(work, "e2e"),
                                 check, results)
+        phase("E2E headline")
 
         # --- finetune --------------------------------------------------
         ft_launches = finetune_path(ops, cfg2, ckpt, check, results)
+        phase("finetune")
+
+        # --- giant graphs beyond the dense bucket -------------------------
+        giant_launches = giant_path(ops, cfg2, ckpt, check, results)
+        phase("giant graphs")
+
+        # --- padded pairs wire, forked samplers, no degree input ----------
+        padded_launches = loose_ends(ops, cfg, corpus_dir,
+                                     os.path.join(work, "padded"),
+                                     small_items[1], check, results)
+        phase("padded pairs wire, no degree input")
 
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),
@@ -1400,6 +1863,10 @@ def main() -> int:
              for n_b in (N_SMALL, N_MAX) for name in ("pe", "jacobi")]
     rows += [(name, key, "finetune", {name: n})
              for (name, key), n in ft_launches.items()]
+    rows += [(name, key, "giant", {name: n})
+             for (name, key), n in giant_launches.items()]
+    rows += [(name, key, "padded", {name: n})
+             for (name, key), n in padded_launches.items()]
     kernels = []
     for name, key, path, launches in rows:
         r = results[(name, key)]

@@ -12,7 +12,8 @@ for its two norms, and ``Linear_j`` for the readout of hidden
 representation j. GAT and MPNN encoders hold ``UnsupervisedGAT_0``
 (``GATLayer_i``: Linear_0, attn_l, attn_r) or ``UnsupervisedMPNN_0``
 (Linear_0-2, GRUCell_0), then ``Set2Set_0`` (``lstm_i``) and the head
-``Linear_0`` / ``Linear_1``; they have no batch_stats. Flax's recurrent
+``Linear_0`` / ``Linear_1``; they have no batch_stats. An encoder
+without degree input has no ``DegreeEmbedding_0``. Flax's recurrent
 cells keep one Dense per gate (GRU: ir iz in | hr hz hn; LSTM: ii if ig
 io | hi hf hg ho); torch's stack the gates (r, z, n; i, f, g, o) into
 ``weight_ih`` / ``weight_hh``, and the port's cells hold only the
@@ -60,34 +61,40 @@ def _count(keys, prefix: str) -> int:
                 for k in keys if k.startswith(prefix)})
 
 
+_DEGREE = "degree_embedding.embedding.weight"
+
+
 def _layout_of_flax(params: dict) -> dict:
+    degree = "DegreeEmbedding_0" in params
     if "UnsupervisedGIN_0" in params:
         gp = params["UnsupervisedGIN_0"]
         return {"model": "gin", "layers": _count(gp, "GINMLP_"),
-                "se": "SELayer_0" in gp}
+                "se": "SELayer_0" in gp, "degree": degree}
     model = "gat" if "UnsupervisedGAT_0" in params else "mpnn"
     layers = (_count(params["UnsupervisedGAT_0"], "GATLayer_")
               if model == "gat" else 0)
-    return {"model": model, "layers": layers,
+    return {"model": model, "layers": layers, "degree": degree,
             "lstms": _count(params["Set2Set_0"], "lstm_")}
 
 
 def _layout_of_state_dict(sd: dict) -> dict:
+    degree = _DEGREE in sd
     if any(k.startswith("gnn.mlps.") for k in sd):
         return {"model": "gin", "layers": _count(sd, "gnn.mlps."),
-                "se": "gnn.norms.0.linear0.weight" in sd}
+                "se": "gnn.norms.0.linear0.weight" in sd, "degree": degree}
     model = "mpnn" if "gnn.lin0.weight" in sd else "gat"
     return {"model": model, "layers": _count(sd, "gnn.layers."),
-            "lstms": _count(sd, "set2set.lstms.")}
+            "degree": degree, "lstms": _count(sd, "set2set.lstms.")}
 
 
 def _entries(layout: dict):
     """(kind, torch prefix, Flax path) of every block of an encoder.
     kinds: "param" (same array), "lin" / "lin_nobias" (kernel
     transposed), "bn" (params scale/offset + batch_stats mean/var),
-    "lstm", "gru" (per-gate Dense layers stacked into one cell)."""
-    yield "param", "degree_embedding.embedding.weight", (
-        "DegreeEmbedding_0", "embedding")
+    "lstm", "gru" (per-gate Dense layers stacked into one cell). An
+    encoder without degree input has no degree embedding."""
+    if layout["degree"]:
+        yield "param", _DEGREE, ("DegreeEmbedding_0", "embedding")
     if layout["model"] == "gin":
         g = ("UnsupervisedGIN_0",)
         n, se = layout["layers"], layout["se"]

@@ -135,6 +135,29 @@ def _small_eigh(a: torch.Tensor, rr: str, sweeps: int):
     return w.flip(-1), v.flip(-1)
 
 
+def guarded_whitening(q: torch.Tensor, jitter: float, eigh) -> torch.Tensor:
+    """Generalized Rayleigh–Ritz whitening of a guarded (B, N, k) basis.
+
+    A guarded basis is ill-conditioned in the guard directions (they sit
+    in the clustered spectral bulk), and Rayleigh–Ritz on a
+    non-orthonormal basis mixes eigenvectors: solve the generalized
+    problem instead. Eigendecompose the Gram S + jitter·I = V·s·Vᵀ with
+    ``eigh`` (descending) and whiten with W = V·s^-1/2, so (QW)ᵀ(QW) = I.
+    Relative floor: directions whose s is under 0.1·s_max are numerically
+    collapsed (the graph is smaller than the block, or the iteration drove
+    them dependent); whitening would amplify f32 noise into Ritz
+    directions. They are dropped: their rows of T become 0 and their Ritz
+    values sink to the bottom."""
+    s_g = _gram(q)
+    s_g = 0.5 * (s_g + s_g.transpose(1, 2))
+    s_g = s_g + jitter * _eye_like(q.shape[2], s_g)
+    sv, v = eigh(s_g)
+    floor = 0.1 * sv[:, :1]
+    keep = (sv > floor).to(q.dtype)
+    w = v * (torch.rsqrt(torch.maximum(sv, floor)) * keep)[:, None, :]
+    return torch.bmm(q, w)
+
+
 def subspace_topk(m_shift: torch.Tensor, node_mask: torch.Tensor, k: int,
                   guards: int = 0, iters: int = PE_ITERS,
                   orth_every: int = PE_ORTH_EVERY, rr: str = "jacobi",
@@ -159,24 +182,8 @@ def subspace_topk(m_shift: torch.Tensor, node_mask: torch.Tensor, k: int,
         q = _dense_iterate(m_shift, q, iters, orth_every)
 
     if k > k_keep:
-        # A guarded basis is ill-conditioned in the guard directions
-        # (they sit in the clustered spectral bulk), and Rayleigh–Ritz on
-        # a non-orthonormal basis mixes eigenvectors: solve the
-        # generalized problem instead. Eigendecompose the Gram
-        # S = V·s·Vᵀ and whiten with W = V·s^-1/2, so (QW)ᵀ(QW) = I.
-        s_g = _gram(q)
-        s_g = 0.5 * (s_g + s_g.transpose(1, 2))
-        s_g = s_g + 1e-5 * _eye_like(k, s_g)
-        sv, v = _small_eigh(s_g, rr, rr_sweeps)
-        # Relative floor: directions whose sv is far below the graph's
-        # top sv are numerically collapsed (the graph is smaller than the
-        # block, or the iteration drove them dependent); whitening would
-        # amplify f32 noise into Ritz directions. Drop them: their rows
-        # of T become 0 and their Ritz values sink to the bottom.
-        floor = 0.1 * sv[:, :1]
-        keep = (sv > floor).to(q.dtype)
-        w = v * (torch.rsqrt(torch.maximum(sv, floor)) * keep)[:, None, :]
-        q = torch.bmm(q, w)
+        q = guarded_whitening(q, 1e-5,
+                              lambda s: _small_eigh(s, rr, rr_sweeps))
 
     # Rayleigh–Ritz on m_shift: the +I shift changes neither eigenvectors
     # nor order, and q is zero on padding rows.
@@ -222,8 +229,17 @@ def laplacian_positional_embedding(node_mask: torch.Tensor,
             rr=rr, rr_sweeps=rr_sweeps)
     else:
         raise ValueError(f"unknown PE method: {method}")
-    if n_vec < pos_size:
-        top = torch.nn.functional.pad(top, (0, pos_size - n_vec))
+    return canonical_pe(top, n_nodes, node_mask, pos_size)
+
+
+def canonical_pe(top: torch.Tensor, n_nodes: torch.Tensor,
+                 node_mask: torch.Tensor, pos_size: int) -> torch.Tensor:
+    """The conventions every PE ends with, on (B, N, n_vec) eigenvectors
+    in descending eigenvalue order: zero-padded to pos_size columns, the
+    sign canonicalized, columns beyond k_b = min(n_b - 2, pos_size)
+    zeroed, rows L2-normalized, padding rows zeroed (n_nodes: (B,))."""
+    if top.shape[2] < pos_size:
+        top = torch.nn.functional.pad(top, (0, pos_size - top.shape[2]))
     # Canonical sign: the entry of max |value| positive (ties of opposite
     # sign, or an all-zero column, keep +).
     absv = top.abs()

@@ -10,7 +10,8 @@ dataset size runs at one set of shapes.
 
 Featurization runs the eval PE profile (16 guard columns, the guarded
 generalized Rayleigh–Ritz): per encode call one launch of Kernel 2 and
-two of Kernel 3.
+two of Kernel 3. Entire graphs beyond the bucket go to the partitioned
+giant path (``parallel/``): two launches of Kernel 3 per graph.
 
 Every function takes the port's ``GraphEncoder`` or a ``PretrainState``
 (whose query encoder is used) and ``device`` (default ``"cuda"``; an
@@ -31,6 +32,7 @@ from gcc_tpu_torch.features.featurize import featurize_batch
 from gcc_tpu_torch.graph.batch import Subgraph, batch_subgraphs
 from gcc_tpu_torch.graph.csr import CSRGraph
 from gcc_tpu_torch.models import GraphEncoder
+from gcc_tpu_torch.parallel.giant_features import giant_graph_embedding
 from gcc_tpu_torch.sampling import native
 from gcc_tpu_torch.sampling.sampler import entire_graph_subgraph, rwr_budgets
 
@@ -223,32 +225,51 @@ def generate_graph_embeddings(
     n_max: int = 512,
     e_max: int = 8192,
     batch_size: int = 64,
+    parts: int = 1,
+    giant_iters: int = 64,
     readout: str = "score",
     device="cuda",
 ) -> np.ndarray:
-    """Entire-graph embeddings, rows in the order of ``graphs``.
+    """Entire-graph embeddings with automatic giant-graph routing, rows in
+    the order of ``graphs`` (``gcc_tpu/generate.py:228-291``).
 
     readout: "score" (the reference protocol, generate.py:33-53) or
-    "composite" (:func:`composite_graph_readout`).
+    "composite" (:func:`composite_graph_readout`; dense-bucket graphs
+    only: the partitioned giant path exposes no per-layer pooled outputs,
+    so a graph beyond ``n_max`` raises ``NotImplementedError``).
 
-    Every graph must fit the dense bucket (num_nodes <= n_max; pass a
-    bigger n_max to cover larger graphs). The reference package routes
-    graphs beyond the bucket to its partitioned giant-graph path, which
-    is not ported yet: such a graph raises ``NotImplementedError`` — it is
-    never truncated."""
+    Graphs that fit the dense bucket (num_nodes <= n_max) run the
+    reference's entire-graph batch path (graph_dataset.py:327-361).
+    Graphs beyond it go to the partitioned giant path, one at a time:
+    whole-graph PE and GIN over a partition of ``parts`` shards
+    (:func:`gcc_tpu_torch.parallel.giant_features.giant_graph_embedding`,
+    ``giant_iters`` power steps; GIN with BatchNorm and degree input
+    only, others raise ``ValueError``)."""
     if readout not in ("score", "composite"):
         raise ValueError(f"unknown graph readout: {readout!r}")
+    small = [i for i, g in enumerate(graphs) if g.num_nodes <= n_max]
     giant = [i for i, g in enumerate(graphs) if g.num_nodes > n_max]
-    if giant:
-        raise NotImplementedError(
-            f"{len(giant)} graph(s) exceed the dense bucket (first: graph "
-            f"{giant[0]} with {graphs[giant[0]].num_nodes} nodes > n_max="
-            f"{n_max}); the partitioned giant-graph path is not ported yet "
-            "— raise n_max to cover them")
     if readout == "composite":
+        if giant:
+            raise NotImplementedError(
+                "readout='composite' needs per-layer pooled outputs, "
+                "which the partitioned giant path does not expose — "
+                "raise n_max to cover the graphs or use readout='score'")
         return composite_graph_readout(generate_graph_readouts(
             cfg, model, graphs, n_max=n_max, e_max=e_max,
             batch_size=batch_size, device=device))
-    return generate_embeddings(cfg, model, graph_subgraphs(graphs),
-                               n_max=n_max, e_max=e_max,
-                               batch_size=batch_size, device=device)
+    out = np.zeros((len(graphs), cfg.encoder.output_size), np.float32)
+    if small:
+        out[small] = generate_embeddings(
+            cfg, model, graph_subgraphs([graphs[i] for i in small]),
+            n_max=n_max, e_max=e_max, batch_size=batch_size, device=device)
+    if giant:
+        device = resolve_device(device)
+        with _eval_mode(_encoder_of(model), device) as enc:
+            # Device tensors gathered once at the end: the host builds
+            # the next graph's partition while the card runs this one.
+            embs = [giant_graph_embedding(enc, graphs[i], parts=parts,
+                                          iters=giant_iters, device=device)
+                    for i in giant]
+            out[giant] = torch.stack(embs).cpu().numpy()
+    return out

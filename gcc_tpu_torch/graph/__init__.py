@@ -4,7 +4,9 @@ from gcc_tpu_torch.graph.batch import (
     Subgraph,
     WireBatch,
     batch_subgraphs,
+    concat_padded,
     expand_compact,
+    expand_wire,
     pack_edge_ids,
     pick_bucket,
 )
@@ -23,7 +25,9 @@ __all__ = [
     "Subgraph",
     "WireBatch",
     "batch_subgraphs",
+    "concat_padded",
     "expand_compact",
+    "expand_wire",
     "pack_edge_ids",
     "partition_graphs",
     "pick_bucket",

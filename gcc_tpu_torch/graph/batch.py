@@ -76,7 +76,8 @@ def pick_bucket(max_nodes: int, max_edges_per_graph: int) -> tuple[int, int]:
 class WireBatch:
     """Padded wire form: (B, E_max) int16 local edge endpoints (entries
     past each graph's n_edges are arbitrary) + (B,) int32 n_nodes,
-    n_edges, seed_pos. Used by the pipeline's start-up probe."""
+    n_edges, seed_pos. The pipeline's start-up probe and its padded pairs
+    (``compact_wire=False``) use it."""
 
     src: np.ndarray
     dst: np.ndarray
@@ -158,6 +159,36 @@ def _padded_from_locals(src_local, dst_local, valid, n_nodes, seed_pos,
         node_mask=node_mask,
         seed_flag=seed_flag * node_mask,
         n_nodes=np.asarray(n_nodes, np.int32),
+    )
+
+
+def expand_wire(wire: WireBatch, n_max: int) -> PaddedSubgraphBatch:
+    """Expansion of a padded WireBatch ((B, E_max) local endpoints) into
+    a PaddedSubgraphBatch (``gcc_tpu/graph/batch.py:221-233``): slots
+    past each graph's n_edges become weight-0 loops on its node 0."""
+    e_max = wire.src.shape[1]
+    n_edges = np.asarray(wire.n_edges)
+    valid = np.arange(e_max, dtype=np.int32)[None, :] < n_edges[:, None]
+    src_local = np.where(valid, np.asarray(wire.src).astype(np.int32), 0)
+    dst_local = np.where(valid, np.asarray(wire.dst).astype(np.int32), 0)
+    return _padded_from_locals(src_local, dst_local, valid,
+                               np.asarray(wire.n_nodes),
+                               np.asarray(wire.seed_pos), n_max)
+
+
+def concat_padded(b1: PaddedSubgraphBatch,
+                  b2: PaddedSubgraphBatch) -> PaddedSubgraphBatch:
+    """Stack two same-bucket padded batches into one (2B, ...) batch
+    (``gcc_tpu/graph/batch.py:310-346``), so the query and key views
+    featurize in one call."""
+    off = b1.batch_size * b1.n_max
+    return PaddedSubgraphBatch(
+        edges_src=np.concatenate([b1.edges_src, b2.edges_src + off]),
+        edges_dst=np.concatenate([b1.edges_dst, b2.edges_dst + off]),
+        edge_weight=np.concatenate([b1.edge_weight, b2.edge_weight]),
+        node_mask=np.concatenate([b1.node_mask, b2.node_mask]),
+        seed_flag=np.concatenate([b1.seed_flag, b2.seed_flag]),
+        n_nodes=np.concatenate([b1.n_nodes, b2.n_nodes]),
     )
 
 

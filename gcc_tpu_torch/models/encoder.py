@@ -1,12 +1,13 @@
 """GraphEncoder: input features + GNN dispatch + output L2 normalization.
 
 Counterpart of ``gcc_tpu/models/encoder.py`` (reference
-gcc/models/graph_encoder.py:19-200 with degree_input=True): node
-features = concat(positional embedding, degree embedding of clamp(deg,
-0, max_degree), seed flag) → 49-d at the canonical config, masked to
-real nodes, through the GNN — GIN (the default; BatchNorm or SE), or GAT
-/ MPNN, whose node states go through Set2Set → Linear → ReLU → Linear —
-then F.normalize(p=2, eps=1e-5) of the graph embedding.
+gcc/models/graph_encoder.py:19-200): node features = concat(positional
+embedding, degree embedding of clamp(deg, 0, max_degree) — with
+``degree_input``, the default — and seed flag) → 49-d at the canonical
+config (33-d without degree input), masked to real nodes, through the
+GNN — GIN (the default; BatchNorm or SE), or GAT / MPNN, whose node
+states go through Set2Set → Linear → ReLU → Linear — then
+F.normalize(p=2, eps=1e-5) of the graph embedding.
 
 Train/eval follows ``module.train()`` / ``module.eval()``: train mode
 normalizes by batch statistics (and updates the running buffers) and
@@ -30,12 +31,12 @@ from gcc_tpu_torch.models.set2set import Set2Set
 class GraphEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
-        if not cfg.degree_input:
-            raise NotImplementedError(
-                "only the encoder with degree input is ported")
         self.cfg = cfg
-        self.degree_embedding = DegreeEmbedding(cfg.max_degree,
-                                                cfg.degree_embedding_size)
+        # Without degree input the features are [PE, seed flag]
+        # (gcc_tpu/models/encoder.py:39-44), node_input_dim pos + 1.
+        self.degree_embedding = (
+            DegreeEmbedding(cfg.max_degree, cfg.degree_embedding_size)
+            if cfg.degree_input else None)
         d, h = cfg.node_input_dim, cfg.hidden_size
         if cfg.model == "gin":
             self.gnn = UnsupervisedGIN(
@@ -56,7 +57,8 @@ class GraphEncoder(nn.Module):
 
     def reset_parameters(self, gen: torch.Generator | None) -> None:
         """Torch-default initialization drawn from ``gen``."""
-        self.degree_embedding.reset_parameters(gen)
+        if self.degree_embedding is not None:
+            self.degree_embedding.reset_parameters(gen)
         self.gnn.reset_parameters(gen)
         if self.cfg.model != "gin":
             self.set2set.reset_parameters(gen)
@@ -70,8 +72,10 @@ class GraphEncoder(nn.Module):
         also the GIN's pooled list (input features, then every conv
         layer), the ingredients of the composite readout — None for the
         other encoders."""
-        parts = [feats.pos, self.degree_embedding(feats.degrees),
-                 feats.seed_flag[..., None]]
+        parts = [feats.pos]
+        if self.degree_embedding is not None:
+            parts.append(self.degree_embedding(feats.degrees))
+        parts.append(feats.seed_flag[..., None])
         # Padded nodes contribute zero to every node sum downstream; the
         # degree-0 embedding row is nonzero, so mask the input.
         n_feat = torch.cat(parts, dim=-1) * feats.node_mask[..., None]

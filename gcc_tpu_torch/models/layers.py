@@ -44,11 +44,15 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
+    def eval_apply(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalization by the running buffers (eval mode; also the
+        giant-graph path's, ``parallel/giant.py``)."""
+        y = (x - self.running_mean) * torch.rsqrt(self.running_var + self.eps)
+        return y * self.weight + self.bias
+
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            y = (x - self.running_mean) * torch.rsqrt(self.running_var
-                                                      + self.eps)
-            return y * self.weight + self.bias
+            return self.eval_apply(x)
         dims = tuple(range(x.dim() - 1))
         m = mask[..., None]
         count = torch.clamp_min(mask.sum(), 1.0)

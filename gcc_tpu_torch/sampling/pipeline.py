@@ -3,10 +3,16 @@
 The reference parallelizes sampling with DataLoader worker processes,
 each owning a size-balanced partition of the corpus graphs
 (graph_dataset.py:23-92). Here the same scheme runs as background
-sampler threads (the native sampler releases the GIL) that push
-ready-to-ship compact wire batches over a queue, so host sampling
-overlaps device compute. A synchronous in-process mode
-(``num_workers=0``) serves tests and low-CPU hosts.
+sampler threads (the default: the native sampler releases the GIL) or
+forked worker processes (``mode="process"``) that push ready-to-ship
+wire batches over a queue, so host sampling overlaps device compute. A
+synchronous in-process mode (``num_workers=0``) serves tests and
+low-CPU hosts.
+
+Forked workers start from a parent that may already hold a CUDA
+context. They touch no ``torch.cuda`` API: they run the numpy and
+native sampler and put numpy items on the queue (a CUDA call in a forked
+child would raise, and the consumer re-raises a worker's error).
 
 Static-shape policy: every batch is packed into one configured
 (n_max, e_max) bucket. Subgraphs whose RWR budget would exceed the
@@ -19,6 +25,7 @@ affected.
 from __future__ import annotations
 
 import dataclasses
+import multiprocessing as mp
 import queue as queue_mod
 from typing import Iterator
 
@@ -41,11 +48,15 @@ class PipelineConfig:
     n_max: int = 512
     e_max: int = 8192
     num_samples: int = 2000   # per worker per epoch (reference --num-samples)
-    num_workers: int = 1      # 0 = synchronous in-process; else threads
+    num_workers: int = 1      # 0 = synchronous in-process
     num_copies: int = 1
     prefetch: int = 32
     threads_per_worker: int = 1
     degree_power: float = 0.75
+    # "thread": background prefetch threads (the default). "process":
+    # forked worker processes, for hosts with cores to spare
+    # (gcc_tpu/sampling/pipeline.py:50-56).
+    mode: str = "thread"
     # Pairs sampled per native-sampler call: one big C++ call is sliced
     # into `super_batch` wire pairs, amortizing the Python call overhead.
     super_batch: int = 8
@@ -489,12 +500,14 @@ def _worker_main(store_path, graph_ids, cfg, pcfg, seed, out_q, stop_ev):
 
 
 class PretrainPipeline:
-    """Iterator of (query, key) compact wire batches over a corpus.
+    """Iterator of (query, key) wire batches over a corpus.
 
     num_workers=0 runs synchronously in-process; otherwise background
-    threads each own a greedy size-balanced shard of the corpus
-    (num_copies replicates the assignment, reference graph_dataset.py:76).
-    graph_ids restricts sampling to a subset of the corpus (None = all).
+    threads or forked processes (``PipelineConfig.mode``) each own a
+    greedy size-balanced shard of the corpus (num_copies replicates the
+    assignment, reference graph_dataset.py:76), worker w sampling with
+    seed + 7919·(w + 1). graph_ids restricts sampling to a subset of the
+    corpus (None = all).
     """
 
     def __init__(self, store: CorpusStore, cfg: SamplerConfig,
@@ -506,6 +519,8 @@ class PretrainPipeline:
                           else list(range(len(store.graph_sizes))))
         if not self.graph_ids:
             raise ValueError("graph_ids restriction is empty")
+        if pcfg.mode not in ("thread", "process"):
+            raise ValueError(f"unknown sampler mode: {pcfg.mode!r}")
         if pcfg.emit in ("stacked", "routed") and not (
             pcfg.compact_wire and pcfg.n_max <= 256
             and native.native_available()
@@ -536,11 +551,11 @@ class PretrainPipeline:
             pcfg = dataclasses.replace(pcfg, **updates)
         self.pcfg = pcfg
         self.seed = seed
-        self._threads: list = []
+        self._workers: list = []
         self._queue = None
         self._stop = None
         if pcfg.num_workers > 0:
-            self._start_threads()
+            self._start_workers()
         else:
             jobs = self._partition(1)
             self._shard = ShardSampler(store, jobs[0], cfg, pcfg, seed)
@@ -552,28 +567,46 @@ class PretrainPipeline:
         jobs = partition_graphs(sizes, num_workers, num_copies)
         return [[self.graph_ids[j] for j in job] for job in jobs]
 
-    def _start_threads(self):
-        import threading
+    def _start_workers(self):
+        if self.pcfg.mode == "process":
+            # The reference forks too (pipeline.py:699-711): the workers
+            # inherit the corpus path and configs without pickling.
+            ctx = mp.get_context("fork")
+            self._queue = ctx.Queue(maxsize=self.pcfg.prefetch)
+            self._stop = ctx.Event()
+            spawn = ctx.Process
+        else:
+            import threading
 
-        self._queue = queue_mod.Queue(maxsize=self.pcfg.prefetch)
-        self._stop = threading.Event()
+            self._queue = queue_mod.Queue(maxsize=self.pcfg.prefetch)
+            self._stop = threading.Event()
+            spawn = threading.Thread
         jobs = self._partition(self.pcfg.num_workers, self.pcfg.num_copies)
         for w, graph_ids in enumerate(jobs):
-            t = threading.Thread(
+            worker = spawn(
                 target=_worker_main,
                 args=(self.store.path, graph_ids, self.cfg, self.pcfg,
                       self.seed + 7919 * (w + 1), self._queue, self._stop),
                 daemon=True,
             )
-            t.start()
-            self._threads.append(t)
+            worker.start()
+            self._workers.append(worker)
 
     def __iter__(self) -> Iterator[tuple[CompactWireBatch, CompactWireBatch]]:
         return self
 
     def __next__(self):
         if self._queue is not None:
-            item = self._queue.get()
+            while True:
+                try:
+                    item = self._queue.get(timeout=5)
+                    break
+                except queue_mod.Empty:
+                    # A worker that died without a word (a forked one
+                    # killed by a signal) would otherwise stall us forever.
+                    if not any(w.is_alive() for w in self._workers):
+                        raise RuntimeError(
+                            "every sampler worker has exited") from None
             if isinstance(item, _WorkerError):
                 raise RuntimeError(f"sampler worker crashed:\n{item.err}")
             return item
@@ -593,9 +626,14 @@ class PretrainPipeline:
                     self._queue.get_nowait()
             except queue_mod.Empty:
                 pass
-            for t in self._threads:
-                t.join(timeout=5)
-            self._threads = []
+            for w in self._workers:
+                w.join(timeout=5)
+                if isinstance(w, mp.process.BaseProcess) and w.is_alive():
+                    # A child whose queue feeder still holds items past
+                    # the drain cannot exit on its own.
+                    w.terminate()
+                    w.join(timeout=5)
+            self._workers = []
 
     def __enter__(self):
         return self

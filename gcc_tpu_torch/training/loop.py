@@ -63,10 +63,16 @@ def run_pretrain(
     stacked dispatches takes the size split, and every metrics line
     carries ``e2e_split_overflow``.
 
+    The padded pairs wire (``compact_wire`` False) trains one step per
+    pair, each featurizing its query and key views in one call
+    (``featurize_pair``), as the reference does where the stacked upgrade
+    does not apply.
+
     Not ported yet, and refused with ``NotImplementedError``: more than
-    one device (``dp_devices`` > 1, the reference's data-parallel path)
-    and the padded pairs wire (``compact_wire`` False). Routed emission
-    with E2E is refused with ``ValueError``, as in the reference.
+    one device (``dp_devices`` > 1, the reference's data-parallel and
+    multi-host path, which needs ``torch.distributed`` and BatchNorm sums
+    across ranks). Routed emission with E2E is refused with
+    ``ValueError``, as in the reference.
 
     The reference warms its large-bucket program with a throwaway step on
     empty graphs before a routed run, so that a compile does not stall
@@ -100,10 +106,6 @@ def run_pretrain(
             "emit='routed' with moco=False changes the E2E objective "
             "(in-batch negatives become size-class-correlated); use "
             "emit='stacked' or 'pairs' for E2E training.")
-    if not pcfg.compact_wire:
-        raise NotImplementedError(
-            "the padded pairs wire (compact_wire=False) is not ported; "
-            "run_pretrain takes the compact wire")
     stacked = pcfg.emit in ("stacked", "routed")
     if stacked and pcfg.super_batch != k_item:
         # Item shape must match the K-step dispatch width.

@@ -2,7 +2,7 @@
 
 Counterpart of ``gcc_tpu/training/pretrain.py``
 (``create_pretrain_state``, ``make_step_from_feats``,
-``featurize_stacked``) and of the K-step dispatch of
+``featurize_pair``, ``featurize_stacked``) and of the K-step dispatch of
 ``gcc_tpu/training/packed.py``. Per MoCo step (reference
 train.py:350-478):
 
@@ -55,9 +55,18 @@ from gcc_tpu_torch.contrastive import (
     nce_softmax_loss,
 )
 from gcc_tpu_torch.device import resolve_device
-from gcc_tpu_torch.features.featurize import BatchFeatures, featurize_compact
+from gcc_tpu_torch.features.featurize import (
+    BatchFeatures,
+    featurize_batch,
+    featurize_compact,
+)
 from gcc_tpu_torch.features.positional import laplacian_positional_embedding
-from gcc_tpu_torch.graph.batch import CompactWireBatch
+from gcc_tpu_torch.graph.batch import (
+    CompactWireBatch,
+    WireBatch,
+    concat_padded,
+    expand_wire,
+)
 from gcc_tpu_torch.models import GraphEncoder
 from gcc_tpu_torch.ops.aggregate import node_degrees
 from gcc_tpu_torch.training.optim import build_optimizer, clip_gradients_
@@ -237,6 +246,24 @@ def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     return feats.map(lambda x: x.reshape((k_steps, 2 * bsz) + x.shape[1:]))
 
 
+def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
+                   n_max: int, device="cuda", pe_method: str = "subspace"
+                   ) -> tuple[BatchFeatures, BatchFeatures]:
+    """Featurize one step's padded query and key views (the
+    ``compact_wire=False`` pipeline's ``WireBatch`` pair) in one call
+    (``gcc_tpu/training/pretrain.py:597-616``): both expanded with
+    ``n_max``, concatenated, one ``featurize_batch`` at the train
+    profile. Returns (feats_q, feats_k) with (B, ...) fields."""
+    if n_max is None:
+        raise ValueError("n_max required to expand a WireBatch")
+    f = featurize_batch(concat_padded(expand_wire(wire_q, n_max),
+                                      expand_wire(wire_k, n_max)),
+                        pos_size, pe_method=pe_method, profile="train",
+                        device=device)
+    bsz = f.node_mask.shape[0] // 2
+    return f.map(lambda x: x[:bsz]), f.map(lambda x: x[bsz:])
+
+
 _DUMP_SLOTS = 1024
 
 
@@ -374,17 +401,23 @@ def _stack_metrics(per_step: list[dict]) -> dict[str, torch.Tensor]:
     return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
 
-def train_dispatch(state: PretrainState, wires_q: CompactWireBatch,
-                   wires_k: CompactWireBatch, n_max: int | None = None
-                   ) -> dict[str, torch.Tensor]:
+def train_dispatch(state: PretrainState, wires_q, wires_k,
+                   n_max: int | None = None) -> dict[str, torch.Tensor]:
     """K train steps over one stacked dispatch item (the port's
     counterpart of make_packed_multi_step): featurize all K steps once,
     then step through them. Returns (K,) device tensors per metric. An
     E2E dispatch on a stacked wire whose batch and bucket the
     ``e2e_split`` spec applies to takes the size split and also returns
-    ``e2e_split_overflow``."""
+    ``e2e_split_overflow``. A padded ``WireBatch`` pair is one step
+    through :func:`featurize_pair`."""
     cfg = state.cfg
     contrast = cfg.contrast
+    if isinstance(wires_q, WireBatch):
+        feats_q, feats_k = featurize_pair(
+            wires_q, wires_k, cfg.encoder.positional_embedding_size,
+            n_max=n_max, device=state.device,
+            pe_method=cfg.encoder.pe_method)
+        return _stack_metrics([train_step(state, feats_q, feats_k)])
     classes = None
     if not contrast.moco and contrast.e2e_split and np.ndim(wires_q.meta) == 3:
         classes = parse_e2e_split(contrast.e2e_split,

@@ -177,7 +177,9 @@ def test_readouts_match_jax():
 
 def test_graph_embeddings_readouts_and_bucket_guard():
     """Entire-graph mode: both readouts against JAX on CSR graphs; a
-    graph beyond the bucket raises instead of being truncated."""
+    graph beyond the bucket is never truncated: the score readout routes
+    it to the giant path (finite unit rows, the others as without it),
+    the composite readout raises."""
     rng = np.random.default_rng(4)
     subs = random_subgraphs(rng, 6, 12, N_MAX)
     graphs = [CSRGraph.from_edges(s.src, s.dst, num_nodes=s.num_nodes,
@@ -195,9 +197,20 @@ def test_graph_embeddings_readouts_and_bucket_guard():
             cfg, model, graphs, n_max=N_MAX, e_max=E_MAX, batch_size=4,
             readout=readout, device="cpu")
         np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
-    with pytest.raises(NotImplementedError, match="n_max=16"):
+    routed = generate.generate_graph_embeddings(cfg, model, graphs, n_max=16,
+                                                e_max=E_MAX, device="cpu")
+    small = [i for i, g in enumerate(graphs) if g.num_nodes <= 16]
+    assert 0 < len(small) < len(graphs)
+    np.testing.assert_array_equal(
+        routed[small], generate.generate_graph_embeddings(
+            cfg, model, [graphs[i] for i in small], n_max=16, e_max=E_MAX,
+            device="cpu"))
+    np.testing.assert_allclose(np.linalg.norm(routed, axis=1), 1.0,
+                               atol=1e-5)
+    with pytest.raises(NotImplementedError, match="composite"):
         generate.generate_graph_embeddings(cfg, model, graphs, n_max=16,
-                                           e_max=E_MAX, device="cpu")
+                                           e_max=E_MAX, readout="composite",
+                                           device="cpu")
     with pytest.raises(ValueError, match="readout"):
         generate.generate_graph_embeddings(cfg, model, graphs, n_max=N_MAX,
                                            readout="mean", device="cpu")

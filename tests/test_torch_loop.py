@@ -205,10 +205,6 @@ def test_run_pretrain_refuses_what_it_does_not_run(tmp_path, corpus):
     with pytest.raises(NotImplementedError, match="dp_devices=2"):
         run_pretrain(tiny_cfg(moco=True), corpus, out, tiny_pcfg(),
                      log_fn=_quiet, dp_devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="compact_wire=False"):
-        run_pretrain(tiny_cfg(moco=True), corpus, out,
-                     tiny_pcfg(compact_wire=False), log_fn=_quiet,
-                     device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             run_pretrain(tiny_cfg(moco=True), corpus, out, tiny_pcfg(),
