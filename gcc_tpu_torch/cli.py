@@ -71,7 +71,11 @@ def _add_train_flags(p):
     p.add_argument("--n-small", type=int, default=128,
                    help="small node bucket for --emit routed")
     p.add_argument("--dp-devices", type=int, default=1,
-                   help="data-parallel device count; only 1 is ported")
+                   help="data-parallel device count: one process per "
+                        "device under torchrun (--nproc-per-node N; "
+                        "NCCL on the card, gloo with --device cpu), the "
+                        "stacked/routed wire with a device axis; 1 = one "
+                        "device")
     p.add_argument("--exp", default="")
     p.add_argument("--dataset", default="corpus")
 
@@ -140,8 +144,13 @@ def cmd_ingest(args):
 
 
 def cmd_pretrain(args):
+    from gcc_tpu_torch.parallel.multihost import initialize_multihost
     from gcc_tpu_torch.sampling.pipeline import PipelineConfig
     from gcc_tpu_torch.training.loop import run_pretrain
+
+    # Under torchrun: join the process group (env://) before anything
+    # touches the device; a no-op for a single process.
+    initialize_multihost(device=args.device)
 
     cfg = _cfg_from_args(args)
     if cfg.dataset != "corpus":

@@ -43,11 +43,16 @@
 //     56 floats, which keeps a patch's loads and stores off each other's
 //     banks. What is left of a round is the rotation's chain of dependent
 //     square roots and divisions.
-//   * any other even n from 4 to 48: jacobi_block_kernel, one block per
+//   * any other even n from 4 to 118: jacobi_block_kernel, one block per
 //     matrix, A and V^T double-buffered in shared memory (16 n^2 bytes),
 //     two barriers a round: the n/2 rotations, then one pass in which each
 //     thread takes 2x2 blocks of A, applies the row mix and then the
-//     column mix, and writes them to their re-paired positions.
+//     column mix, and writes them to their re-paired positions. Its
+//     shared memory, 4 (4 n^2 + 2 n) + 16 n bytes, passes the 48 KB of a
+//     plain launch above n = 52 (67,072 B at n = 64, 104,320 B at n = 80,
+//     the widths of PE 64 on the train and eval profiles); the launch
+//     then opts in to dynamic shared memory up to the 232,448 B a Hopper
+//     block may hold, which n = 118 fits and n = 120 does not.
 // In all, products and sums are explicitly rounded (__fmul_rn /
 // __fadd_rn / ...) in the plain version's order per element (row mix,
 // then column mix), so no FMA contraction changes them: Jacobi has no
@@ -58,6 +63,8 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr size_t kPlainSmem = 48 * 1024;  // a launch without the opt-in
+constexpr size_t kMaxSmem = 232448;       // a Hopper block's most
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -426,7 +433,9 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
                                  void* v, int batch, int n, int sweeps,
                                  int descending, float eps, void* stream) {
   if (batch <= 0) return 0;
-  if (n % 2 != 0 || n < 4 || n > 48 || sweeps < 0)
+  const size_t smem =
+      (size_t)(4 * n * n + 2 * n) * sizeof(float) + (size_t)4 * n * sizeof(int);
+  if (n % 2 != 0 || n < 4 || smem > kMaxSmem || sweeps < 0)
     return (int)cudaErrorInvalidValue;
   if (n == kN) {
     jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0,
@@ -442,8 +451,12 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
         sweeps * (n - 1), descending, eps);
     return (int)cudaGetLastError();
   }
-  const size_t smem =
-      (size_t)(4 * n * n + 2 * n) * sizeof(float) + (size_t)4 * n * sizeof(int);
+  if (smem > kPlainSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        jacobi_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   jacobi_block_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)t, (const int*)tables, (float*)w, (float*)v, n,
       sweeps * (n - 1), descending, eps);

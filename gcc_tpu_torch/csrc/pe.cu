@@ -74,6 +74,12 @@
 // tensor cores against a bf16 copy of M that the kernel makes once in a
 // device scratch and streams for every power step, Q^T in registers and
 // in a bf16 copy in every block's shared memory.
+//
+// Widths 48 < k <= 80 (PE 64, with and without the eval profile's 16
+// guards) take the WIDE plan (pe_wide_kernel, after the streamed plan) at
+// every N <= 832: one block per graph, Q in a device scratch, every
+// product an f32 FMA on operands rounded to bf16 where the reference
+// rounds them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1708,6 +1714,423 @@ int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
   return (int)cudaGetLastError();
 }
 
+// ---- the wide plan: 48 < k <= 80, every N <= 832 -----------------------
+//
+// PE 64 iterates k = 64 columns on the train profile and 80 (64 + 16
+// guards) on the eval profile and the giant finish. At those widths the
+// two plans above do not fit: the shared plan's copies of Q^T pass a
+// block's 227 KB above N = 160 at kp = 80 (and by 272 B at N = 256, kp =
+// 64), and the streamed plan's two bf16 copies of Q^T alone take 268,800
+// B at N = 832. The wide plan keeps Q^T in device memory instead, where
+// the L1 and L2 caches serve it, and does every product on the CUDA cores
+// as f32 FMAs on operands rounded to bf16 where the reference rounds them
+// (a product of two bf16 values is exact in f32, so each sum is the plain
+// version's arithmetic in another order). It is the simple kernel, right
+// first; its time is in PERF.md.
+//   * One block per graph up to N = 256 (256 threads); above, a cluster
+//     of two blocks of 512 threads (a batch of 64 graphs then fills the
+//     card's 132 SMs): the blocks split every product's items and every
+//     write of Q, each keeps its own copy of G, and a cluster barrier
+//     follows every write. Q is stored as (N, kp), row c holding column c
+//     of Q^T, four copies in a device scratch: f32 and its bf16 rounding
+//     (kept as f32), each double-buffered, so no step reads what it
+//     writes.
+//   * A thread computes one (CW columns, 16-row tile) item of a product at
+//     a time: 16·CW accumulators, the tile's 16 values of one operand read
+//     as four float4 (the same address across most of a warp: a
+//     broadcast) for every CW values of the other. CW = 4 where the live
+//     extent leaves every other thread an item, else 1 (small graphs need
+//     the items more than the reuse). The power step streams M[j][c0..]
+//     (coalesced over the column groups) and rounds it to bf16 where the
+//     round does; the Newton-Schulz update reads lo(G) from shared memory
+//     and rows c0.. of lo(Q) from the scratch. Each output's sum runs over
+//     its depth in order, whatever CW.
+//   * The Gram is 4 x 4 tiles of its upper triangle (136 at kp = 64, 210
+//     at kp = 80), one a thread, mirrored, so G is symmetric bit for bit
+//     and lo(G) is formed in place.
+//   * Work follows the data: the live extent of M and q0 is found first,
+//     and every loop runs over it only (skipped terms are exact zeros).
+
+constexpr int kWideMaxN = 832;
+
+struct WidePlan {
+  int n, k, kp, kt, threads, smem;
+  int cluster;         // blocks per graph
+  int cw;              // columns an item (1 or 4)
+  long long scratch;   // bytes per graph: 4 (N, kp) f32 copies of Q
+};
+
+// Shapes: n a multiple of 32 up to 832, 48 < k <= 80.
+inline bool pe_wide_plan(int n, int k, WidePlan* p) {
+  if (n < 32 || n > kWideMaxN || n % 32 != 0 || k <= 48 || k > 80)
+    return false;
+  p->n = n; p->k = k;
+  p->kp = (k + 15) / 16 * 16;
+  p->kt = p->kp / 16;
+  p->threads = n <= 256 ? 256 : 512;
+  p->cluster = n <= 256 ? 1 : 2;
+  p->cw = n <= 128 ? 1 : 4;
+  // G (kp x kp f32), the row norms, the Gershgorin scale and the extent.
+  p->smem = p->kp * p->kp * 4 + p->kp * 4 + 16;
+  p->scratch = 4LL * n * p->kp * 4;
+  return true;
+}
+
+__device__ __forceinline__ float bf_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+template <int KT>
+struct Wide {
+  static constexpr int kp = 16 * KT;
+  int n, ne, tid, nthreads, warp, lane, nwarps;
+  int rank, csize;                // this block's place in the graph's cluster
+  const float* m;                 // this graph's M (n, n)
+  float* qf[2];                   // f32 Q (n, kp), double-buffered
+  float* ql[2];                   // lo(Q), the same
+  int cur;
+  float* gram;                    // (kp, kp)
+  float* red;                     // kp
+  float* scal;
+  // This thread's first index and stride over work split by the cluster.
+  __device__ int first() const { return rank * nthreads + tid; }
+  __device__ int stride() const { return csize * nthreads; }
+};
+
+// Every write to the graph's Q (in device memory) is followed by this:
+// a block barrier, or with a cluster of blocks a cluster barrier, whose
+// release/acquire also orders the device-memory writes between blocks.
+template <int KT>
+__device__ __forceinline__ void wide_sync(const Wide<KT>& x) {
+  if (x.csize > 1) cooperative_groups::this_cluster().sync();
+  else __syncthreads();
+}
+
+// Writes item (columns c0..c0+CW-1, tile mt) of the next buffers.
+template <int CW, int KT>
+__device__ __forceinline__ void wide_store(Wide<KT>& x, int c0, int mt,
+                                           const float (&acc)[CW][16]) {
+#pragma unroll
+  for (int u = 0; u < CW; ++u) {
+    const int at = (c0 + u) * x.kp + mt * 16;
+    float4* f = reinterpret_cast<float4*>(x.qf[x.cur ^ 1] + at);
+    float4* l = reinterpret_cast<float4*>(x.ql[x.cur ^ 1] + at);
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const float* a = &acc[u][4 * v];
+      f[v] = make_float4(a[0], a[1], a[2], a[3]);
+      l[v] = make_float4(bf_round(a[0]), bf_round(a[1]), bf_round(a[2]),
+                         bf_round(a[3]));
+    }
+  }
+}
+
+// acc[u][i] += a[i] * b[u]: 16 values of one operand (four float4, a
+// broadcast across the warp) against CW of the other.
+template <int CW>
+__device__ __forceinline__ void fma_tile(float (&acc)[CW][16],
+                                         const float* a, const float* b) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+#pragma unroll
+  for (int v = 0; v < 4; ++v) {
+    const float4 q = a4[v];
+#pragma unroll
+    for (int u = 0; u < CW; ++u) {
+      acc[u][4 * v] = fmaf(q.x, b[u], acc[u][4 * v]);
+      acc[u][4 * v + 1] = fmaf(q.y, b[u], acc[u][4 * v + 1]);
+      acc[u][4 * v + 2] = fmaf(q.z, b[u], acc[u][4 * v + 2]);
+      acc[u][4 * v + 3] = fmaf(q.w, b[u], acc[u][4 * v + 3]);
+    }
+  }
+}
+
+// Columns c0..c0+CW-1 of row j of M, rounded to bf16 when lo.
+template <int CW>
+__device__ __forceinline__ void load_m(const float* row, bool lo,
+                                       float (&mv)[CW]) {
+  if constexpr (CW == 4) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
+    mv[0] = v.x; mv[1] = v.y; mv[2] = v.z; mv[3] = v.w;
+  } else {
+    mv[0] = __ldg(row);
+  }
+  if (lo) {
+#pragma unroll
+    for (int u = 0; u < CW; ++u) mv[u] = bf_round(mv[u]);
+  }
+}
+
+// Q^T <- A(Q^T) M, A = lo or f32, M rounded to bf16 when lo. An item is
+// CW columns c0.. (CW = 4: one float4 of a row of M) by one 16-row tile.
+template <int CW, int KT>
+__device__ void wide_power(Wide<KT>& x, bool lo) {
+  const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
+  const int groups = x.ne / CW, items = groups * KT;
+  for (int it = x.first(); it < items; it += x.stride()) {
+    const int mt = it / groups, c0 = CW * (it - mt * groups);
+    float acc[CW][16] = {};
+    for (int j = 0; j < x.ne; ++j) {
+      float mv[CW];
+      load_m<CW>(x.m + (size_t)j * x.n + c0, lo, mv);
+      fma_tile<CW>(acc, a + j * x.kp + mt * 16, mv);
+    }
+    wide_store<CW>(x, c0, mt, acc);
+  }
+  wide_sync(x);
+  x.cur ^= 1;
+}
+
+// Rows of Q^T scaled to unit norm (floor 1e-20), in place. Every block
+// of the cluster sums all of them; each scales its share.
+template <int KT>
+__device__ void wide_colunit(Wide<KT>& x) {
+  float* q = x.qf[x.cur];
+  float* l = x.ql[x.cur];
+  for (int r = x.warp; r < x.kp; r += x.nwarps) {
+    float s = 0.f;
+    for (int c = x.lane; c < x.ne; c += 32)
+      s = fmaf(q[c * x.kp + r], q[c * x.kp + r], s);
+    for (int off = 16; off > 0; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn(s), 1e-20f);
+  }
+  wide_sync(x);   // every block has read Q before any block rewrites it
+  for (int idx = x.first(); idx < x.ne * x.kp; idx += x.stride()) {
+    const float v = __fdiv_rn(q[idx], x.red[idx % x.kp]);
+    q[idx] = v;
+    l[idx] = bf_round(v);
+  }
+  wide_sync(x);
+}
+
+// G = A(Q^T) A(Q^T)^T into shared memory (every block of the cluster),
+// 4 x 4 tiles of the upper triangle mirrored into the lower.
+template <int KT>
+__device__ void wide_gram(Wide<KT>& x, bool lo) {
+  constexpr int kq = 4 * KT, tiles = kq * (kq + 1) / 2;
+  const float* q = lo ? x.ql[x.cur] : x.qf[x.cur];
+  for (int tile = x.tid; tile < tiles; tile += x.nthreads) {
+    int ta = 0, tb = tile;
+    while (tb >= kq - ta) { tb -= kq - ta; ++ta; }
+    tb += ta;
+    float acc[4][4] = {};
+    for (int c = 0; c < x.ne; ++c) {
+      const float4 av =
+          *reinterpret_cast<const float4*>(q + c * x.kp + 4 * ta);
+      const float4 bv =
+          *reinterpret_cast<const float4*>(q + c * x.kp + 4 * tb);
+      const float a4[4] = {av.x, av.y, av.z, av.w};
+      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int a = 4 * ta + i, b = 4 * tb + j;
+        x.gram[a * x.kp + b] = acc[i][j];
+        x.gram[b * x.kp + a] = acc[i][j];
+      }
+  }
+  wide_sync(x);   // and every block has read Q before it is rewritten
+}
+
+// Newton-Schulz update Q^T <- 1.5 Q^T - 0.5 G A(Q^T) (G in shared memory,
+// already A-rounded), the power step's items.
+template <int CW, int KT>
+__device__ void wide_update(Wide<KT>& x, bool lo) {
+  const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
+  const float* f = x.qf[x.cur];
+  const int groups = x.ne / CW, items = groups * KT;
+  for (int it = x.first(); it < items; it += x.stride()) {
+    const int mt = it / groups, c0 = CW * (it - mt * groups);
+    float acc[CW][16] = {};
+    // G is symmetric bit for bit: row b of G is column b.
+    for (int b = 0; b < x.kp; b += 4) {
+      float4 qv[CW];
+#pragma unroll
+      for (int u = 0; u < CW; ++u)
+        qv[u] = *reinterpret_cast<const float4*>(a + (c0 + u) * x.kp + b);
+#pragma unroll
+      for (int bb = 0; bb < 4; ++bb) {
+        float col[CW];
+#pragma unroll
+        for (int u = 0; u < CW; ++u)
+          col[u] = bb == 0 ? qv[u].x : bb == 1 ? qv[u].y
+                 : bb == 2 ? qv[u].z : qv[u].w;
+        fma_tile<CW>(acc, x.gram + (b + bb) * x.kp + mt * 16, col);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < CW; ++u) {
+      const float* q = f + (c0 + u) * x.kp + mt * 16;
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        acc[u][i] = __fsub_rn(__fmul_rn(1.5f, q[i]),
+                              __fmul_rn(0.5f, acc[u][i]));
+    }
+    wide_store<CW>(x, c0, mt, acc);
+  }
+  wide_sync(x);
+  x.cur ^= 1;
+}
+
+// Newton-Schulz: colunit, Gershgorin scale, `steps` updates
+// Q^T <- 1.5 Q^T - 0.5 A(G) A(Q^T), A = lo or f32.
+template <int CW, int KT>
+__device__ void wide_ns(Wide<KT>& x, int steps, bool lo) {
+  wide_colunit(x);
+  wide_gram(x, lo);
+  gershgorin(x);
+  const float sc = x.scal[0];
+  const float sc2 = __fmul_rn(sc, sc);
+  float* q = x.qf[x.cur];
+  float* l = x.ql[x.cur];
+  for (int idx = x.first(); idx < x.ne * x.kp; idx += x.stride()) {
+    const float v = __fmul_rn(q[idx], sc);
+    q[idx] = v;
+    l[idx] = bf_round(v);
+  }
+  for (int idx = x.tid; idx < x.kp * x.kp; idx += x.nthreads) {
+    const float g = __fmul_rn(x.gram[idx], sc2);
+    x.gram[idx] = lo ? bf_round(g) : g;
+  }
+  wide_sync(x);
+  for (int s = 0; s < steps; ++s) {
+    if (s) {
+      wide_gram(x, lo);
+      if (lo) {
+        for (int idx = x.tid; idx < x.kp * x.kp; idx += x.nthreads)
+          x.gram[idx] = bf_round(x.gram[idx]);
+        __syncthreads();
+      }
+    }
+    wide_update<CW>(x, lo);
+  }
+}
+
+template <int KT, int MAXT, int CW>
+__global__ void __launch_bounds__(MAXT)
+pe_wide_kernel(const float* __restrict__ m,    // (B, n, n)
+               const float* __restrict__ q0,   // (B, n, k)
+               float* __restrict__ out,        // (B, n, k)
+               float* __restrict__ scratch,    // (B, 4, n, kp)
+               int n, int k, int csize, int rounds, int orth_every,
+               int ns_steps, int polish, int final_ns, int lo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Wide<KT> x;
+  constexpr int kp = 16 * KT;
+  const int graph = blockIdx.x / csize;
+  x.n = n;
+  x.tid = threadIdx.x; x.nthreads = blockDim.x;
+  x.warp = threadIdx.x >> 5; x.lane = threadIdx.x & 31;
+  x.nwarps = blockDim.x >> 5;
+  x.rank = blockIdx.x - graph * csize; x.csize = csize;
+  x.m = m + (size_t)graph * n * n;
+  float* sb = scratch + (size_t)graph * 4 * n * kp;
+  x.qf[0] = sb; x.qf[1] = sb + n * kp;
+  x.ql[0] = sb + 2 * n * kp; x.ql[1] = sb + 3 * n * kp;
+  x.cur = 0;
+  x.gram = reinterpret_cast<float*>(smem_raw);
+  x.red = x.gram + kp * kp;
+  x.scal = x.red + kp;
+  int* extent = reinterpret_cast<int*>(x.scal + 1);
+  const float* qb = q0 + (size_t)graph * n * k;
+
+  // extent: 1 + the last row or column of M or q0 with a non-zero (every
+  // block of the cluster finds it).
+  if (x.tid == 0) *extent = 0;
+  __syncthreads();
+  int ext = 0;
+  const int nq = n / 4;
+  for (int idx = x.tid; idx < n * nq; idx += x.nthreads) {
+    const int j = idx / nq, c4 = idx - j * nq;
+    const float4 v = __ldg(reinterpret_cast<const float4*>(x.m) + idx);
+    if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
+      ext = max(ext, max(j + 1, 4 * c4 + 4));
+  }
+  for (int idx = x.tid; idx < n * k; idx += x.nthreads)
+    if (qb[idx] != 0.f) ext = max(ext, idx / k + 1);
+  ext = __reduce_max_sync(0xffffffffu, ext);
+  if (x.lane == 0) atomicMax(extent, ext);
+  __syncthreads();
+  x.ne = min(n, (*extent + 3) / 4 * 4);   // whole float4 column groups
+  // q0 into both copies of the current buffer; rows >= k are zero.
+  for (int idx = x.first(); idx < x.ne * kp; idx += x.stride()) {
+    const int c = idx / kp, r = idx - c * kp;
+    const float v = r < k ? qb[c * k + r] : 0.f;
+    x.qf[0][idx] = v;
+    x.ql[0][idx] = bf_round(v);
+  }
+  wide_sync(x);
+
+  for (int r = 0; r < rounds; ++r) {
+    for (int s = 0; s < orth_every; ++s) wide_power<CW>(x, lo != 0);
+    wide_ns<CW>(x, ns_steps, lo != 0);
+  }
+  for (int s = 0; s < polish; ++s) {
+    wide_power<CW>(x, false);
+    wide_colunit(x);
+  }
+  if (final_ns) wide_ns<CW>(x, final_ns, false);
+
+  const float* q = x.qf[x.cur];
+  float* ob = out + (size_t)graph * n * k;
+  for (int idx = x.first(); idx < n * k; idx += x.stride()) {
+    const int c = idx / k, r = idx - c * k;
+    ob[idx] = c < x.ne ? q[c * kp + r] : 0.f;
+  }
+}
+
+template <int KT, int MAXT, int CW>
+int launch_wide_as(const WidePlan& p, const void* m, const void* q0,
+                   void* out, void* scratch, int batch, int rounds,
+                   int orth_every, int ns_steps, int polish, int final_ns,
+                   int lo, cudaStream_t stream) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = p.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(batch * p.cluster, 1, 1);
+  cfg.blockDim = dim3(p.threads, 1, 1);
+  cfg.dynamicSmemBytes = p.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = p.cluster > 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pe_wide_kernel<KT, MAXT, CW>, (const float*)m, (const float*)q0,
+      (float*)out, (float*)scratch, p.n, p.k, p.cluster, rounds, orth_every,
+      ns_steps, polish, final_ns, lo);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// N <= 128: one column an item (small graphs need the items, and the
+// registers stay low enough for three blocks an SM); above, four columns
+// an item (each value of M and of the tile read once for four).
+template <int KT>
+int launch_wide(const WidePlan& p, const void* m, const void* q0, void* out,
+                void* scratch, int batch, int rounds, int orth_every,
+                int ns_steps, int polish, int final_ns, int lo,
+                cudaStream_t stream) {
+  if (p.cw == 1)
+    return launch_wide_as<KT, 256, 1>(p, m, q0, out, scratch, batch, rounds,
+                                      orth_every, ns_steps, polish, final_ns,
+                                      lo, stream);
+  if (p.threads <= 256)
+    return launch_wide_as<KT, 256, 4>(p, m, q0, out, scratch, batch, rounds,
+                                      orth_every, ns_steps, polish, final_ns,
+                                      lo, stream);
+  return launch_wide_as<KT, 512, 4>(p, m, q0, out, scratch, batch, rounds,
+                                    orth_every, ns_steps, polish, final_ns,
+                                    lo, stream);
+}
+
 }  // namespace
 
 // plan[0..8] = threads, shared-memory bytes, kp, warps, depth split of the
@@ -1730,11 +2153,19 @@ extern "C" int gcc_pe_plan(int n, int k, int* plan) {
     plan[6] = g.cluster; plan[7] = g.spb; plan[8] = g.scratch;
     return 0;
   }
+  WidePlan w;
+  if (pe_wide_plan(n, k, &w)) {
+    plan[0] = w.threads; plan[1] = w.smem; plan[2] = w.kp;
+    plan[3] = w.threads / 32; plan[4] = 1; plan[5] = 1;
+    plan[6] = w.cluster; plan[7] = n / 16; plan[8] = (int)w.scratch;
+    return 0;
+  }
   return 1;
 }
 
 // scratch: (batch, plan[8]) bytes for n > 256 (the streamed plan: the
-// bf16 copy of M per graph), unused and may be null else.
+// bf16 copy of M per graph) and for k > 48 (the wide plan: four f32
+// copies of Q), unused and may be null else.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                              void* scratch, int batch, int n, int k,
                              int iters, int orth_every, int ns_steps,
@@ -1758,6 +2189,15 @@ extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
         return launch<3>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
                          polish, final_ns, lo, s);
     }
+  }
+  WidePlan w;
+  if (pe_wide_plan(n, k, &w)) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    if (w.kt == 4)
+      return launch_wide<4>(w, m, q0, out, scratch, batch, rounds,
+                            orth_every, ns_steps, polish, final_ns, lo, s);
+    return launch_wide<5>(w, m, q0, out, scratch, batch, rounds, orth_every,
+                          ns_steps, polish, final_ns, lo, s);
   }
   if (!pe_big_plan(n, k, &g) || scratch == nullptr)
     return (int)cudaErrorInvalidValue;

@@ -4,6 +4,9 @@ initialization from an explicit generator.
 
 Counterpart of ``gcc_tpu/models/layers.py``. Padded nodes must not
 pollute batch statistics, so BatchNorm normalizes over real nodes only.
+Inside a data-parallel step (``parallel/data_parallel.py``) the batch is
+the global one: the batch sums are all-reduced over the ranks, forward
+and backward, and dropout masks are the global batch's rows.
 """
 
 from __future__ import annotations
@@ -12,6 +15,8 @@ import math
 
 import torch
 from torch import nn
+
+from gcc_tpu_torch.parallel import data_parallel
 
 
 def init_linear_(layer: nn.Linear, gen: torch.Generator | None) -> None:
@@ -32,6 +37,11 @@ class MaskedBatchNorm(nn.Module):
     and updates the running buffers as (1-m)·running + m·batch with
     m = 0.1, the variance unbiased by count/(count-1). Eval mode uses the
     running buffers. Input (..., N, F) with mask (..., N) of 1.0/0.0.
+
+    The statistics are the reference's two passes (mean = Σ x·m / count,
+    var = Σ ((x - mean)·m)² / count); under data parallelism each sum —
+    count and Σ x·m, then Σ ((x - mean)·m)² — is all-reduced over the
+    ranks, so they span the global batch as GSPMD's psums make them.
     """
 
     def __init__(self, num_features: int, momentum: float = 0.1,
@@ -55,10 +65,12 @@ class MaskedBatchNorm(nn.Module):
             return self.eval_apply(x)
         dims = tuple(range(x.dim() - 1))
         m = mask[..., None]
-        count = torch.clamp_min(mask.sum(), 1.0)
-        mean = (x * m).sum(dim=dims) / count
+        sums = data_parallel.batch_sum(
+            torch.cat([(x * m).sum(dim=dims), mask.sum()[None]]))
+        count = torch.clamp_min(sums[-1], 1.0)
+        mean = sums[:-1] / count
         diff = (x - mean) * m
-        var = (diff * diff).sum(dim=dims) / count
+        var = data_parallel.batch_sum((diff * diff).sum(dim=dims)) / count
         with torch.no_grad():
             unbias = count / torch.clamp_min(count - 1.0, 1.0)
             self.running_mean.mul_(1 - self.momentum).add_(
@@ -88,8 +100,9 @@ class SELayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         dims = tuple(range(x.dim() - 1))
-        count = torch.clamp_min(mask.sum(), 1.0)
-        x_global = (x * mask[..., None]).sum(dim=dims) / count
+        sums = data_parallel.batch_sum(torch.cat(
+            [(x * mask[..., None]).sum(dim=dims), mask.sum()[None]]))
+        x_global = sums[:-1] / torch.clamp_min(sums[-1], 1.0)
         s = torch.sigmoid(self.linear1(nn.functional.elu(
             self.linear0(x_global))))
         return x * s
@@ -114,8 +127,18 @@ class DegreeEmbedding(nn.Module):
 
 def dropout(x: torch.Tensor, p: float, gen: torch.Generator | None,
             training: bool) -> torch.Tensor:
-    """Inverted dropout drawing its mask from ``gen``."""
+    """Inverted dropout drawing its mask from ``gen``. Inside a
+    data-parallel step the mask is drawn for the global batch (every rank
+    draws the same, from its copy of the generator) and this rank's rows
+    are kept: the single-device draw."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    dp = data_parallel.current()
+    if dp is None:
+        keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
+    else:
+        rows = x.shape[0]
+        keep = torch.rand((dp.world * rows,) + x.shape[1:], generator=gen,
+                          device=x.device)[dp.rank * rows:
+                                           (dp.rank + 1) * rows] >= p
     return x * keep / (1.0 - p)

@@ -18,8 +18,11 @@ n = 32, the train path, runs one warp per matrix with A and Vᵀ in
 registers and no block-wide barrier in the round loop; n = 48, the eval
 profile's guarded finish, runs one block of 576 threads per matrix, one
 thread per 2×2 block of A and one barrier a round; every other even n
-from 4 to 48 runs one block of 256 threads per matrix over shared memory
-with two barriers a round. All round every operation as the plain
+from 4 to 118 runs one block of 256 threads per matrix over shared
+memory with two barriers a round (dynamic shared memory above 48 KB, so
+n = 64 and 80, the widths of PE 64 on the train and eval profiles, take
+it too; n = 120 passes a block's 227 KB and raises). All round every
+operation as the plain
 version does, in its order, so all agree with it bit for bit.
 """
 
@@ -180,6 +183,8 @@ _WARP_N = 32            # the n the warp-per-matrix kernel takes
 _WARPS_PER_BLOCK = 4
 _BLOCK_THREADS = 256
 _PAIR_N = 48            # the n the thread-per-2x2-block kernel takes
+_MAX_SMEM = 232_448     # shared memory a Hopper block may use
+MAX_N = 118             # the widest even n whose block fits _MAX_SMEM
 
 
 def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
@@ -187,8 +192,11 @@ def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
     launches it: which kernel, blocks, threads per block, bytes of shared
     memory per block. Raises ``ValueError`` on an n the kernels do not
     take."""
-    if n % 2 or not 4 <= n <= 48:
-        raise ValueError(f"jacobi kernel takes even 4 <= n <= 48, got {n}")
+    if n % 2 or not 4 <= n <= MAX_N:
+        raise ValueError(
+            f"jacobi kernel takes even 4 <= n <= {MAX_N}, got n={n}"
+            + (f" (its block would need {_block_smem(n)} B of shared "
+               f"memory, limit {_MAX_SMEM})" if n > MAX_N else ""))
     if n == _WARP_N:
         # lay[n] + per warp: slab n(n+1), eigenvalues n, ranks n
         smem = 4 * (n + _WARPS_PER_BLOCK * (n * (n + 1) + 2 * n))
@@ -201,10 +209,14 @@ def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
         smem = 4 * (4 * n * (n + 8) + n) + 3 * 4 * n
         return dict(variant="thread-per-2x2-block, one barrier a round",
                     blocks=batch, threads=(n // 2) ** 2, smem_bytes=smem)
-    # A and V^T double-buffered, c/s, eigenvalues, four index tables
-    smem = 4 * (4 * n * n + 2 * n) + 4 * 4 * n
     return dict(variant="block-per-matrix, shared memory", blocks=batch,
-                threads=_BLOCK_THREADS, smem_bytes=smem)
+                threads=_BLOCK_THREADS, smem_bytes=_block_smem(n))
+
+
+def _block_smem(n: int) -> int:
+    """Shared memory of the block kernel: A and V^T double-buffered,
+    c/s, eigenvalues, four index tables."""
+    return 4 * (4 * n * n + 2 * n) + 4 * 4 * n
 
 
 def _check_input(a: torch.Tensor) -> None:
@@ -219,8 +231,8 @@ def _check_input(a: torch.Tensor) -> None:
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
                 descending: bool = False):
     """Kernel 3 wrapper: batched symmetric eigendecomposition, sorted.
-    a: (B, n, n) float32, n even (32 on the train path, 48 for the eval
-    profile's guarded finish). CUDA tensors launch ``csrc/jacobi.cu``
+    a: (B, n, n) float32, n even ≤ 118 (32 on the train path, 48 for the
+    eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors launch ``csrc/jacobi.cu``
     (one launch counted: the warp-per-matrix kernel at n = 32, the
     thread-per-2x2-block kernel at n = 48, the block-per-matrix kernel at
     any other n); CPU tensors run

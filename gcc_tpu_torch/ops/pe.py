@@ -18,8 +18,8 @@ and G·Qᵀ) on the tensor cores and the f32 work on the CUDA cores;
 reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·M[j, c]: ``m_shift`` is
 symmetric as a matrix but not bit for bit (it is formed as
 ``(a·inv_row)·inv_col``), so neither version may read M[c, j] in place of
-M[j, c]. N is padded to a multiple of 32, k ≤ 48 is padded to 16, 32 or
-48 inside the kernel. Two launch plans serve the shapes:
+M[j, c]. N is padded to a multiple of 32, k ≤ 80 is padded to a
+multiple of 16 inside the kernel. Three launch plans serve the shapes:
 
 * "shared" for N ≤ 256: one block of 2N threads per graph, M's bf16 copy
   in shared memory;
@@ -31,9 +31,16 @@ M[j, c]. N is padded to a multiple of 32, k ≤ 48 is padded to 16, 32 or
   and every warp streams its own tiles of it through a private
   ``cp.async`` ring for each power step; Qᵀ stays on the chip, in
   registers and in a copy in every block's shared memory that the blocks
-  update through distributed shared memory.
+  update through distributed shared memory;
+* "wide" for 48 < k ≤ 80 (PE 64: k = 64 on the train profile, 80 with
+  the eval profile's 16 guards) at every N ≤ 832, where neither plan
+  above fits a block: one block of 256 threads per graph up to N = 256,
+  a cluster of two blocks of 512 above; Q in a device scratch (four f32
+  copies: Q and its bf16 rounding, each double-buffered), every product
+  an f32 FMA on operands rounded to bf16 where the plain version rounds
+  them, a thread taking one column (N ≤ 128) or four of a 16-row tile.
 
-Larger N raises.
+Larger N or k raises.
 """
 
 from __future__ import annotations
@@ -51,6 +58,8 @@ _MAX_SMEM = 232_448
 # N·N·6 <= 4 MiB, the bound under which the reference sends a bucket to
 # its fused kernel (positional.py:257-274).
 MAX_NODES = 832
+# Widest block the kernel takes: PE 64 plus the eval profile's 16 guards.
+MAX_WIDTH = 80
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -149,6 +158,25 @@ def _streamed_plan(n_pad: int, kp: int) -> dict:
                         f"warp; f32 4x{kp // 8} register tiles")
 
 
+def _wide_plan(n_pad: int, kp: int) -> dict:
+    """The wide plan (48 < k <= 80, any N <= 832), as ``pe_wide_plan``
+    in ``csrc/pe.cu`` computes it."""
+    threads = 256 if n_pad <= 256 else 512
+    cluster = 1 if n_pad <= 256 else 2
+    cols = 1 if n_pad <= 128 else 4
+    return dict(n_pad=n_pad, kp=kp, threads=threads, warps=threads // 32,
+                # G, the row norms, the Gershgorin scale and the extent
+                smem_bytes=kp * kp * 4 + kp * 4 + 16,
+                gram_split=1, gram_f32_split=1, plan="wide",
+                cluster=cluster, slabs_per_block=n_pad // 16,
+                block_slabs=[n_pad // 16] * cluster,
+                scratch_bytes=4 * n_pad * kp * 4,
+                variant=f"{'cluster of 2 blocks' if cluster > 1 else 'one block'}"
+                        f" per graph; f32 FMA on bf16-rounded operands, Q "
+                        f"({n_pad}, {kp}) x 4 in device memory; ({cols} "
+                        f"column(s), 16-row tile) items, 4x4 Gram tiles")
+
+
 def pe_launch_plan(n: int, k: int) -> dict:
     """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
     width ``k``, as ``pe_plan`` in ``csrc/pe.cu`` computes it: threads
@@ -160,10 +188,12 @@ def pe_launch_plan(n: int, k: int) -> dict:
     ``ValueError`` with the numbers on a shape the kernel does not
     take."""
     n_pad = -(-n // 32) * 32
-    if not 1 <= n_pad <= MAX_NODES or not 1 <= k <= 48:
+    if not 1 <= n_pad <= MAX_NODES or not 1 <= k <= MAX_WIDTH:
         raise ValueError(f"pe kernel takes 1 <= N <= {MAX_NODES} and "
-                         f"1 <= k <= 48, got N={n}, k={k}")
+                         f"1 <= k <= {MAX_WIDTH}, got N={n}, k={k}")
     kp = -(-k // 16) * 16
+    if k > 48:
+        return _wide_plan(n_pad, kp)
     if n_pad > 256:
         return _streamed_plan(n_pad, kp)
     kt = kp // 16
@@ -234,7 +264,7 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
     """Kernel 2 wrapper: m (B, N, N) float32, q0 (B, N, k) float32 →
     (B, N, k). CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
     CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 832 (padded
-    to a multiple of 32), k ≤ 48; ``power_lo`` both ways and any
+    to a multiple of 32), k ≤ 80; ``power_lo`` both ways and any
     ``iters``/``orth_every``/``ns_steps``/``polish``/``final_ns``."""
     if m.device.type == "cpu":
         return pe_subspace_iterate_plain(m, q0, iters, orth_every, ns_steps,

@@ -1,7 +1,9 @@
-"""The giant-graph path: edge-partitioned aggregation, whole-graph PE
-and GIN encoding of graphs beyond the dense bucket, the partition axis
-in one process (counterpart of ``gcc_tpu/parallel``; its mesh helpers,
-data-parallel and multi-host modules are not ported yet)."""
+"""Parallel paths (counterpart of ``gcc_tpu/parallel``): the giant-graph
+path — edge-partitioned aggregation, whole-graph PE and GIN encoding of
+graphs beyond the dense bucket, the partition axis in one process or
+across ranks — and data-parallel, multi-host pre-training on
+``torch.distributed`` (``data_parallel.py``, ``multihost.py``). The
+reference's ``mesh.py`` has no counterpart: the ranks are the mesh."""
 
 from gcc_tpu_torch.parallel.giant_features import (
     choose_partition,
@@ -18,6 +20,7 @@ from gcc_tpu_torch.parallel.partitioned import (
     partitioned_aggregate,
     partitioned_aggregate_batched,
     partitioned_aggregate_dense,
+    partitioned_aggregate_dist,
     partitioned_aggregate_ring,
     shard_dense_partition,
 )
@@ -36,5 +39,6 @@ __all__ = [
     "partitioned_aggregate",
     "partitioned_aggregate_batched",
     "partitioned_aggregate_dense",
+    "partitioned_aggregate_dist",
     "partitioned_aggregate_ring",
 ]

@@ -32,6 +32,10 @@ port sets no TF32 switch).
 
 Edges are padded to equal per-shard (or per-bucket) counts with
 zero-weight 0→0 loops, keeping every shard shape static.
+
+:func:`partitioned_aggregate_dist` runs the same three schedules with
+the partition axis across ``torch.distributed`` ranks, one shard a rank,
+as the reference runs them across its mesh axis.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 
 class PartitionedGraph(NamedTuple):
@@ -263,15 +268,74 @@ def partitioned_aggregate_ring(pg: RingPartitionedGraph,
         acc = None
         for t in range(d_cnt):
             o = (d - t) % d_cnt
-            msgs = h[o * rows_per:(o + 1) * rows_per].index_select(
-                0, pg.src_local[d, o]).mul_(w[d, o, :, None])
-            part = torch.segment_reduce(
-                msgs, "sum", offsets=torch.searchsorted(pg.dst_local[d, o],
-                                                        row_ids),
-                axis=0, unsafe=True)
+            part = _ring_bucket(pg, d, o, h[o * rows_per:(o + 1) * rows_per],
+                                w, row_ids)
             acc = part if acc is None else acc + part
         shards.append(acc)
     return shards[0] if d_cnt == 1 else torch.cat(shards)
+
+
+def _ring_bucket(pg: RingPartitionedGraph, d: int, o: int,
+                 block: torch.Tensor, w: torch.Tensor,
+                 row_ids: torch.Tensor) -> torch.Tensor:
+    """Bucket (shard d, owner o): messages gathered from owner o's
+    ``block`` of rows, summed into shard d's rows in destination order."""
+    msgs = block.index_select(0, pg.src_local[d, o]).mul_(w[d, o, :, None])
+    return torch.segment_reduce(
+        msgs, "sum", offsets=torch.searchsorted(pg.dst_local[d, o], row_ids),
+        axis=0, unsafe=True)
+
+
+def partitioned_aggregate_dist(pg, h: torch.Tensor,
+                               group=None) -> torch.Tensor:
+    """out[v] = Σ_{(u→v)} w · h[u] with the partition axis across the
+    ranks of ``group`` (``torch.distributed``): rank p holds node rows
+    [p·N/D, (p+1)·N/D) of ``h`` and runs shard p of ``pg`` (a partition
+    built for D = the group's size, host arrays or placed), and gets its
+    rows of the result. Differentiable. By schedule, as the reference
+    runs them over its mesh axis:
+
+    - :class:`PartitionedGraph`: all-gather of h, the shard's segment sum
+      into a full-size partial, reduce-scatter of the partials
+      (``partitioned.py:85-106``);
+    - :class:`DensePartitionedGraph`: all-gather of h, the shard's block
+      of rows times it, no reduction;
+    - :class:`RingPartitionedGraph`: D hops, each summing the bucket of
+      the block in hand and passing the block to the next rank (NCCL or
+      gloo send/recv in place of ``ppermute``)."""
+    from gcc_tpu_torch.parallel import data_parallel as dp
+
+    d_cnt, p = dist.get_world_size(group), dist.get_rank(group)
+    shards = (pg.adj if isinstance(pg, DensePartitionedGraph)
+              else pg.src_local if isinstance(pg, RingPartitionedGraph)
+              else pg.src).shape[0]
+    if shards != d_cnt or h.shape[0] * d_cnt != pg.num_nodes:
+        raise ValueError(
+            f"partition of {shards} shards over {pg.num_nodes} nodes does "
+            f"not match {d_cnt} ranks holding {h.shape[0]} rows each")
+    if isinstance(pg, DensePartitionedGraph):
+        adj = _tensor(pg.adj[p], h.device, h.dtype)
+        return torch.matmul(adj, dp.all_gather(h, group))
+    if isinstance(pg, RingPartitionedGraph):
+        if not torch.is_tensor(pg.src_local):
+            pg = place_partition(pg, h.device)
+        w = pg.weight.to(h.dtype)
+        row_ids = torch.arange(h.shape[0] + 1, device=h.device)
+        acc, block = None, h
+        for t in range(d_cnt):
+            part = _ring_bucket(pg, p, (p - t) % d_cnt, block, w, row_ids)
+            acc = part if acc is None else acc + part
+            if t + 1 < d_cnt:
+                block = dp.ppermute(block, 1, group)
+        return acc
+    hg = dp.all_gather(h, group)
+    src = _tensor(pg.src[p], h.device, torch.int64)
+    dst = _tensor(pg.dst[p], h.device, torch.int64)
+    w = _tensor(pg.weight[p], h.device, h.dtype)
+    partial = torch.zeros(pg.num_nodes, h.shape[1], dtype=h.dtype,
+                          device=h.device).index_add(
+        0, dst, hg[src] * w[:, None])
+    return dp.reduce_scatter(partial, group)
 
 
 def place_partition(pg, device="cuda"):

@@ -87,6 +87,17 @@ class PipelineConfig:
     # from per-pair maxima rather than observed batch sums.
     e_tot_small: int | None = None
     e_tot_large: int | None = None
+    # Data-parallel device count (gcc_tpu/sampling/pipeline.py:108-120).
+    # With devices=D > 1 (stacked/routed emit only), each item carries an
+    # explicit device axis: edges (K, D, e_dev) / meta (K, D, 3, B/D) —
+    # step k's graphs split into D consecutive groups of B/D, each
+    # compacted into its own per-device edge segment, rows in (step,
+    # device) order. A data-parallel rank keeps its slice of the D axis.
+    # e_tot / e_tot_small / e_tot_large are then PER-DEVICE budgets and
+    # the start-up probe sizes them from B/D-graph group sums. Sampling
+    # content and order are identical to devices=1 — only the wire layout
+    # changes — so a DP run is step-for-step comparable to one device.
+    devices: int = 1
 
 
 class _RouterPool:
@@ -277,19 +288,29 @@ class ShardSampler:
         pairs = []
         step = self.pcfg.batch_size
         compact = self.pcfg.compact_wire
-        e_tot = self.pcfg.e_tot or (step * e_max // 4)
+        e_tot = self.pcfg.e_tot or (
+            step // max(1, self.pcfg.devices) * e_max // 4)
         if (compact and self.pcfg.n_max <= 256
                 and native.native_available()):
             # Fused native compaction + uint16 packing for the whole
             # super-batch (one call instead of a python loop per batch).
             n_b = bsz // step
+            dev = max(1, self.pcfg.devices)
+            # devices > 1: per-device groups of step/dev graphs, each in
+            # its own e_tot (per-device budget) segment; rows are in
+            # (step, device) order, so the reshape below is a view.
             qe, qm, qd = native.compact_pack16(
-                q_src, q_dst, counts[0], counts[1], n_b, step, e_tot)
+                q_src, q_dst, counts[0], counts[1], n_b * dev, step // dev,
+                e_tot)
             ke, km, kd = native.compact_pack16(
-                k_src, k_dst, counts[2], counts[3], n_b, step, e_tot)
+                k_src, k_dst, counts[2], counts[3], n_b * dev, step // dev,
+                e_tot)
             self._account_drops(int(qd.sum() + kd.sum()),
                                 int((qd > 0).sum() + (kd > 0).sum()), e_tot)
             if self.pcfg.emit == "stacked":
+                if dev > 1:
+                    qe, qm = _device_axis(qe, qm, n_b, dev)
+                    ke, km = _device_axis(ke, km, n_b, dev)
                 # One stacked item per super-batch: the native buffers
                 # are already (n_b, e_tot)/(n_b, 3, step) — ship them
                 # whole, no per-step slicing or consumer re-stack.
@@ -369,6 +390,7 @@ class ShardSampler:
         super-batch. See PipelineConfig.emit for semantics."""
         pcfg = self.pcfg
         step, k_steps = pcfg.batch_size, max(1, pcfg.super_batch)
+        dev = max(1, pcfg.devices)
         need = step * k_steps
         items = []
         for name, n_tag, e_tot in (
@@ -376,11 +398,17 @@ class ShardSampler:
             ("large", pcfg.n_max, pcfg.e_tot_large),
         ):
             pool = self._pools[name]
-            e_tot = e_tot or (step * e_max // 4)
+            e_tot = e_tot or (step // dev * e_max // 4)
             while pool.rows >= need:
-                qe, qm, qd = pool.pop_side(pool.q, need, step, k_steps, e_tot)
-                ke, km, kd = pool.pop_side(pool.k, need, step, k_steps, e_tot)
+                # devices > 1: k_steps * dev groups of step / dev graphs.
+                qe, qm, qd = pool.pop_side(pool.q, need, step // dev,
+                                           k_steps * dev, e_tot)
+                ke, km, kd = pool.pop_side(pool.k, need, step // dev,
+                                           k_steps * dev, e_tot)
                 self._account_drops(qd + kd, 1 if (qd or kd) else 0, e_tot)
+                if dev > 1:
+                    qe, qm = _device_axis(qe, qm, k_steps, dev)
+                    ke, km = _device_axis(ke, km, k_steps, dev)
                 items.append((
                     CompactWireBatch(edges=qe, meta=qm, e_max=e_max,
                                      id_bits=8, n_max=n_tag),
@@ -422,6 +450,33 @@ class ShardSampler:
         )
 
 
+def _device_axis(edges: np.ndarray, meta: np.ndarray, k_steps: int,
+                 dev: int):
+    """(K·D, e) edges / (K·D, 3, b) meta in (step, device) order →
+    (K, D, e) / (K, D, 3, b): a view."""
+    return (edges.reshape(k_steps, dev, edges.shape[-1]),
+            meta.reshape(k_steps, dev, 3, meta.shape[-1]))
+
+
+def _group_size(pcfg: PipelineConfig) -> int:
+    """Graphs per compact-wire segment: the whole batch at devices=1,
+    a per-device slice of it under data parallelism."""
+    return pcfg.batch_size // max(1, pcfg.devices)
+
+
+def _max_group_sum(stats, group: int) -> int:
+    """Largest edge total over consecutive `group`-pair windows of the
+    probe stats (compaction composes segments exactly that way)."""
+    best = 0
+    for _, qe, _, ke in stats:
+        for arr in (qe, ke):
+            m = arr.size // group * group
+            if m:
+                best = max(best,
+                           int(arr[:m].reshape(-1, group).sum(axis=1).max()))
+    return best
+
+
 def _probe_pairs(store: CorpusStore, cfg: SamplerConfig,
                  pcfg: PipelineConfig, seed: int,
                  graph_ids: list[int] | None = None):
@@ -441,24 +496,26 @@ def _probe_pairs(store: CorpusStore, cfg: SamplerConfig,
 
 
 def _round_e_tot(value: float, pcfg: PipelineConfig) -> int:
-    hard_cap = pcfg.batch_size * pcfg.e_max
+    hard_cap = _group_size(pcfg) * pcfg.e_max
     return int(np.clip(int(np.ceil(value / 512)) * 512, 1024, hard_cap))
 
 
 def _probe_class_e_tots(stats, pcfg: PipelineConfig) -> tuple[int, int]:
     """Per-class compact budgets for emit="routed" from probe stats.
 
-    Small class: 1.5x the max probe batch edge total over batches formed
-    of consecutive small pairs (routing composes batches exactly that
-    way). Large class: rare — probes seldom yield a full batch of them,
-    so size from per-pair maxima instead (B · 1.5 · max pair edges)."""
+    Small class: 1.5x the max probe segment edge total over segments
+    formed of consecutive small pairs (routing composes segments exactly
+    that way; a segment is the batch at devices=1, a per-device slice
+    under DP). Large class: rare — probes seldom yield a full segment of
+    them, so size from per-pair maxima instead (b · 1.5 · max pair
+    edges)."""
     qn = np.concatenate([s[0] for s in stats])
     qe = np.concatenate([s[1] for s in stats])
     kn = np.concatenate([s[2] for s in stats])
     ke = np.concatenate([s[3] for s in stats])
     small = (qn <= pcfg.n_small) & (kn <= pcfg.n_small)
     side_max = np.maximum(qe, ke)
-    b = pcfg.batch_size
+    b = _group_size(pcfg)
 
     def class_budget(mask):
         vals = side_max[mask]
@@ -532,6 +589,12 @@ class PretrainPipeline:
             )
         if pcfg.emit == "routed" and not pcfg.n_small < pcfg.n_max:
             raise ValueError("emit='routed' needs n_small < n_max")
+        if pcfg.devices > 1 and (pcfg.emit not in ("stacked", "routed")
+                                 or pcfg.batch_size % pcfg.devices):
+            raise ValueError(
+                f"devices={pcfg.devices} needs emit='stacked' or 'routed' "
+                f"and a batch_size divisible by it, got emit="
+                f"{pcfg.emit!r}, batch_size={pcfg.batch_size}")
         if pcfg.compact_wire and (
             pcfg.e_tot is None
             or (pcfg.emit == "routed"
@@ -539,9 +602,9 @@ class PretrainPipeline:
         ):
             stats = _probe_pairs(store, cfg, pcfg, seed,
                                  graph_ids=self.graph_ids)
-            max_total = max(
-                max(int(qe.sum()), int(ke.sum())) for _, qe, _, ke in stats
-            )
+            # 1.5x the largest segment edge total seen (a segment is the
+            # batch, or a device's slice of it under DP).
+            max_total = _max_group_sum(stats, _group_size(pcfg))
             updates = {"e_tot": pcfg.e_tot
                        or _round_e_tot(max_total * 1.5, pcfg)}
             if pcfg.emit == "routed":

@@ -9,6 +9,13 @@ generator's state — as one file of plain tensors
 ``torch.load(weights_only=True)``. The TrainConfig is stored beside it
 as the same JSON sidecar the reference writes (``config.json``, with a
 ``ckpt_format_version``).
+
+Under ``torch.distributed`` every rank calls :func:`save_checkpoint`
+with its replica of the state and rank 0 alone writes
+(``gcc_tpu/training/checkpoint.py:43``, where Orbax writes from the
+primary process); the ranks then meet at a barrier, so the file is
+there for every rank to restore. A row-sharded queue is gathered whole
+first, and a restore keeps the rank's rows.
 """
 
 from __future__ import annotations
@@ -18,10 +25,12 @@ import os
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 from gcc_tpu_torch.config import TrainConfig
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.models import GraphEncoder
+from gcc_tpu_torch.parallel import data_parallel
 
 CONFIG_FILE = "config.json"
 
@@ -35,15 +44,22 @@ def save_checkpoint(path: str, state, cfg: TrainConfig,
     """Write ``state`` to ``path/ckpt_<step>`` (or ``path/current``) and
     the config sidecar; returns the checkpoint's path. The file is
     written under a temporary name and renamed, so a reader never sees a
-    partial checkpoint."""
-    os.makedirs(path, exist_ok=True)
+    partial checkpoint. Under ``torch.distributed`` only rank 0 writes,
+    and every rank returns after the write."""
     name = f"ckpt_{step}" if step is not None else "current"
     target = os.path.abspath(os.path.join(path, name))
+    memory = state.queue.memory
+    if state.queue.shards > 1:
+        memory = data_parallel.all_gather(memory)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        dist.barrier()
+        return target
+    os.makedirs(path, exist_ok=True)
     tmp = f"{target}.{os.getpid()}.tmp"
     torch.save({
         "model": state.model.state_dict(),
         "ema_model": state.ema_model.state_dict(),
-        "queue": {"memory": state.queue.memory, "index": state.queue.index},
+        "queue": {"memory": memory, "index": state.queue.index},
         "optimizer": state.optimizer.state_dict(),
         "step": int(state.step),
         "nce_z": state.nce_z,
@@ -54,6 +70,8 @@ def save_checkpoint(path: str, state, cfg: TrainConfig,
     sidecar["ckpt_format_version"] = CKPT_FORMAT_VERSION
     with open(os.path.join(path, CONFIG_FILE), "w") as f:
         f.write(json.dumps(sidecar, indent=2))
+    if dist.is_initialized():
+        dist.barrier()
     return target
 
 
@@ -82,6 +100,10 @@ def load_checkpoint(target: str, state=None) -> Any:
         state.model.load_state_dict(saved["model"])
         state.ema_model.load_state_dict(saved["ema_model"])
         memory, index = saved["queue"]["memory"], saved["queue"]["index"]
+        if state.queue.shards > 1:
+            rows = state.queue.memory.shape[0]
+            rank = dist.get_rank()
+            memory = memory[rank * rows:(rank + 1) * rows]
         if memory.shape != state.queue.memory.shape:
             raise ValueError(f"queue memory {tuple(memory.shape)} vs "
                              f"{tuple(state.queue.memory.shape)}")

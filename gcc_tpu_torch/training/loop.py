@@ -1,10 +1,12 @@
 """Pretraining loop (the reference's train_moco epochs,
 train.py:713-786, minus its scaffolding).
 
-Counterpart of ``gcc_tpu/training/loop.py`` for one process and one
-device. PyTorch queues the device work of a dispatch asynchronously;
-metrics stay on the device and are fetched with a lag of ``metrics_lag``
-steps, so the host never waits for the step it has just queued.
+Counterpart of ``gcc_tpu/training/loop.py``: one process on one
+device, or one process per device under ``torch.distributed`` (data
+parallel, on one host or many). PyTorch queues the device work of a
+dispatch asynchronously; metrics stay on the device and are fetched with
+a lag of ``metrics_lag`` steps, so the host never waits for the step it
+has just queued.
 """
 
 from __future__ import annotations
@@ -17,10 +19,12 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from gcc_tpu_torch.config import TrainConfig
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.graph.corpus import CorpusStore
+from gcc_tpu_torch.parallel import data_parallel, multihost
 from gcc_tpu_torch.sampling import native
 from gcc_tpu_torch.sampling.pipeline import PipelineConfig, PretrainPipeline
 from gcc_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
@@ -68,20 +72,30 @@ def run_pretrain(
     (``featurize_pair``), as the reference does where the stacked upgrade
     does not apply.
 
-    Not ported yet, and refused with ``NotImplementedError``: more than
-    one device (``dp_devices`` > 1, the reference's data-parallel and
-    multi-host path, which needs ``torch.distributed`` and BatchNorm sums
-    across ranks). Routed emission with E2E is refused with
+    Data parallel (``dp_devices`` > 1, or any run inside an initialized
+    process group, ``parallel.multihost.initialize_multihost``): one
+    rank per device, ``dp_devices`` the world size. The pipeline emits
+    the stacked wire with a device axis (``PipelineConfig.devices``);
+    every rank of a host runs its host's pipeline (the same seed, so the
+    same graphs) and trains on its slice of the device axis, its
+    ``LOCAL_RANK``; the train step's collectives make the global batch's
+    step (``parallel/data_parallel.py``); the state is replicated (the
+    same seed on every rank). Across hosts (``LOCAL_WORLD_SIZE`` below
+    the world size) ``cfg.batch_size`` stays the GLOBAL batch, each host
+    samples its share from its own corpus shard
+    (``corpus_shard_for_host``) with seed ``cfg.seed + 15_485_863·host``,
+    and the reference's conditions hold: ``dp_devices`` the global count,
+    the stacked wire, an explicit ``PipelineConfig.e_tot``, a divisible
+    batch, no routed wire. Only rank 0 writes metrics, TensorBoard and
+    checkpoints. (The reference initializes its parameters from a
+    flattened first item; torch modules need no sample, so the port has
+    nothing to flatten.) Routed emission with E2E is refused with
     ``ValueError``, as in the reference.
 
     The reference warms its large-bucket program with a throwaway step on
     empty graphs before a routed run, so that a compile does not stall
     training when the first large dispatch arrives. Eager PyTorch
     compiles nothing per bucket, so that step has no counterpart here."""
-    if dp_devices != 1:
-        raise NotImplementedError(
-            f"dp_devices={dp_devices}: the data-parallel and multi-host "
-            "paths are not ported yet; run_pretrain drives one device")
     device = resolve_device(device)
     store = CorpusStore.open(corpus_path)
     pcfg = pcfg or PipelineConfig(
@@ -89,6 +103,34 @@ def run_pretrain(
         num_samples=cfg.num_samples,
         num_workers=cfg.num_workers,
     )
+    dp = dp_devices > 1 or dist.is_initialized()
+    nproc = multihost.host_count()
+    is_main = multihost.rank() == 0
+    if nproc > 1:
+        # Multi-host: every host runs this same loop in lockstep;
+        # cfg.batch_size stays the GLOBAL batch and each host samples its
+        # 1/nproc share from its own corpus shard.
+        if dp_devices <= 1 or dp_devices % nproc:
+            raise ValueError(
+                f"multi-host run_pretrain needs dp_devices (got "
+                f"{dp_devices}) set to the GLOBAL device count, "
+                f"divisible by the host count ({nproc})")
+        if pcfg.emit == "pairs":
+            raise ValueError(
+                "multi-host run_pretrain requires the stacked compact "
+                "wire (emit='stacked'): padded pairs have no shardable "
+                "device axis")
+        if pcfg.e_tot is None:
+            raise ValueError(
+                "multi-host run_pretrain requires an explicit "
+                "PipelineConfig.e_tot: each host probing its own corpus "
+                "shard would produce mismatched global batch shapes. "
+                "Pick one value (e.g. from a single-host probe) and pass "
+                "it on every host.")
+        if cfg.batch_size % nproc:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                             f"by the host count {nproc}")
+        pcfg = dataclasses.replace(pcfg, batch_size=cfg.batch_size // nproc)
     # Upgrade to stacked emission when the fast path supports it: the
     # sampler ships one (K, ...) compact item per K-step dispatch straight
     # from the native buffers — no per-step slicing, K fewer queue hops.
@@ -97,31 +139,64 @@ def run_pretrain(
     if (pcfg.emit == "pairs" and pcfg.compact_wire and pcfg.n_max <= 256
             and native.native_available()):
         pcfg = dataclasses.replace(pcfg, emit="stacked")
-    if pcfg.emit == "routed" and not cfg.contrast.moco:
+    if pcfg.emit == "routed":
         # Routed batches are size-class-homogeneous: learning-neutral for
         # MoCo (negatives come from the queue) but a silent objective
         # change for E2E, whose in-batch negatives would become
-        # size-correlated.
-        raise ValueError(
-            "emit='routed' with moco=False changes the E2E objective "
-            "(in-batch negatives become size-class-correlated); use "
-            "emit='stacked' or 'pairs' for E2E training.")
+        # size-correlated; and routing is host-local, so hosts would emit
+        # mismatched bucket tags at the same step.
+        if not cfg.contrast.moco:
+            raise ValueError(
+                "emit='routed' with moco=False changes the E2E objective "
+                "(in-batch negatives become size-class-correlated); use "
+                "emit='stacked' or 'pairs' for E2E training.")
+        if nproc > 1:
+            raise ValueError(
+                "emit='routed' is host-local (bucket tags would diverge "
+                "across hosts); use emit='stacked' for multi-host runs.")
     stacked = pcfg.emit in ("stacked", "routed")
     if stacked and pcfg.super_batch != k_item:
         # Item shape must match the K-step dispatch width.
         pcfg = dataclasses.replace(
             pcfg, super_batch=k_item, prefetch=max(2, pcfg.prefetch // k_item))
+    if dp:
+        if not stacked:
+            raise ValueError(
+                "dp_devices > 1 needs the stacked/routed compact wire "
+                "(native sampler, compact_wire, n_max <= 256) — the "
+                "padded pairs path has no shardable device axis.")
+        if cfg.batch_size % dp_devices:
+            raise ValueError(f"batch_size {cfg.batch_size} not divisible "
+                             f"by dp_devices {dp_devices}")
+        if multihost.world_size() != dp_devices:
+            raise ValueError(
+                f"dp_devices={dp_devices} but {multihost.world_size()} "
+                "ranks: run one process per device (torchrun "
+                "--nproc-per-node, initialize_multihost)")
+        # Each host's items carry its devices' slices of the batch.
+        pcfg = dataclasses.replace(pcfg, devices=dp_devices // nproc)
     run_dir = os.path.join(out_dir, cfg.run_name())
     os.makedirs(run_dir, exist_ok=True)
-    tb = TensorBoardWriter(os.path.join(run_dir, "tb") if tensorboard
-                           else None)
+    # Every rank computes the same (global) metrics; rank 0 writes them.
+    tb = TensorBoardWriter(os.path.join(run_dir, "tb")
+                           if tensorboard and is_main else None)
+    host_graph_ids = None
+    pipe_seed = cfg.seed
+    if nproc > 1:
+        # Per-host corpus shard and a decorrelated sampling stream.
+        host_graph_ids = multihost.corpus_shard_for_host(store.graph_sizes)
+        pipe_seed = cfg.seed + 15_485_863 * multihost.host_index()
 
     loss_meter = AverageMeter()
     summary: dict = {}
     pending: list[tuple[int, dict]] = []
     with contextlib.closing(tb), \
-            PretrainPipeline(store, cfg.sampler, pcfg, seed=cfg.seed) as pipe, \
-            open(os.path.join(run_dir, "metrics.jsonl"), "a") as mfile, \
+            PretrainPipeline(store, cfg.sampler, pcfg, seed=pipe_seed,
+                             graph_ids=host_graph_ids) as pipe, \
+            open(os.path.join(run_dir, "metrics.jsonl") if is_main
+                 else os.devnull, "a") as mfile, \
+            (data_parallel.data_parallel() if dp
+             else contextlib.nullcontext()), \
             maybe_profile(profile_dir):
         steps_per_epoch = pipe.steps_per_epoch
         total_steps = steps_per_epoch * cfg.epochs
@@ -140,6 +215,8 @@ def run_pretrain(
             if stacked:
                 # One queue item IS the whole K-step dispatch.
                 wq, wk = next(pipe)
+                if dp:
+                    wq, wk = _rank_slice(wq), _rank_slice(wk)
                 return train_dispatch(state, wq, wk, n_max=pcfg.n_max)
             per_step = [train_dispatch(state, *next(pipe), n_max=pcfg.n_max)
                         for _ in range(k_steps)]
@@ -220,3 +297,15 @@ def run_pretrain(
     summary["run_dir"] = run_dir
     return summary
 
+
+def _rank_slice(wire):
+    """This rank's slice of its host's device axis: (K, 1, e_dev) edges,
+    (K, 1, 3, b) meta. A host of one device emits no device axis
+    (``PipelineConfig.devices`` 1); it is added, so the step is the
+    data-parallel one at every host size."""
+    if wire.meta.ndim == 3:
+        return dataclasses.replace(wire, edges=wire.edges[:, None],
+                                   meta=wire.meta[:, None])
+    r = multihost.local_rank()
+    return dataclasses.replace(wire, edges=wire.edges[:, r:r + 1],
+                               meta=wire.meta[:, r:r + 1])

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from gcc_tpu_torch.config import OptimConfig
+from gcc_tpu_torch.parallel import data_parallel
 
 
 class RSSAdagrad(torch.optim.Optimizer):
@@ -76,9 +77,15 @@ def clip_gradients_(params, cfg: OptimConfig,
     reaches ``cfg.clip_norm`` > 0, scale each by clip_norm / ‖g‖
     (optax.clip_by_global_norm). "value" (finetuning, clip_grad_value_
     1): clamp every entry to [-1, 1] (optax.clip(1.0)). Returns ‖g‖
-    before clipping, as a device scalar (no host synchronization)."""
+    before clipping, as a device scalar (no host synchronization).
+
+    Inside a data-parallel step the gradients are first summed over the
+    ranks (each rank's loss is its share of the global mean), so the clip
+    sees the global norm and every rank takes the same update."""
     if clip_mode not in ("norm", "value"):
         raise ValueError(f"unknown clip_mode: {clip_mode}")
+    params = list(params)
+    data_parallel.all_reduce_grads_(params)
     grads = [p.grad for p in params if p.grad is not None]
     norm = torch.linalg.vector_norm(torch.cat([g.reshape(-1) for g in grads]))
     if clip_mode == "value":

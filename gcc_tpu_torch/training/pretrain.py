@@ -47,8 +47,9 @@ import torch
 from gcc_tpu_torch.config import TrainConfig
 from gcc_tpu_torch.contrastive import (
     MoCoQueue,
-    e2e_logits,
+    batch_mean,
     enqueue,
+    in_batch_loss,
     init_queue,
     legacy_nce_probs,
     moco_logits,
@@ -69,6 +70,7 @@ from gcc_tpu_torch.graph.batch import (
 )
 from gcc_tpu_torch.models import GraphEncoder
 from gcc_tpu_torch.ops.aggregate import node_degrees
+from gcc_tpu_torch.parallel import data_parallel
 from gcc_tpu_torch.training.optim import build_optimizer, clip_gradients_
 from gcc_tpu_torch.training.schedules import lr_at
 from gcc_tpu_torch.wire import wire_to_device
@@ -164,18 +166,18 @@ def train_step(state: PretrainState, feats_q: BatchFeatures,
                              device=logits.device)
         if cfg.contrast.use_softmax:
             loss = nce_softmax_loss(logits, labels)
-            prob = logits[:, 0].mean()
+            prob = batch_mean(logits[:, 0])
         else:
             # n_data: the reference's MemoryMoCo outputSize = samples per
             # epoch across workers (num_workers = 0 counts as one).
             n_data = cfg.num_samples * max(1, cfg.num_workers)
             probs, state.nce_z = legacy_nce_probs(logits, n_data, state.nce_z)
             loss = nce_softmax_loss(probs, labels)
-            prob = probs[:, 0].mean()
+            prob = batch_mean(probs[:, 0])
     else:
         q_emb = model(feats_q, gen=state.dropout_gen)
         k_emb = model(feats_k, gen=state.dropout_gen)
-        loss, prob = _in_batch_loss(q_emb, k_emb, cfg.contrast.nce_t)
+        loss, prob = in_batch_loss(q_emb, k_emb, cfg.contrast.nce_t)
     grad_norm = optimizer_update(state, loss)
     if moco:
         with torch.no_grad():
@@ -186,17 +188,19 @@ def train_step(state: PretrainState, feats_q: BatchFeatures,
                                 alpha=1.0 - alpha)
         enqueue(state.queue, k_emb)
     state.step += 1
-    return {"loss": loss.detach(), "prob": prob.detach(),
-            "grad_norm": grad_norm}
+    return _metrics(loss, prob, grad_norm)
 
 
-def _in_batch_loss(q_emb: torch.Tensor, k_emb: torch.Tensor,
-                   temperature: float):
-    """E2E InfoNCE over (B, B) in-batch logits, positives on the
-    diagonal: (loss, mean positive logit)."""
-    logits = e2e_logits(q_emb, k_emb, temperature)
-    labels = torch.arange(logits.shape[0], device=logits.device)
-    return nce_softmax_loss(logits, labels), torch.diagonal(logits).mean()
+def _metrics(loss: torch.Tensor, prob: torch.Tensor,
+             grad_norm: torch.Tensor) -> dict[str, torch.Tensor]:
+    """A step's metrics; inside a data-parallel step the ranks' shares
+    of the loss and the positive logit are summed (one all-reduce), so
+    every rank reports the global batch's."""
+    pair = torch.stack([loss.detach(), prob.detach()])
+    dp = data_parallel.current()
+    if dp is not None:
+        pair = data_parallel.all_reduce_sum(pair, dp.group)
+    return {"loss": pair[0], "prob": pair[1], "grad_norm": grad_norm}
 
 
 def optimizer_update(state, loss: torch.Tensor,
@@ -244,6 +248,47 @@ def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
                               pe_method=pe_method)
     return feats.map(lambda x: x.reshape((k_steps, 2 * bsz) + x.shape[1:]))
+
+
+def featurize_stacked_dp(wires_q: CompactWireBatch,
+                         wires_k: CompactWireBatch, pos_size: int,
+                         n_max: int | None = None, device="cuda",
+                         pe_method: str = "subspace") -> BatchFeatures:
+    """Featurize a DP-stacked dispatch — (K, D, e_dev) edges / (K, D, 3,
+    b) meta (``PipelineConfig.devices``; on a rank, its slice of the
+    device axis) — in one batched call (``pretrain.py:543-579``).
+
+    Returns BatchFeatures with (K, D·2·b, ...) fields, inner order
+    (device, {query, key}, graph): split a step with
+    :func:`split_feats_qk_dp`. The reference routes this past its fused
+    featurize kernel (a vmapped ``pallas_call`` it does not validate);
+    here ``featurize_compact`` computes the same function as for any
+    stacked wire, Kernel 1 included."""
+    device = resolve_device(device)
+    n_max = wires_q.n_max or n_max
+    if n_max is None:
+        raise ValueError("n_max required to featurize an unrouted wire batch")
+    eq, mq = wire_to_device(wires_q, device)
+    ek, mk = wire_to_device(wires_k, device)
+    k_steps, d, _, b = mq.shape
+    e_dev = eq.shape[-1]
+    # Segments in (step, device, {q, k}) order, b graphs each: the merge
+    # keeps every device's graphs together.
+    edges = torch.stack([eq, ek], dim=2).reshape(k_steps * d * 2, e_dev)
+    meta = torch.stack([mq, mk], dim=2).reshape(k_steps * d * 2, 3, b)
+    feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
+                              pe_method=pe_method)
+    return feats.map(lambda x: x.reshape((k_steps, d * 2 * b) + x.shape[1:]))
+
+
+def split_feats_qk_dp(feats: BatchFeatures, d: int, b: int):
+    """One step's (D·2·b, ...) features → the (D·b, ...) query and key
+    halves, graphs in (device, graph) order (``pretrain.py:582-594``)."""
+    def take(x, v):
+        return x.reshape((d, 2, b) + x.shape[1:])[:, v].reshape(
+            (d * b,) + x.shape[1:])
+
+    return (feats.map(lambda x: take(x, 0)), feats.map(lambda x: take(x, 1)))
 
 
 def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
@@ -389,12 +434,11 @@ def e2e_split_step(state: PretrainState, feats_tuple
             c = f.node_mask.shape[0] // 2
             embs[view].append(model(f.map(lambda x: x[view * c:(view + 1) * c]),
                                     gen=state.dropout_gen))
-    loss, prob = _in_batch_loss(torch.cat(embs[0]), torch.cat(embs[1]),
-                                state.cfg.contrast.nce_t)
+    loss, prob = in_batch_loss(torch.cat(embs[0]), torch.cat(embs[1]),
+                               state.cfg.contrast.nce_t)
     grad_norm = optimizer_update(state, loss)
     state.step += 1
-    return {"loss": loss.detach(), "prob": prob.detach(),
-            "grad_norm": grad_norm}
+    return _metrics(loss, prob, grad_norm)
 
 
 def _stack_metrics(per_step: list[dict]) -> dict[str, torch.Tensor]:
@@ -409,7 +453,11 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     E2E dispatch on a stacked wire whose batch and bucket the
     ``e2e_split`` spec applies to takes the size split and also returns
     ``e2e_split_overflow``. A padded ``WireBatch`` pair is one step
-    through :func:`featurize_pair`."""
+    through :func:`featurize_pair`. A DP-stacked wire (a device axis,
+    4-dim meta) is featurized by :func:`featurize_stacked_dp` and its
+    steps run on the D·b graphs of each step; inside a
+    ``data_parallel`` context the wire is this rank's slice and the steps
+    are those of the global batch."""
     cfg = state.cfg
     contrast = cfg.contrast
     if isinstance(wires_q, WireBatch):
@@ -418,6 +466,21 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
             n_max=n_max, device=state.device,
             pe_method=cfg.encoder.pe_method)
         return _stack_metrics([train_step(state, feats_q, feats_k)])
+    if np.ndim(wires_q.meta) == 4:
+        # DP-stacked wire ((K, D, ...), packed.py:142-163): the steps of
+        # the global batch in (device, graph) order; inside a
+        # data_parallel context this rank's slice of it. The E2E size
+        # split needs a 3-dim meta and does not apply, as in the
+        # reference.
+        d, b = wires_q.meta.shape[1], wires_q.meta.shape[3]
+        feats = featurize_stacked_dp(wires_q, wires_k,
+                                     cfg.encoder.positional_embedding_size,
+                                     n_max=n_max, device=state.device,
+                                     pe_method=cfg.encoder.pe_method)
+        return _stack_metrics([
+            train_step(state, *split_feats_qk_dp(feats.map(
+                lambda x, t=t: x[t]), d, b))
+            for t in range(feats.node_mask.shape[0])])
     classes = None
     if not contrast.moco and contrast.e2e_split and np.ndim(wires_q.meta) == 3:
         classes = parse_e2e_split(contrast.e2e_split,

@@ -31,8 +31,12 @@ def wire_to_device(wire: CompactWireBatch, device="cuda"
                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Returns (edges, meta) as int32 tensors on ``device``: edges keeps
     the packed form (``src | dst << id_bits``, widened to int32) and its
-    shape, meta its (..., 3, B) shape."""
+    shape, meta its (..., 3, B) shape. A wire already uploaded (tensor
+    fields, as :func:`~gcc_tpu_torch.parallel.multihost.host_local_batch_to_global`
+    leaves it) passes through."""
     device = resolve_device(device)
+    if torch.is_tensor(wire.edges):
+        return wire.edges.to(device), wire.meta.to(device)
     edges = np.asarray(wire.edges)
     if edges.dtype == np.uint16:
         e = _to_device(edges.view(np.int16), device)

@@ -272,7 +272,7 @@ def test_pe_plan_mirrors_the_source(cuda_device):
     out = (ctypes.c_int * 9)()
     for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 512, 544,
               800, 832):
-        for k in (1, 8, 16, 17, 32, 33, 48):
+        for k in (1, 8, 16, 17, 32, 33, 48, 49, 64, 65, 80):
             assert lib.gcc_pe_plan(n, k, out) == 0
             plan = pe.pe_launch_plan(n, k)
             assert list(out) == [plan["threads"], plan["smem_bytes"],
@@ -281,4 +281,89 @@ def test_pe_plan_mirrors_the_source(cuda_device):
                                  plan["cluster"], plan["slabs_per_block"],
                                  plan["scratch_bytes"]]
     assert lib.gcc_pe_plan(864, 32, out) != 0
-    assert lib.gcc_pe_plan(128, 49, out) != 0
+    assert lib.gcc_pe_plan(128, 81, out) != 0
+
+
+@pytest.mark.parametrize("n,batch", [(64, 1), (64, 4096), (80, 64),
+                                     (80, 3), (118, 5), (56, 7)])
+def test_jacobi_block_kernel_wide(cuda_device, n, batch):
+    """Even n above 48 (PE 64: n = 64 on the train profile, 80 on the eval
+    profile and the giant finish; 118 the widest block; 56 the first
+    beyond a plain launch's 48 KB) run the block kernel with dynamic
+    shared memory, bit for bit the plain version, both orders."""
+    a = torch.randn(batch, n, n, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
+    assert jacobi.jacobi_launch_plan(n, batch)["variant"].startswith(
+        "block-per-matrix")
+    for desc in (False, True):
+        before = jacobi.jacobi_eigh.launches
+        w, v = jacobi.jacobi_eigh(a, sweeps=3, descending=desc)
+        assert jacobi.jacobi_eigh.launches == before + 1
+        w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=3, descending=desc)
+        assert torch.equal(w, w0) and torch.equal(v, v0)
+
+
+@pytest.mark.parametrize("n", [120, 65])
+def test_jacobi_kernel_refuses_beyond_its_widths(cuda_device, n):
+    a = torch.zeros(2, n, n, device=cuda_device)
+    with pytest.raises(ValueError, match=f"n={n}"):
+        jacobi.jacobi_eigh(a)
+
+
+@pytest.mark.parametrize("n_max,k,graphs", [
+    (128, 64, 32),     # the train profile's small bucket at PE 64
+    (256, 64, 16),     # its large bucket
+    (256, 80, 16),     # the eval profile at bucket 256
+    (512, 80, 6),      # the eval profile's default bucket
+    (832, 80, 3),      # the largest shape the kernel takes
+    (100, 49, 8),      # N and k both padded
+    (160, 80, 140),    # more blocks than SMs
+])
+def test_pe_wide_plan_matches_plain(cuda_device, n_max, k, graphs):
+    """48 < k <= 80: one block per graph, Q in a device scratch, f32 FMAs
+    on operands rounded to bf16 where the plain version rounds them; the
+    limits of the other plans."""
+    assert pe.pe_launch_plan(n_max, k)["plan"] == "wide"
+    big = n_max > 256
+    _pe_compare(*_pe_case(cuda_device, n_max, k, graphs,
+                          e_tot=16384 if big else 4096,
+                          id_bits=16 if big else 8))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(orth_every=1, ns_steps=1, polish=0, final_ns=0),
+    dict(orth_every=3, ns_steps=2, polish=1, final_ns=3),
+    dict(orth_every=16, ns_steps=0, polish=0, final_ns=8),
+])
+def test_pe_wide_plan_schedules(cuda_device, kw):
+    _pe_compare(*_pe_case(cuda_device, 128, 80, 16), **kw)
+
+
+def test_pe_wide_plan_small_graphs_and_batch_of_one(cuda_device):
+    """Graphs smaller than the block width and an empty graph stay finite
+    and zero on the padding; each graph alone equals the same graph in a
+    batch, bit for bit."""
+    m_shift, q0 = _pe_case(cuda_device, 256, 80, 6)
+    m_shift[1, 20:, :] = 0
+    m_shift[1, :, 20:] = 0
+    q0[1, 20:] = 0
+    m_shift[2] = 0
+    q0[2] = 0
+    for lo in (False, True):
+        full = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=lo)
+        assert torch.isfinite(full).all()
+        assert full[1, 20:].abs().max().item() == 0
+        assert full[2].abs().max().item() == 0
+        for i in (0, 5):
+            one = pe.pe_subspace_iterate(m_shift[i:i + 1], q0[i:i + 1],
+                                         iters=16, power_lo=lo)
+            assert torch.equal(one[0], full[i])
+
+
+def test_pe_kernel_refuses_beyond_80(cuda_device):
+    m = torch.zeros(1, 128, 128, device=cuda_device)
+    q0 = torch.zeros(1, 128, 81, device=cuda_device)
+    with pytest.raises(ValueError, match="N=128, k=81"):
+        pe.pe_subspace_iterate(m, q0)

@@ -61,6 +61,35 @@ def test_pe_streamed_plan_fits_a_block(n, k):
     assert plan["scratch_bytes"] == n * n * 2
 
 
+@pytest.mark.parametrize("k", [49, 64, 65, 80])
+@pytest.mark.parametrize("n", [32, 128, 160, 256, 288, 512, 832])
+def test_pe_wide_plan_fits_a_block(n, k):
+    """48 < k <= 80 (PE 64 on the train and eval profiles) takes the wide
+    plan at every N: one block per graph up to N = 256 and a cluster of
+    two above, G in shared memory, four f32 copies of Q (n, kp) in a
+    device scratch."""
+    plan = pe.pe_launch_plan(n, k)
+    assert plan["plan"] == "wide" and plan["n_pad"] == n
+    assert plan["kp"] in (64, 80) and 0 <= plan["kp"] - k < 16
+    assert plan["threads"] == (256 if n <= 256 else 512)
+    assert plan["threads"] == 32 * plan["warps"] <= MAX_THREADS
+    assert plan["kp"] ** 2 * 4 < plan["smem_bytes"] <= 48 * 1024
+    assert plan["cluster"] == (1 if n <= 256 else 2)
+    assert len(plan["block_slabs"]) == plan["cluster"]
+    assert plan["scratch_bytes"] == 4 * n * plan["kp"] * 4
+
+
+@pytest.mark.parametrize("n,k,plan", [(128, 48, "shared"),
+                                      (128, 64, "wide"), (256, 80, "wide"),
+                                      (512, 48, "streamed"),
+                                      (512, 80, "wide")])
+def test_pe_plan_by_width(n, k, plan):
+    """The train (k = 64) and eval (k = 80) widths of PE 64 beside k =
+    48's plans: the shared plan would need 232,720 B at (256, 64) and the
+    streamed plan 268,800 B for its copies of Q^T alone at (832, 80)."""
+    assert pe.pe_launch_plan(n, k)["plan"] == plan
+
+
 @pytest.mark.parametrize("n,slabs", [(544, [9, 9, 9, 7]),
                                      (800, [13, 13, 13, 11]),
                                      (832, [13, 13, 13, 13]),
@@ -85,14 +114,14 @@ def test_pe_plan_pads_the_node_axis(n, n_pad):
     assert plan["n_pad"] == n_pad and plan["threads"] == 2 * n_pad
 
 
-@pytest.mark.parametrize("n,k", [(833, 32), (864, 48), (128, 49),
-                                 (128, 64), (128, 0)])
+@pytest.mark.parametrize("n,k", [(833, 32), (864, 48), (128, 81),
+                                 (832, 96), (128, 0)])
 def test_pe_plan_refuses_with_the_numbers(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
         pe.pe_launch_plan(n, k)
 
 
-@pytest.mark.parametrize("n", list(range(4, 50, 2)))
+@pytest.mark.parametrize("n", list(range(4, 50, 2)) + [56, 64, 80, 118])
 def test_jacobi_plan_fits_a_block(n):
     plan = jacobi.jacobi_launch_plan(n, batch=4097)
     assert 0 < plan["smem_bytes"] <= MAX_SMEM
@@ -121,7 +150,7 @@ def test_jacobi_pair_plan(batch):
     assert plan["smem_bytes"] >= 4 * 48 * 56 * 4
 
 
-@pytest.mark.parametrize("n", [3, 5, 33, 50, 64, 2, 0])
+@pytest.mark.parametrize("n", [3, 5, 33, 120, 65, 2, 0])
 def test_jacobi_plan_refuses_with_the_number(n):
     with pytest.raises(ValueError, match=str(n)):
         jacobi.jacobi_launch_plan(n)
@@ -156,7 +185,7 @@ def test_pe_wrapper_refuses_shapes(m_shape, q_shape):
                          4, 4, 2, 8)
 
 
-@pytest.mark.parametrize("n,k", [(864, 32), (64, 49)])
+@pytest.mark.parametrize("n,k", [(864, 32), (64, 81)])
 def test_pe_wrapper_refuses_sizes(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
         pe._check_inputs(*_pe_args(n=n, k=k), 4, 4, 2, 8)
@@ -176,7 +205,7 @@ def test_pe_wrapper_accepts_what_the_plan_takes():
 
 @pytest.mark.parametrize("shape,exc", [
     ((2, 7, 7), ValueError),        # odd n
-    ((2, 50, 50), ValueError),      # n > 48
+    ((2, 120, 120), ValueError),    # n > 118
     ((2, 2, 2), ValueError),        # n < 4
     ((2, 32, 16), ValueError),      # not square
     ((32, 32), ValueError),         # no batch axis
