@@ -91,10 +91,11 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    128) at k = 32, and its Rayleigh-Ritz matrices, (64, 32, 32) with 3
    sweeps; and one forward and one MoCo step of an encoder without
    degree input.
-12. PE 64 (Kernel 2 beyond k = 48, Kernel 3 beyond n = 48): Kernel 2 against its
+12. PE 64 (Kernel 2's wide plan, Kernel 3 beyond n = 48): Kernel 2 against its
    plain version at k = 64 on the training buckets' operators ((4096,
    128, 128), (4096, 256, 256)) and at k = 80 (64 + 16 guards) at the
-   eval shapes ((128, 256, 256), (64, 512, 512)), Kernel 3 at (4096, 64,
+   eval shapes ((128, 256, 256), (64, 512, 512)) — at (128, 256, 256)
+   also on six more seeded graph sets, untimed — Kernel 3 at (4096, 64,
    64) and (64, 80, 80), 3 sweeps, error 0, beside torch.linalg.eigh;
    then with positional_embedding_size 64 through the entry points: one
    routed MoCo dispatch per bucket and one generate_embeddings encode
@@ -103,14 +104,24 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    bf16 limits) and the eval profile (3x the CPU path's own 1-ulp
    change + 1e-4); the giant PE of a REDDIT-shaped graph at PE 64 (its
    finish: Kernel 3 at (1, 80, 80)), card vs CPU.
-13. Data parallel at world size 1 over NCCL (one card: no scaling is
+13. Wide widths (Kernel 2 above k = 80, Kernel 3 above n = 118): Kernel
+   2's general plan against its plain version at (128, 256, 256), k = 96,
+   (64, 512, 512), k = 128 and (16, 832, 832), k = 256; Kernel 3's
+   device-memory variant at (64, 120, 120), (64, 128, 128) and (16, 256,
+   256), 3 sweeps, error 0, beside torch.linalg.eigh; encode calls
+   through generate_embeddings at PE 112 (n_max 512, batch 64: Kernel 2
+   at k = 128, Kernel 3 at n = 128; the PE's row cosines card vs CPU by
+   the eval-profile rules), PE 80 (n_max 256), PE 104 (Kernel 3 at n =
+   120) and PE 240 (n_max 832, batch 16: k = 256), launch counters zeroed
+   before each.
+14. Data parallel at world size 1 over NCCL (one card: no scaling is
    measured): run_pretrain of 2 routed dispatches at the training path's
    width on one device, then initialize_multihost and the same run
    through run_pretrain's data-parallel branch (the wire's device axis,
    the BatchNorm and gradient all-reduces, the key all-gather, rank-0
    writes); equal loss trajectories (1e-5), the collective calls
    counted.
-14. Prints one {"kernels": [...]} JSON line (one entry per kernel and
+15. Prints one {"kernels": [...]} JSON line (one entry per kernel and
    shape, with the path that runs it), the nvidia-smi line again, and as
    the last line {"ok": true, "device": {...}}.
 
@@ -159,6 +170,8 @@ STREAMED_V1 = ("the streamed plan's first version (one block per graph, f32 "
                "FMAs), H100 80GB HBM3, 700 W")
 BLOCK_JACOBI = ("the block-per-matrix kernel (not queued behind other "
                 "work), H100 80GB HBM3, 700 W")
+WIDE_V1 = ("the wide plan's first version (every product an f32 FMA on the "
+           "CUDA cores, Q in device memory), H100 80GB HBM3, 700 W")
 EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", 32): (0.951, FIRST),
               ("featurize", 128): (0.1915, FIRST),
@@ -166,7 +179,11 @@ EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("pe", 512): (2.8744, STREAMED_V1),
               ("pe", 832): (7.6530, STREAMED_V1),
               ("jacobi", 64): (0.1981, BLOCK_JACOBI),
-              ("jacobi", 128): (0.2126, BLOCK_JACOBI)}
+              ("jacobi", 128): (0.2126, BLOCK_JACOBI),
+              ("pe", "128k64"): (13.8251, WIDE_V1),
+              ("pe", "256k64"): (47.9811, WIDE_V1),
+              ("pe", "256k80"): (3.9861, WIDE_V1),
+              ("pe", "512k80"): (6.6312, WIDE_V1)}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 # The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
@@ -231,8 +248,19 @@ FT_BATCH, FT_EPOCHS, FT_MIN_F1 = 32, 3, 0.7
 # PE 64: Kernel 2 at k = 64 (train) and 80 (eval, 64 + 16 guards),
 # Kernel 3 at n = 64 and 80.
 PE64 = 64
-# A library call slower than this is timed once, not five times after a
-# warm-up.
+# Every width the reference computes: Kernel 2's general plan (k > 80) and
+# Kernel 3's device-memory variant (n > 118). (PE size, n_max, graphs, their
+# fewest nodes) of the encode calls through generate_embeddings, eval
+# profile (k = min(n_max, PE + 16)): PE 112 (k = 128, Kernel 3 at n = 128;
+# its PE held card vs CPU), PE 80 (k = 96), PE 104 (Kernel 3 at n = 120)
+# and PE 240 at n_max 832 (k = 256, Kernel 3 at n = 256).
+WIDE_CALLS = ((112, 512, 64, 260), (80, 256, 128, 100), (104, 512, 64, 260),
+              (240, 832, 16, 520))
+# Further seeds of random_graphs at (128, 256, 256), k = 80, where the
+# wide plan's bf16 mean error sits nearest its limit: held untimed.
+PE_SPREAD_SEEDS = (1, 2, 3, 4, 5, 6)
+# A library call or a plain version slower than this is timed once, not
+# several times after a warm-up.
 SLOW_LIBRARY_MS = 1000.0
 # Data parallel at world size 1: routed dispatches of each run.
 DP_DISPATCHES = 2
@@ -361,10 +389,12 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
     """Kernel 2 vs its plain version on every graph of the batch; `key`
     names the row (EARLIER_MS) where it is not N at k = 32. `small`: a
     batch of graphs with fewer nodes than 2k (the node path's RWR views in
-    a large bucket) — no projector is compared, the mean error is taken
-    over the live rows only (the padding is exact zeros in both versions
-    and would dilute it), and the bound counts each graph's live nodes
-    (rounded up to 32) in place of the padded N.
+    a large bucket) — no projector is compared, and the mean error is
+    taken over the live rows only (the padding is exact zeros in both
+    versions and would dilute it). The bound of every row counts each
+    graph's live nodes, rounded up to 32, in place of the padded N: the
+    kernels run their products over the live rows and columns only. Its
+    bytes are M and q0 read at that size and the whole output written.
 
     f32 rounds: the same arithmetic with the f32 sums in another order —
     max abs err <= 1e-5. bf16 rounds (production): both round the same
@@ -422,7 +452,7 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
                   f"pe N={n} {tag}: mean {mean:.3g} <= {PE_MEAN_LIMIT}, max "
                   f"{err:.3g} <= {PE_MAX_LIMIT}, projector {proj:.3g} <= "
                   f"{PROJECTOR_LIMIT}")
-            out["max_abs_err"] = err
+            out.update(max_abs_err=err, mean=mean)
         else:
             check(err <= 1e-5,
                   f"pe N={n} {tag}: max abs err {err:.3g} <= 1e-5")
@@ -431,14 +461,10 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
     ms_k = timed_ms(lambda: pe_subspace_iterate(m_shift, q0, iters=16), 3)
     ms_p = timed_ms(lambda: pe_subspace_iterate_plain(m_shift, q0, iters=16),
                     2)
-    if small:
-        live = [-(-int(v) // 32) * 32 for v in n_nodes.tolist()]
-        t_ops = sum(lo_ops / PEAK_BF16 + f32_ops / PEAK_F32
-                    for lo_ops, f32_ops in (pe_flops(v, k) for v in live))
-    else:
-        bf16, f32 = pe_flops(n, k)
-        t_ops = g * (bf16 / PEAK_BF16 + f32 / PEAK_F32)
-    t_bytes = g * (n * n + 2 * n * k) * 4 / PEAK_BYTES
+    live = [min(n, -(-int(v) // 32) * 32) for v in n_nodes.tolist()]
+    t_ops = sum(lo_ops / PEAK_BF16 + f32_ops / PEAK_F32
+                for lo_ops, f32_ops in (pe_flops(v, k) for v in live))
+    t_bytes = sum(v * v + v * k + n * k for v in live) * 4 / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
     print(f"pe N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
           f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
@@ -472,8 +498,13 @@ def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
         return None
     ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps, descending=True),
                     20, run_ahead=True)
+    # The plain version takes seconds at (16, 256, 256): one call (warm
+    # from the check above) is then its measurement.
     ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
-                                              descending=True), 3)
+                                              descending=True), 1, warmup=0)
+    if ms_p < SLOW_LIBRARY_MS:
+        ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
+                                                  descending=True), 3)
     # torch.linalg.eigh takes seconds at (4096, 64, 64): one call is then
     # its measurement (its solver is warm from the smaller shapes before).
     ms_l = timed_ms(lambda: torch.linalg.eigh(t), 1, warmup=0)
@@ -1709,6 +1740,16 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
             del s_g, t_rr
         del m_shift, q
         torch.cuda.empty_cache()
+    means = []
+    for seed in PE_SPREAD_SEEDS:
+        m_shift, n_nodes = entire_graph_operator(
+            random_graphs(seed, 128, 100, N_MAX), N_MAX, GEN_E_MAX, dev)
+        means.append(check_pe(m_shift, n_nodes, k_eval, check,
+                              timed=False)[0]["mean"])
+    print(f"pe N={N_MAX} k={k_eval} bf16 mean abs err on seeds "
+          f"{PE_SPREAD_SEEDS}: {', '.join(f'{v:.4g}' for v in means)}",
+          flush=True)
+    del m_shift, n_nodes
 
     # -- one routed MoCo dispatch per bucket at PE 64 ----------------------
     cfg64 = dataclasses.replace(cfg, encoder=dataclasses.replace(
@@ -1833,6 +1874,104 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
             ("pe", f"{N_MAX}k{k_eval}"): launches[("eval", N_MAX)]["pe"],
             ("pe", f"{GEN_N_MAX}k{k_eval}"): launches[("eval", GEN_N_MAX)]["pe"],
             ("jacobi", f"n{k_eval}"): launches[("eval", GEN_N_MAX)]["jacobi"]}
+
+
+def wide_widths_path(ops, cfg, check, results):
+    """Every width the reference computes: Kernel 2's general plan against
+    its plain version at (128, 256, 256), k = 96 (PE 80 + 16 guards),
+    (64, 512, 512), k = 128 (PE 112 + 16) and (16, 832, 832), k = 256 (G
+    in device memory), untimed at k = 120; Kernel 3's device-memory
+    variant at (64, 120, 120), (64, 128, 128) and (16, 256, 256), 3 sweeps,
+    on those outputs' Rayleigh-Ritz matrices, error 0, beside
+    torch.linalg.eigh. Then the WIDE_CALLS encode calls through
+    generate_embeddings, the launch counters zeroed before each (Kernel 2
+    once, Kernel 3 twice, no plain-version call), the PE 112 call's PE row
+    cosines card vs CPU by the eval-profile rules of the PE 64 phase.
+    Adds the rows; returns {row key: launches}."""
+    import dataclasses
+
+    import torch
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.features.featurize import featurize_batch
+    from gcc_tpu_torch.graph.batch import batch_subgraphs
+    from gcc_tpu_torch.models import GraphEncoder
+
+    dev = torch.device("cuda")
+    # -- the kernels at the new widths -------------------------------------
+    for n_b, count, lo, k in ((N_MAX, 128, 100, 96),
+                              (GEN_N_MAX, GEN_BATCH, 260, 128),
+                              (832, 16, 520, 256)):
+        m_shift, n_nodes = entire_graph_operator(
+            random_graphs(n_b + k, count, lo, n_b), n_b, GEN_E_MAX, dev)
+        key = f"{n_b}k{k}"
+        results[("pe", key)], q = check_pe(m_shift, n_nodes, k, check,
+                                           key=key)
+        if k == 128:
+            s_g, t_rr = guarded_rr_matrices(m_shift, q)
+            check_jacobi(s_g, check, timed=False, exact=True)
+            results[("jacobi", "n128")] = check_jacobi(
+                t_rr, check, key="n128", exact=True)
+            _, q = check_pe(m_shift, n_nodes, 120, check, timed=False)
+            results[("jacobi", "n120")] = check_jacobi(
+                guarded_rr_matrices(m_shift, q)[1], check, key="n120",
+                exact=True)
+            del s_g, t_rr
+        elif k == 256:
+            results[("jacobi", "n256")] = check_jacobi(
+                guarded_rr_matrices(m_shift, q)[1], check, key="n256",
+                exact=True)
+        del m_shift, q
+        torch.cuda.empty_cache()
+
+    # -- encode calls through the entry point --------------------------------
+    launches = {}
+    for pos, n_b, count, lo in WIDE_CALLS:
+        cfg_w = dataclasses.replace(cfg, encoder=dataclasses.replace(
+            cfg.encoder, positional_embedding_size=pos))
+        model = GraphEncoder(cfg_w.encoder)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        subs = generate.graph_subgraphs(random_graphs(n_b + pos, count, lo,
+                                                      n_b))
+        emb, got, plain, dt = counted(ops, lambda: generate.generate_embeddings(
+            cfg_w, model, subs, n_max=n_b, e_max=GEN_E_MAX,
+            batch_size=count))
+        launches[pos] = got
+        k = min(n_b, pos + K_EVAL - cfg.encoder.positional_embedding_size)
+        print(f"PE {pos} generate_embeddings at n_max {n_b}: one encode call "
+              f"of {count} graphs (k = {k}) in {dt * 1e3:.1f} ms; kernel "
+              f"launches {got}", flush=True)
+        check(got["pe"] == 1 and got["jacobi"] == 2 and not any(
+            plain.values()) and bool(torch.isfinite(torch.as_tensor(emb))
+                                     .all()),
+              f"PE {pos} generate at {n_b}: Kernel 2 once, Kernel 3 twice, "
+              "no plain-version call, finite embeddings")
+        if pos != WIDE_CALLS[0][0]:
+            continue
+        batch = batch_subgraphs(subs, n_b, GEN_E_MAX)
+        exact, e = pe_card_vs_cpu(
+            [featurize_batch(batch, pos, profile="eval", device="cuda")],
+            [featurize_batch(batch, pos, profile="eval", device="cpu")],
+            [(n_b, None)], pos, profile="eval", nudges=(math.inf,))
+        limit = WITNESS_FACTOR * e["ulp_cos_mean"] + PE_MEAN_LIMIT
+        print(f"PE {pos} eval profile, card vs CPU on {e['views']} graphs: "
+              f"row cosines mean {e['cos_mean']:.4g}, max {e['cos_max']:.4g} "
+              f"(1-ulp witness {e['ulp_cos_mean']:.4g}, "
+              f"{e['ulp_cos_max']:.4g}); coordinates mean {e['mean']:.4g}, "
+              f"max {e['max']:.4g}", flush=True)
+        check(exact and e["cos_mean"] <= limit
+              and e["cos_max"] <= PE_MAX_LIMIT,
+              f"PE {pos} eval profile card vs CPU: row cosines mean "
+              f"{e['cos_mean']:.3g} <= {limit:.3g} ({WITNESS_FACTOR} x witness "
+              f"+ {PE_MEAN_LIMIT}), max {e['cos_max']:.3g} <= {PE_MAX_LIMIT}")
+        del model
+    return {("pe", "512k128"): launches[112]["pe"],
+            ("jacobi", "n128"): launches[112]["jacobi"],
+            ("pe", "256k96"): launches[80]["pe"],
+            ("jacobi", "n120"): launches[104]["jacobi"],
+            ("pe", "832k256"): launches[240]["pe"],
+            ("jacobi", "n256"): launches[240]["jacobi"]}
 
 
 def dp_path(ops, cfg, corpus_dir, out_dir, check):
@@ -2142,6 +2281,10 @@ def main() -> int:
                                   results)
         phase("PE 64")
 
+        # --- every width the reference computes --------------------------
+        wide_launches = wide_widths_path(ops, cfg, check, results)
+        phase("wide widths")
+
         # --- data parallel, world size 1 over NCCL ----------------------
         dp_path(ops, cfg, corpus_dir, os.path.join(work, "dp"), check)
         phase("data parallel")
@@ -2173,6 +2316,8 @@ def main() -> int:
              for (name, key), n in padded_launches.items()]
     rows += [(name, key, "pe64", {name: n})
              for (name, key), n in pe64_launches.items()]
+    rows += [(name, key, "wide", {name: n})
+             for (name, key), n in wide_launches.items()]
     kernels = []
     for name, key, path, launches in rows:
         r = results[(name, key)]

@@ -53,6 +53,15 @@
 //     the widths of PE 64 on the train and eval profiles); the launch
 //     then opts in to dynamic shared memory up to the 232,448 B a Hopper
 //     block may hold, which n = 118 fits and n = 120 does not.
+//   * every even n from 120 to 832 (PE 104 and more on the eval profile,
+//     PE 120 and more on the train profile; no configuration the
+//     repository ships): the same block kernel with A and V^T, still
+//     double-buffered, in a per-matrix device scratch of 16 n^2 bytes that
+//     the wrapper allocates (the L1 and L2 caches serve it); c/s, the
+//     eigenvalues and the index tables stay in shared memory (24 n bytes),
+//     and a block has 1024 threads, so more loads are in flight. The same
+//     rounds in the same order: bit for bit its plain version. Slow by
+//     design: a round's every entry goes through device memory twice.
 // In all, products and sums are explicitly rounded (__fmul_rn /
 // __fadd_rn / ...) in the plain version's order per element (row mix,
 // then column mix), so no FMA contraction changes them: Jacobi has no
@@ -63,8 +72,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kDeviceThreads = 1024;      // the device-memory variant
 constexpr size_t kPlainSmem = 48 * 1024;  // a launch without the opt-in
 constexpr size_t kMaxSmem = 232448;       // a Hopper block's most
+constexpr int kMaxN = 832;                // the widest n the kernels take
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -85,20 +96,23 @@ __device__ __forceinline__ void rotation_cs(float app, float aqq, float apq,
   *s = small ? 0.f : ss;
 }
 
-__global__ void __launch_bounds__(kThreads)
+// DEVICE: A and V^T in `scratch` (B, 4, n, n) instead of shared memory.
+template <bool DEVICE>
+__global__ void __launch_bounds__(DEVICE ? kDeviceThreads : kThreads)
 jacobi_block_kernel(const float* __restrict__ t,      // (B, n, n) symmetric
               const int* __restrict__ tables,   // layout0[n] | repair_dst[n]
               float* __restrict__ w_out,        // (B, n)
               float* __restrict__ v_out,        // (B, n, n), vectors in columns
+              float* scratch,                   // DEVICE: (B, 4, n, n)
               int n, int rounds, int descending, float eps) {
   extern __shared__ float sm[];
   const int h = n / 2;
   const int nn = n * n;
-  float* a_cur = sm;
+  float* a_cur = DEVICE ? scratch + (size_t)blockIdx.x * 4 * nn : sm;
   float* a_nxt = a_cur + nn;
   float* v_cur = a_nxt + nn;
   float* v_nxt = v_cur + nn;
-  float* cs_c = v_nxt + nn;       // h
+  float* cs_c = DEVICE ? sm : v_nxt + nn;   // h
   float* cs_s = cs_c + h;         // h
   float* w_nat = cs_s + h;        // n, natural order
   int* lay = (int*)(w_nat + n);   // n: round-0 position -> node index
@@ -429,14 +443,17 @@ jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
 
 }  // namespace
 
+// scratch: (batch, 4, n, n) f32 for n > 118 (A and V^T of the device-
+// memory variant), unused and may be null else.
 extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
-                                 void* v, int batch, int n, int sweeps,
-                                 int descending, float eps, void* stream) {
+                                 void* v, void* scratch, int batch, int n,
+                                 int sweeps, int descending, float eps,
+                                 void* stream) {
   if (batch <= 0) return 0;
+  if (n % 2 != 0 || n < 4 || n > kMaxN || sweeps < 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem =
       (size_t)(4 * n * n + 2 * n) * sizeof(float) + (size_t)4 * n * sizeof(int);
-  if (n % 2 != 0 || n < 4 || smem > kMaxSmem || sweeps < 0)
-    return (int)cudaErrorInvalidValue;
   if (n == kN) {
     jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0,
                          (cudaStream_t)stream>>>(
@@ -451,14 +468,25 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
         sweeps * (n - 1), descending, eps);
     return (int)cudaGetLastError();
   }
+  if (smem > kMaxSmem) {
+    // c/s and the eigenvalues (2 n floats), four index tables.
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const size_t small =
+        (size_t)2 * n * sizeof(float) + (size_t)4 * n * sizeof(int);
+    jacobi_block_kernel<true><<<batch, kDeviceThreads, small,
+                                (cudaStream_t)stream>>>(
+        (const float*)t, (const int*)tables, (float*)w, (float*)v,
+        (float*)scratch, n, sweeps * (n - 1), descending, eps);
+    return (int)cudaGetLastError();
+  }
   if (smem > kPlainSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        jacobi_block_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        jacobi_block_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  jacobi_block_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)t, (const int*)tables, (float*)w, (float*)v, n,
+  jacobi_block_kernel<false><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)t, (const int*)tables, (float*)w, (float*)v, nullptr, n,
       sweeps * (n - 1), descending, eps);
   return (int)cudaGetLastError();
 }

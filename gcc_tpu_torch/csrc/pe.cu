@@ -69,17 +69,47 @@
 //
 // Above N = 256 the bf16 copy of M no longer fits a block's shared memory
 // (532 KB at N = 512). Those shapes, 256 < N <= 832, take the STREAMED
-// plan at the end of this file (pe_cluster_kernel): the same steps in the
+// plan below (pe_cluster_kernel): the same steps in the
 // same order on a cluster of 2 or 4 blocks per graph, the rounds on the
 // tensor cores against a bf16 copy of M that the kernel makes once in a
 // device scratch and streams for every power step, Q^T in registers and
 // in a bf16 copy in every block's shared memory.
 //
-// Widths 48 < k <= 80 (PE 64, with and without the eval profile's 16
-// guards) take the WIDE plan (pe_wide_kernel, after the streamed plan) at
-// every N <= 832: one block per graph, Q in a device scratch, every
-// product an f32 FMA on operands rounded to bf16 where the reference
-// rounds them.
+// Widths 48 < k <= 80 (PE 64: k = 64 on the train profile, 80 with the
+// eval profile's 16 guards) take the WIDE plan, which is these two kernels
+// at five row tiles (KT = 4, 5), chosen by bytes:
+//   * pe_kernel where its shared memory fits a block (N <= 224 at kp = 64,
+//     N <= 160 at kp = 80: 130 KB at (128, 64), 171 KB at (128, 80)), one
+//     block an SM. The rounds run on the tensor cores against M's bf16
+//     copy in shared memory, made once; the f32 Gram is split over depth
+//     (`chunks`) and the f32 update and power steps are register-tiled,
+//     so every thread is busy in the polish and the finish.
+//   * pe_cluster_kernel above (the N = 256 training bucket at k = 64, the
+//     eval shapes at k = 80), one block per graph up to N = 256 (a batch
+//     of 4096 graphs then takes one SM a graph, not two): the bf16 copy of
+//     M made once in the device scratch and streamed by cp.async, the
+//     NS update a row tile at a time (a whole panel of accumulators beside
+//     Q^T's would spill). Where two bf16 copies of Q^T do not
+//     fit beside the rest (kp = 80 above N = 384, kp = 64 above N = 512)
+//     a block keeps ONE, and every store to it waits at a barrier until
+//     its readers are done; the f32 Q^T of the polish and the finish then
+//     lives in the scratch (one copy for the cluster, read through L1/L2)
+//     in place of every block's shared memory. The partial Grams (2 kp^2
+//     f32, 50 KB at kp = 80) outgrow the warps' rings; their region grows.
+//   * Both at five row tiles split every bf16 A operand into a high and a
+//     low part for the tensor core (mma_step): its sums are cut, not
+//     rounded to nearest, and at these widths that bias alone carried the
+//     mean difference from the plain version over its limit. They, and
+//     the general plan, also take colunit's and the Gershgorin bound's
+//     sums in f64 (SqSum, gershgorin<true>): a reduction in another
+//     order than the library's did the same on most graph sets.
+// What bounds the wide plan: at (4096, 128, 128), k = 64, the bound's own
+// count is 241 GFLOP of bf16 rounds and 69 GFLOP of f32 polish and finish
+// (0.24 and 1.03 ms at peak): the f32 work on the CUDA cores.
+//
+// Widths 80 < k <= 832 take the GENERAL plan (pe_general_kernel, at the
+// end): Q in a device scratch, every product an f32 FMA on the CUDA cores
+// on operands rounded to bf16 where the reference rounds them.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -87,6 +117,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -108,12 +139,17 @@ constexpr int kMaxWarps = 16;   // n <= 256, 16 columns a warp
 constexpr int kMaxSplit = 8;    // most parts a Gram is summed from
 constexpr int kPanel = 16;      // rows of f32 M per staged panel
 constexpr int kStages = 3;      // panel buffers: two copies in flight
+constexpr int kMaxSmem = 232448;   // shared memory a Hopper block may use
+constexpr int kMaxKt = 5;       // row tiles of the tensor-core plans: k <= 80
 
 inline int align16(int x) { return (x + 15) / 16 * 16; }
 
-// Shapes: n a multiple of 32 up to 256, 1 <= k <= 48.
+// Shapes: n a multiple of 32 up to 256, 1 <= k <= 80, and the bytes within
+// a block's shared memory (every n at k <= 48; n <= 224 at kp = 64, n <=
+// 160 at kp = 80, where the wide plan runs this kernel).
 inline bool pe_plan(int n, int k, Plan* p) {
-  if (n < 32 || n > 256 || n % 32 != 0 || k < 1 || k > 48) return false;
+  if (n < 32 || n > 256 || n % 32 != 0 || k < 1 || k > 16 * kMaxKt)
+    return false;
   p->n = n; p->k = k;
   p->kp = (k + 15) / 16 * 16;
   p->kt = p->kp / 16;
@@ -144,7 +180,7 @@ inline bool pe_plan(int n, int k, Plan* p) {
   p->off_gpart = off; off += p->ks > 1 ? p->ks * kk * 4 : 0;
   const int stage_end = p->off_stage + kStages * kPanel * n * 4;
   p->smem = off > stage_end ? off : stage_end;
-  return true;
+  return p->smem <= kMaxSmem;
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -178,6 +214,48 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// a = hi + lo per bf16 value, both exact in bf16: hi keeps the sign, the
+// exponent and the top 3 bits of the significand, lo the other 4.
+__device__ __forceinline__ void split_bf16(const uint32_t (&a)[4],
+                                           uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    hi[i] = a[i] & 0xFFF0FFF0u;
+    uint32_t x = a[i], h = hi[i];
+    const __nv_bfloat162 d = __hsub2(
+        *reinterpret_cast<const __nv_bfloat162*>(&x),
+        *reinterpret_cast<const __nv_bfloat162*>(&h));
+    lo[i] = *reinterpret_cast<const uint32_t*>(&d);
+  }
+}
+
+// c += a * b over one 16-deep k-step. The tensor core does not round its
+// sums to nearest: it aligns the products (and c) to the largest and cuts
+// the bits below, a bias toward zero that the k-steps carry on. At the
+// five-tile widths (SPLIT: KT >= 4), whose guard columns pass a bf16
+// rounding difference on to the result the most, that bias put the mean
+// difference from the plain version over its limit. There a's high and
+// low parts (split_bf16) go through the tensor core apart, so every
+// product has 12 significant bits and is not cut unless the products'
+// exponents lie far apart; each part is summed in a zeroed fragment, and
+// the parts and c are added with IEEE f32 adds. Twice the tensor-core work.
+template <bool SPLIT>
+__device__ __forceinline__ void mma_step(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (SPLIT) {
+    uint32_t hi[4], lo[4];
+    split_bf16(a, hi, lo);
+    float d[4] = {0.f, 0.f, 0.f, 0.f}, e[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_bf16(d, hi, b0, b1);
+    mma_bf16(e, lo, b0, b1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) c[i] = __fadd_rn(c[i], __fadd_rn(d[i], e[i]));
+  } else {
+    mma_bf16(c, a, b0, b1);
+  }
+}
+
 template <int KT>
 struct Ctx {
   static constexpr int kp = 16 * KT;   // width padded to 16
@@ -208,30 +286,34 @@ struct Ctx {
 // Fragment of the accumulator tile (mt, nt): row mt*16 + lane/4 (+8 for
 // elements 2, 3), columns c0 + nt*8 + (lane%4)*2 (+1 for elements 1, 3).
 
-// acc = A (KT*16 x 16*ksteps, row-major bf16, lda) * B (16*ksteps x .,
-// row-major bf16, ldb)[:, c0 : c0 + 16].
-template <int KT>
-__device__ __forceinline__ void mma_panel(float (&acc)[KT][2][4],
+// acc = A (rows (mt0 + mt)*16 for mt < RT, 16*ksteps deep, row-major bf16,
+// lda) * B (16*ksteps x ., row-major bf16, ldb)[:, c0 : c0 + 16]. RT is KT
+// (the whole panel) but for the five-tile widths' Newton-Schulz update,
+// which takes one row tile at a time: a whole panel of accumulators beside
+// Q^T's would spill.
+template <int KT, int RT>
+__device__ __forceinline__ void mma_panel(float (&acc)[RT][2][4],
                                           const bf16* a_s, int lda,
                                           const bf16* b_s, int ldb,
-                                          int ksteps, int c0, int lane) {
+                                          int ksteps, int c0, int lane,
+                                          int mt0 = 0) {
 #pragma unroll
-  for (int mt = 0; mt < KT; ++mt)
+  for (int mt = 0; mt < RT; ++mt)
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const int lr = lane & 15, lc = (lane >> 4) * 8;
-#pragma unroll 2
+#pragma unroll (RT > 1 ? 2 : 1)
   for (int s = 0; s < ksteps; ++s) {
     uint32_t b[4];
     ldsm_x4_trans(b, b_s + (s * 16 + lr) * ldb + c0 + lc);
 #pragma unroll
-    for (int mt = 0; mt < KT; ++mt) {
+    for (int mt = 0; mt < RT; ++mt) {
       uint32_t a[4];
-      ldsm_x4(a, a_s + (mt * 16 + lr) * lda + s * 16 + lc);
-      mma_bf16(acc[mt][0], a, b[0], b[1]);
-      mma_bf16(acc[mt][1], a, b[2], b[3]);
+      ldsm_x4(a, a_s + ((mt0 + mt) * 16 + lr) * lda + s * 16 + lc);
+      mma_step<(KT >= 4)>(acc[mt][0], a, b[0], b[1]);
+      mma_step<(KT >= 4)>(acc[mt][1], a, b[2], b[3]);
     }
   }
 }
@@ -261,6 +343,27 @@ __device__ __forceinline__ void store_lo(Ctx<KT>& x,
   x.cur ^= 1;
 }
 
+// Sums of squares of the bf16 rounds' colunit. The plain version rounds
+// each square to f32 and sums them with the library's reduction, close to
+// the correctly rounded sum; a chain of f32 adds in another order is a
+// few units in the last place away, and every bf16 rounding of Q^T after
+// it carries the difference on. At the five-tile widths (KT >= 4) and in
+// the general plan that put the mean difference from the plain version
+// over its limit on most graph sets, so there the squares (and the
+// Gershgorin sums) are summed in f64 and rounded to f32 once. Below, the
+// plans keep their f32 sums: every path that holds their output against
+// the CPU's was measured with them.
+template <int KT>
+using SqSum = std::conditional_t<(KT >= 4), double, float>;
+
+__device__ __forceinline__ float sq_add(float s, float v) {
+  return fmaf(v, v, s);
+}
+
+__device__ __forceinline__ double sq_add(double s, float v) {
+  return s + (double)__fmul_rn(v, v);
+}
+
 // Rows of Q^T scaled to unit norm (floor 1e-20), from the registers.
 template <int KT>
 __device__ __forceinline__ void colunit_regs(Ctx<KT>& x,
@@ -272,15 +375,15 @@ __device__ __forceinline__ void colunit_regs(Ctx<KT>& x,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (!live) break;
-      float s = 0.f;
+      SqSum<KT> s = 0;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        s = fmaf(q[mt][nt][2 * h], q[mt][nt][2 * h], s);
-        s = fmaf(q[mt][nt][2 * h + 1], q[mt][nt][2 * h + 1], s);
+        s = sq_add(s, q[mt][nt][2 * h]);
+        s = sq_add(s, q[mt][nt][2 * h + 1]);
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (t == 0) x.redw[x.warp * x.kp + mt * 16 + h * 8 + g] = s;
+      if (t == 0) x.redw[x.warp * x.kp + mt * 16 + h * 8 + g] = (float)s;
     }
   __syncthreads();
 #pragma unroll
@@ -289,11 +392,11 @@ __device__ __forceinline__ void colunit_regs(Ctx<KT>& x,
     for (int h = 0; h < 2; ++h) {
       if (!live) break;
       const int row = mt * 16 + h * 8 + g;
-      float s = 0.f;
+      SqSum<KT> s = 0;
 #pragma unroll
       for (int w = 0; w < kMaxWarps; ++w)   // unrolled: the loads overlap
         if (w < x.ne / 16) s += x.redw[w * x.kp + row];
-      const float d = fmaxf(__fsqrt_rn(s), 1e-20f);
+      const float d = fmaxf(__fsqrt_rn((float)s), 1e-20f);
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         q[mt][nt][2 * h] = __fdiv_rn(q[mt][nt][2 * h], d);
@@ -346,7 +449,7 @@ __device__ __forceinline__ void gram_lo(Ctx<KT>& x) {
       uint32_t a[4], b[2];
       ldsm_x4(a, q + (mt * 16 + lr) * x.ldq + s * 16 + lc);
       ldsm_x2(b, q + (nt * 8 + br) * x.ldq + s * 16 + bc);
-      mma_bf16(acc, a, b[0], b[1]);
+      mma_step<(KT >= 4)>(acc, a, b[0], b[1]);
     }
     float* dst = direct ? x.gram : x.gpart + chunk * x.kp * x.kp;
     const int row = mt * 16 + g, col = nt * 8 + 2 * t;
@@ -365,21 +468,23 @@ __device__ __forceinline__ void gram_lo(Ctx<KT>& x) {
   if (!direct) gram_sum<TO_LO>(x, x.gpart, x.ks);
 }
 
-// scal[0] = 1 / sqrt(max_a sum_b |G_ab|), floor 1e-20.
-template <class X>
+// scal[0] = 1 / sqrt(max_a sum_b |G_ab|), floor 1e-20. F64: each sum is
+// taken in f64 and rounded to f32 once, as close to the library's
+// reduction in the plain version as a fixed order gets (see SqSum).
+template <bool F64, class X>
 __device__ __forceinline__ void gershgorin(X& x) {
+  using Sum = std::conditional_t<F64, double, float>;
   if (x.warp == 0) {
-    float best = 0.f;
+    Sum best = 0;
     for (int a = x.lane; a < x.kp; a += 32) {
-      float s = 0.f;
+      Sum s = 0;
 #pragma unroll 16
-      for (int b = 0; b < x.kp; ++b)
-        s = __fadd_rn(s, fabsf(x.gram[b * x.kp + a]));
-      best = fmaxf(best, s);
+      for (int b = 0; b < x.kp; ++b) s += fabs((Sum)x.gram[b * x.kp + a]);
+      best = fmax(best, s);
     }
     for (int off = 16; off > 0; off >>= 1)
-      best = fmaxf(best, __shfl_xor_sync(0xffffffffu, best, off));
-    if (x.lane == 0) x.scal[0] = rsqrtf(fmaxf(best, 1e-20f));
+      best = fmax(best, __shfl_xor_sync(0xffffffffu, best, off));
+    if (x.lane == 0) x.scal[0] = rsqrtf(fmaxf((float)best, 1e-20f));
   }
   __syncthreads();
 }
@@ -391,7 +496,7 @@ __device__ void ns_orth_lo(Ctx<KT>& x, float (&q)[KT][2][4], int steps) {
   colunit_regs(x, q);
   store_lo(x, q);
   gram_lo<false>(x);
-  gershgorin(x);
+  gershgorin<(KT >= 4)>(x);
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
 #pragma unroll
@@ -623,7 +728,7 @@ __device__ void ns_orth_f32(Ctx<KT>& x, int steps) {
   const int tc = x.tid % nq, tr = x.tid / nq;
   colunit_f32(x);
   gram_f32(x);
-  gershgorin(x);
+  gershgorin<(KT >= 4)>(x);
   const bool live = 4 * tc < x.ne;
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
@@ -822,14 +927,21 @@ int launch_as(const Plan& p, const void* m, const void* q0, void* out,
 
 // N <= 128 (at most 256 threads, under 90 KB of shared memory): three
 // blocks an SM, so one graph's barriers and loads hide behind the others'.
-// N > 128: shared memory allows one or two blocks, registers are free.
+// N > 128, or the wide plan's 64 and 80 columns (over 128 KB of shared
+// memory at N = 128): one block an SM, registers are free.
 template <int KT>
 int launch(const Plan& p, const void* m, const void* q0, void* out, int batch,
            int rounds, int orth_every, int ns_steps, int polish, int final_ns,
            int lo, cudaStream_t stream) {
-  if (p.threads <= 256)
-    return launch_as<KT, 256, 3>(p, m, q0, out, batch, rounds, orth_every,
-                                 ns_steps, polish, final_ns, lo, stream);
+  if constexpr (KT < 4) {
+    if (p.threads <= 256)
+      return launch_as<KT, 256, 3>(p, m, q0, out, batch, rounds, orth_every,
+                                   ns_steps, polish, final_ns, lo, stream);
+  } else {
+    if (p.threads <= 256)
+      return launch_as<KT, 256, 1>(p, m, q0, out, batch, rounds, orth_every,
+                                   ns_steps, polish, final_ns, lo, stream);
+  }
   return launch_as<KT, 512, 1>(p, m, q0, out, batch, rounds, orth_every,
                                ns_steps, polish, final_ns, lo, stream);
 }
@@ -906,42 +1018,64 @@ struct BigPlan {
   int ldq;           // row stride of the bf16 Q^T
   int ldf;           // row stride of the f32 Q^T
   int ldp;           // row stride of a staged panel of f32 M: 16 spb
+  int nbuf;          // bf16 copies of Q^T a block keeps: 2, or 1
   int off_ring, off_gram, off_glo, off_redw, off_redc, off_red;   // bytes
   int smem;
   int scratch;       // bytes of device scratch per graph
 };
 
-// Shapes: n a multiple of 32 in (256, 832], 1 <= k <= 48.
-inline bool pe_big_plan(int n, int k, BigPlan* p) {
-  if (n <= 256 || n > 832 || n % 32 != 0 || k < 1 || k > 48) return false;
-  p->n = n; p->k = k;
-  p->kp = (k + 15) / 16 * 16;
-  p->kt = p->kp / 16;
-  p->cluster = n <= 512 ? 2 : kMaxCluster;
-  p->slabs = n / 16;
-  p->spb = (p->slabs + p->cluster - 1) / p->cluster;
-  p->ldq = n + 8;
-  p->ldf = n + 4;
-  p->ldp = 16 * p->spb;
+inline int big_smem(BigPlan* p) {
   const int kk = p->kp * p->kp;
-  // The two bf16 copies of Q^T; the f32 steps keep one f32 copy of Q^T
-  // (kp, ldf) in the same bytes (never more: 4 (n + 4) <= 4 (n + 8)).
-  int off = align16(2 * p->kp * p->ldq * 2);
+  // The bf16 copies of Q^T; with two, the f32 steps keep one f32 copy of
+  // Q^T (kp, ldf) in the same bytes (never more: 4 (n + 4) <= 4 (n + 8)),
+  // with one it lives in the device scratch.
+  int off = align16(p->nbuf * p->kp * p->ldq * 2);
   // The warps' rings of bf16 tiles; the f32 power steps' three panels of
   // f32 M take the same bytes, and between power steps the two partial
-  // Gram matrices (2 kk f32 <= 18 KB).
-  const int ring_bytes = kBigWarps * kRing * kTile;
-  const int panel_bytes = kStages * kPanel * p->ldp * 4;
-  p->off_ring = off;
-  off += ring_bytes > panel_bytes ? ring_bytes : panel_bytes;
+  // Gram matrices (2 kk f32: 18 KB at kp = 48, 50 KB at kp = 80).
+  int region = kBigWarps * kRing * kTile;
+  if (region < kStages * kPanel * p->ldp * 4)
+    region = kStages * kPanel * p->ldp * 4;
+  if (region < 2 * kk * 4) region = 2 * kk * 4;
+  p->off_ring = off; off += region;
   p->off_gram = off; off += kk * 4;
   p->off_glo = off;  off += align16(p->kp * (p->kp + 8) * 2);
   p->off_redw = off; off += kBigWarps * p->kp * 4;
   p->off_redc = off; off += kMaxCluster * p->kp * 4;
   p->off_red = off;  off += p->kp * 4 + 16 + kMaxCluster * 4;
-  p->smem = off;
-  p->scratch = n * n * 2;
-  return true;
+  return off;
+}
+
+// Shapes: n a multiple of 32 in (256, 832] at 1 <= k <= 48 (the streamed
+// plan), and 48 < k <= 80 at every n up to 832 that the shared plan does
+// not take (the wide plan's cluster layout).
+inline bool pe_big_plan(int n, int k, BigPlan* p) {
+  if (n < 32 || n > 832 || n % 32 != 0 || k < 1 || k > 16 * kMaxKt)
+    return false;
+  Plan shared;
+  if (pe_plan(n, k, &shared)) return false;
+  p->n = n; p->k = k;
+  p->kp = (k + 15) / 16 * 16;
+  p->kt = p->kp / 16;
+  // One block per graph up to N = 256 (the wide plan's: 16 slabs, one a
+  // warp), 2 up to N = 512 (64 graphs are 128 blocks on 132 SMs), 4 above.
+  p->cluster = n <= 256 ? 1 : n <= 512 ? 2 : kMaxCluster;
+  p->slabs = n / 16;
+  p->spb = (p->slabs + p->cluster - 1) / p->cluster;
+  p->ldq = n + 8;
+  p->ldf = n + 4;
+  p->ldp = 16 * p->spb;
+  // Two bf16 copies of Q^T where they fit (every shape at k <= 48), else
+  // one, and the f32 Q^T in the device scratch (k = 80 above N = 384, k
+  // = 64 above N = 512).
+  p->nbuf = 2;
+  p->smem = big_smem(p);
+  if (p->smem > kMaxSmem) {
+    p->nbuf = 1;
+    p->smem = big_smem(p);
+  }
+  p->scratch = n * n * 2 + (p->nbuf == 1 ? p->kp * p->ldf * 4 : 0);
+  return p->smem <= kMaxSmem;
 }
 
 template <int KT>
@@ -953,10 +1087,13 @@ struct Big {
   int ldq, ldf, ldp, slabs;
   int rank, nblk;   // this block in its cluster; blocks in the cluster
   int s0, s1;       // the live slabs [s0, s1) of 16 columns of this block
+  bool one_buf;     // KT >= 4: one bf16 copy of Q^T (written behind a
+                    // barrier) and the f32 Q^T in device memory, one copy
+                    // for the cluster
   const float* mg;  // device memory (n, n), f32
   const unsigned char* mlo;   // device scratch: lo(M) in 512-byte tiles
-  bf16* qlo0;       // two (kp, ldq) bf16 copies of Q^T, back to back
-  float* qf;        // (kp, ldf) f32 copy of Q^T; qlo0's bytes
+  bf16* qlo0;       // two (kp, ldq) bf16 copies of Q^T, back to back, or one
+  float* qf;        // (kp, ldf) f32 copy of Q^T; qlo0's bytes, or the scratch
   unsigned char* ring;        // (warps, kRing, kTile), or
                               // (kStages, kPanel, ldp) panels of f32 M
   float* gpart0;    // two (kp, kp) partial Grams; the ring's bytes
@@ -969,8 +1106,13 @@ struct Big {
   int tid, warp, lane;
   int cur;          // which bf16 copy holds lo(Q^T)
   int par;          // which partial Gram the next Gram writes
+  // False at compile time below five row tiles (the streamed plan), whose
+  // code then keeps pointers the compiler knows are to shared memory.
+  __device__ __forceinline__ bool single() const {
+    return KT >= 4 && one_buf;
+  }
   __device__ __forceinline__ bf16* qlo(int which) const {
-    return qlo0 + which * kp * ldq;
+    return qlo0 + (single() ? 0 : which) * kp * ldq;
   }
   __device__ __forceinline__ bool warp_live() const { return s0 + warp < s1; }
 };
@@ -1027,11 +1169,15 @@ __device__ __forceinline__ void big_gram_reduce(Big<KT>& x) {
 // The one place Q^T is rounded to bf16: registers -> the other buffer, of
 // this block only or (all) of every block of the cluster. Ends with a
 // block or a cluster barrier; x.cur then names the buffer just written.
+// With one buffer, a barrier first: every reader of it is done.
 template <int KT>
 __device__ __forceinline__ void big_store_lo(Big<KT>& x,
                                              const float (&q)[KT][2][4],
                                              bool all) {
   cg::cluster_group cl = cg::this_cluster();
+  if (x.single()) {
+    if (all) cl.sync(); else __syncthreads();
+  }
   bf16* mine = x.qlo(x.cur ^ 1);
   if (x.warp_live()) {
     const int g = x.lane >> 2, t = x.lane & 3;
@@ -1105,8 +1251,8 @@ __device__ __forceinline__ void big_power_lo(Big<KT>& x,
     for (int mt = 0; mt < KT; ++mt) {
       uint32_t a[4];
       ldsm_x4(a, a_s + (mt * 16 + lr) * x.ldq + s * 16 + lc);
-      mma_bf16(q[mt][0], a, b[0], b[1]);
-      mma_bf16(q[mt][1], a, b[2], b[3]);
+      mma_step<(KT >= 4)>(q[mt][0], a, b[0], b[1]);
+      mma_step<(KT >= 4)>(q[mt][1], a, b[2], b[3]);
     }
   }
 }
@@ -1122,21 +1268,21 @@ __device__ __forceinline__ void big_colunit_regs(Big<KT>& x,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (!live) break;
-      float s = 0.f;
+      SqSum<KT> s = 0;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
-        s = fmaf(q[mt][nt][2 * h], q[mt][nt][2 * h], s);
-        s = fmaf(q[mt][nt][2 * h + 1], q[mt][nt][2 * h + 1], s);
+        s = sq_add(s, q[mt][nt][2 * h]);
+        s = sq_add(s, q[mt][nt][2 * h + 1]);
       }
       s += __shfl_xor_sync(0xffffffffu, s, 1);
       s += __shfl_xor_sync(0xffffffffu, s, 2);
-      if (t == 0) x.redw[x.warp * x.kp + mt * 16 + h * 8 + g] = s;
+      if (t == 0) x.redw[x.warp * x.kp + mt * 16 + h * 8 + g] = (float)s;
     }
   __syncthreads();
-  float mine = 0.f;
+  SqSum<KT> mine = 0;
   if (x.tid < x.kp)
     for (int w = 0; w < x.s1 - x.s0; ++w) mine += x.redw[w * x.kp + x.tid];
-  big_norms(x, mine);
+  big_norms(x, (float)mine);
 #pragma unroll
   for (int mt = 0; mt < KT; ++mt)
 #pragma unroll
@@ -1171,7 +1317,7 @@ __device__ __forceinline__ void big_gram_lo(Big<KT>& x) {
       uint32_t a[4], b[2];
       ldsm_x4(a, q + (mt * 16 + lr) * x.ldq + s * 16 + lc);
       ldsm_x2(b, q + (nt * 8 + br) * x.ldq + s * 16 + bc);
-      mma_bf16(acc, a, b[0], b[1]);
+      mma_step<(KT >= 4)>(acc, a, b[0], b[1]);
     }
     const int row = mt * 16 + g, col = nt * 8 + 2 * t;
     *reinterpret_cast<float2*>(&part[row * x.kp + col]) =
@@ -1189,7 +1335,7 @@ __device__ void big_ns_lo(Big<KT>& x, float (&q)[KT][2][4], int steps) {
   big_store_lo(x, q, false);
   big_gram_lo(x);
   big_gram_reduce<false>(x);
-  gershgorin(x);
+  gershgorin<(KT >= 4)>(x);
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
 #pragma unroll
@@ -1209,17 +1355,33 @@ __device__ void big_ns_lo(Big<KT>& x, float (&q)[KT][2][4], int steps) {
       big_gram_reduce<true>(x);
     }
     if (x.warp_live()) {
-      float acc[KT][2][4];
-      mma_panel<KT>(acc, x.glo, x.ldg, x.qlo(x.cur), x.ldq, KT,
-                    (x.s0 + x.warp) * 16, x.lane);
+      if constexpr (KT >= 4) {
+        // Row tile by row tile: B is lo(Q^T) in shared memory, not q.
 #pragma unroll
-      for (int mt = 0; mt < KT; ++mt)
+        for (int mt = 0; mt < KT; ++mt) {
+          float acc[1][2][4];
+          mma_panel<KT>(acc, x.glo, x.ldg, x.qlo(x.cur), x.ldq, KT,
+                        (x.s0 + x.warp) * 16, x.lane, mt);
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+          for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            q[mt][nt][e] = __fsub_rn(__fmul_rn(1.5f, q[mt][nt][e]),
-                                     __fmul_rn(0.5f, acc[mt][nt][e]));
+            for (int e = 0; e < 4; ++e)
+              q[mt][nt][e] = __fsub_rn(__fmul_rn(1.5f, q[mt][nt][e]),
+                                       __fmul_rn(0.5f, acc[0][nt][e]));
+        }
+      } else {
+        float acc[KT][2][4];
+        mma_panel<KT>(acc, x.glo, x.ldg, x.qlo(x.cur), x.ldq, KT,
+                      (x.s0 + x.warp) * 16, x.lane);
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              q[mt][nt][e] = __fsub_rn(__fmul_rn(1.5f, q[mt][nt][e]),
+                                       __fmul_rn(0.5f, acc[mt][nt][e]));
+      }
     }
     big_store_lo(x, q, it == steps - 1);
   }
@@ -1289,8 +1451,9 @@ __device__ void big_power_f32(Big<KT>& x, float (&acc)[2 * KT][4]) {
 
 // The thread's tile into the copy of Q^T of every block of the cluster
 // (or, others_only, of every other block: the block's own copy already
-// holds it); ends with a cluster barrier. Every block must be done reading
-// the columns that are overwritten: a cluster barrier comes first.
+// holds it); with the copy in device memory, into that one copy (others
+// only: nothing). Ends with a cluster barrier. Every block must be done
+// reading the columns that are overwritten: a cluster barrier comes first.
 template <int KT>
 __device__ __forceinline__ void big_put_f32(Big<KT>& x,
                                             const float (&acc)[2 * KT][4],
@@ -1299,10 +1462,10 @@ __device__ __forceinline__ void big_put_f32(Big<KT>& x,
   constexpr int R = 2 * KT;
   const int tc = x.tid & 63, tr = x.tid >> 6;
   const int col = 16 * x.s0 + 4 * tc;
-  if (col < 16 * x.s1) {
-    for (int r = 0; r < x.nblk; ++r) {
+  if (col < 16 * x.s1 && !(x.single() && others_only)) {
+    for (int r = 0; r < (x.single() ? 1 : x.nblk); ++r) {
       if (others_only && r == x.rank) continue;
-      float* dst = cl.map_shared_rank(x.qf, r);
+      float* dst = x.single() ? x.qf : cl.map_shared_rank(x.qf, r);
 #pragma unroll
       for (int i = 0; i < R; ++i)
         *reinterpret_cast<float4*>(&dst[(tr + 8 * i) * x.ldf + col]) =
@@ -1460,7 +1623,7 @@ __device__ void big_ns_f32(Big<KT>& x, int steps) {
   __syncthreads();
   big_gram_f32(x);
   big_gram_reduce<false>(x);
-  gershgorin(x);
+  gershgorin<(KT >= 4)>(x);
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
 #pragma unroll
@@ -1535,11 +1698,13 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
   x.n = n; x.ne = n; x.ldq = p.ldq; x.ldf = p.ldf; x.ldp = p.ldp;
   x.slabs = p.slabs;
   x.rank = (int)cl.block_rank(); x.nblk = p.cluster;
+  x.one_buf = p.nbuf == 1;
   unsigned char* mlo = scratch + (size_t)graph * p.scratch;
   x.mlo = mlo;
   x.mg = m + (size_t)graph * n * n;
   x.qlo0 = reinterpret_cast<bf16*>(smem_raw);
-  x.qf = reinterpret_cast<float*>(smem_raw);
+  x.qf = x.single() ? reinterpret_cast<float*>(mlo + (size_t)n * n * 2)
+                     : reinterpret_cast<float*>(smem_raw);
   x.ring = smem_raw + p.off_ring;
   x.gpart0 = reinterpret_cast<float*>(smem_raw + p.off_ring);
   x.gram = reinterpret_cast<float*>(smem_raw + p.off_gram);
@@ -1622,10 +1787,11 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
     }
     // The rounds are done with the bf16 copies (every block passed the
     // barrier of the last store): the f32 Q^T takes their place, each
-    // warp's columns in every block's copy.
+    // warp's columns in every block's copy (or in the one copy in device
+    // memory).
     if (x.warp_live()) {
-      for (int r = 0; r < x.nblk; ++r) {
-        float* dst = cl.map_shared_rank(x.qf, r);
+      for (int r = 0; r < (x.single() ? 1 : x.nblk); ++r) {
+        float* dst = x.single() ? x.qf : cl.map_shared_rank(x.qf, r);
 #pragma unroll
         for (int mt = 0; mt < KT; ++mt)
 #pragma unroll
@@ -1641,12 +1807,15 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
     }
     cl.sync();
   } else {
-    // Every block fills its own copy with all live columns.
-    for (int idx = x.tid; idx < kp * x.ne; idx += kBigThreads) {
+    // Every block fills its own copy with all live columns (the blocks
+    // split the one copy in device memory).
+    const int first = x.single() ? x.rank * kBigThreads + x.tid : x.tid;
+    const int step = x.single() ? x.nblk * kBigThreads : kBigThreads;
+    for (int idx = first; idx < kp * x.ne; idx += step) {
       const int r = idx / x.ne, c = idx - r * x.ne;
       x.qf[r * x.ldf + c] = (r < k) ? qg[c * k + r] : 0.f;
     }
-    __syncthreads();
+    if (x.single()) cl.sync(); else __syncthreads();
     for (int r = 0; r < rounds; ++r) {
       for (int s = 0; s < orth_every; ++s) big_step_f32(x);
       big_ns_f32(x, ns_steps);
@@ -1670,7 +1839,7 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
 // n / 32, kt. A device beyond the table is asked at every launch. Threads
 // that race here ask the same question and store the same answer.
 constexpr int kFitsDevices = 16;
-std::atomic<int> g_cluster_fits[kFitsDevices][832 / 32 + 1][4];
+std::atomic<int> g_cluster_fits[kFitsDevices][832 / 32 + 1][kMaxKt + 1];
 
 template <int KT>
 int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
@@ -1714,65 +1883,67 @@ int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
   return (int)cudaGetLastError();
 }
 
-// ---- the wide plan: 48 < k <= 80, every N <= 832 -----------------------
+// ---- the general plan: 80 < k <= 832, every N <= 832 -------------------
 //
-// PE 64 iterates k = 64 columns on the train profile and 80 (64 + 16
-// guards) on the eval profile and the giant finish. At those widths the
-// two plans above do not fit: the shared plan's copies of Q^T pass a
-// block's 227 KB above N = 160 at kp = 80 (and by 272 B at N = 256, kp =
-// 64), and the streamed plan's two bf16 copies of Q^T alone take 268,800
-// B at N = 832. The wide plan keeps Q^T in device memory instead, where
-// the L1 and L2 caches serve it, and does every product on the CUDA cores
-// as f32 FMAs on operands rounded to bf16 where the reference rounds them
-// (a product of two bf16 values is exact in f32, so each sum is the plain
-// version's arithmetic in another order). It is the simple kernel, right
-// first; its time is in PERF.md.
+// Widths above 80 (PE 72 and more with the eval profile's 16 guards, PE 81
+// and more on the train profile) are reached by no configuration the
+// repository ships, but the reference computes them: it sends every bucket
+// with N*N*6 <= 4 MiB to its kernel whatever k. This plan takes them, the
+// simple kernel, right first: Q in a device scratch, where the L1 and L2
+// caches serve it, and every product an f32 FMA on the CUDA cores on
+// operands rounded to bf16 where the reference rounds them (a product of
+// two bf16 values is exact in f32, so each sum is the plain version's
+// arithmetic in another order). Its time is in PERF.md.
 //   * One block per graph up to N = 256 (256 threads); above, a cluster
-//     of two blocks of 512 threads (a batch of 64 graphs then fills the
-//     card's 132 SMs): the blocks split every product's items and every
-//     write of Q, each keeps its own copy of G, and a cluster barrier
-//     follows every write. Q is stored as (N, kp), row c holding column c
-//     of Q^T, four copies in a device scratch: f32 and its bf16 rounding
-//     (kept as f32), each double-buffered, so no step reads what it
-//     writes.
+//     of two blocks of 512 threads: the blocks split every product's items
+//     and every write of Q, each keeps its own copy of G, and a cluster
+//     barrier follows every write. Q is stored as (N, kp), row c holding
+//     column c of Q^T, four copies in a device scratch: f32 and its bf16
+//     rounding (kept as f32), each double-buffered, so no step reads what
+//     it writes.
+//   * G (kp x kp f32) in shared memory up to kp = 240 (230,400 B of the
+//     232,448 a block may use); above, each block's copy in the scratch.
 //   * A thread computes one (CW columns, 16-row tile) item of a product at
 //     a time: 16·CW accumulators, the tile's 16 values of one operand read
 //     as four float4 (the same address across most of a warp: a
-//     broadcast) for every CW values of the other. CW = 4 where the live
-//     extent leaves every other thread an item, else 1 (small graphs need
-//     the items more than the reuse). The power step streams M[j][c0..]
-//     (coalesced over the column groups) and rounds it to bf16 where the
-//     round does; the Newton-Schulz update reads lo(G) from shared memory
-//     and rows c0.. of lo(Q) from the scratch. Each output's sum runs over
-//     its depth in order, whatever CW.
-//   * The Gram is 4 x 4 tiles of its upper triangle (136 at kp = 64, 210
-//     at kp = 80), one a thread, mirrored, so G is symmetric bit for bit
-//     and lo(G) is formed in place.
+//     broadcast) for every CW values of the other. CW = 4 above N = 128,
+//     else 1 (small graphs need the items more than the reuse). The power
+//     step streams M[j][c0..] and rounds it to bf16 where the round does;
+//     the Newton-Schulz update reads lo(G) and rows c0.. of lo(Q). Each
+//     output's sum runs over its depth in order, whatever CW.
+//   * The Gram is 4 x 4 tiles of its upper triangle, one a thread,
+//     mirrored, so G is symmetric bit for bit and lo(G) is formed in place.
 //   * Work follows the data: the live extent of M and q0 is found first,
 //     and every loop runs over it only (skipped terms are exact zeros).
 
-constexpr int kWideMaxN = 832;
+constexpr int kGenMaxN = 832;
+constexpr int kGenMaxK = 832;
+constexpr int kGenSmemKp = 240;   // G in shared memory up to this kp
 
-struct WidePlan {
-  int n, k, kp, kt, threads, smem;
+struct GenPlan {
+  int n, k, kp, threads, smem;
   int cluster;         // blocks per graph
   int cw;              // columns an item (1 or 4)
-  long long scratch;   // bytes per graph: 4 (N, kp) f32 copies of Q
+  int g_smem;          // 1: G in shared memory; 0: each block's in the scratch
+  long long scratch;   // bytes per graph: 4 (N, kp) f32 copies of Q [+ G's]
 };
 
-// Shapes: n a multiple of 32 up to 832, 48 < k <= 80.
-inline bool pe_wide_plan(int n, int k, WidePlan* p) {
-  if (n < 32 || n > kWideMaxN || n % 32 != 0 || k <= 48 || k > 80)
+// Shapes: n a multiple of 32 up to 832, 80 < k <= 832.
+inline bool pe_general_plan(int n, int k, GenPlan* p) {
+  if (n < 32 || n > kGenMaxN || n % 32 != 0 || k <= 16 * kMaxKt ||
+      k > kGenMaxK)
     return false;
   p->n = n; p->k = k;
   p->kp = (k + 15) / 16 * 16;
-  p->kt = p->kp / 16;
   p->threads = n <= 256 ? 256 : 512;
   p->cluster = n <= 256 ? 1 : 2;
   p->cw = n <= 128 ? 1 : 4;
-  // G (kp x kp f32), the row norms, the Gershgorin scale and the extent.
-  p->smem = p->kp * p->kp * 4 + p->kp * 4 + 16;
-  p->scratch = 4LL * n * p->kp * 4;
+  p->g_smem = p->kp <= kGenSmemKp;
+  // G (where it is in shared memory), the row norms, the Gershgorin scale
+  // and the extent.
+  p->smem = (p->g_smem ? p->kp * p->kp * 4 : 0) + p->kp * 4 + 16;
+  p->scratch = 4LL * n * p->kp * 4 +
+               (p->g_smem ? 0 : (long long)p->cluster * p->kp * p->kp * 4);
   return true;
 }
 
@@ -1780,16 +1951,14 @@ __device__ __forceinline__ float bf_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <int KT>
-struct Wide {
-  static constexpr int kp = 16 * KT;
-  int n, ne, tid, nthreads, warp, lane, nwarps;
+struct Gen {
+  int n, ne, kp, tid, nthreads, warp, lane, nwarps;
   int rank, csize;                // this block's place in the graph's cluster
   const float* m;                 // this graph's M (n, n)
   float* qf[2];                   // f32 Q (n, kp), double-buffered
   float* ql[2];                   // lo(Q), the same
   int cur;
-  float* gram;                    // (kp, kp)
+  float* gram;                    // (kp, kp), this block's
   float* red;                     // kp
   float* scal;
   // This thread's first index and stride over work split by the cluster.
@@ -1800,16 +1969,15 @@ struct Wide {
 // Every write to the graph's Q (in device memory) is followed by this:
 // a block barrier, or with a cluster of blocks a cluster barrier, whose
 // release/acquire also orders the device-memory writes between blocks.
-template <int KT>
-__device__ __forceinline__ void wide_sync(const Wide<KT>& x) {
+__device__ __forceinline__ void gen_sync(const Gen& x) {
   if (x.csize > 1) cooperative_groups::this_cluster().sync();
   else __syncthreads();
 }
 
 // Writes item (columns c0..c0+CW-1, tile mt) of the next buffers.
-template <int CW, int KT>
-__device__ __forceinline__ void wide_store(Wide<KT>& x, int c0, int mt,
-                                           const float (&acc)[CW][16]) {
+template <int CW>
+__device__ __forceinline__ void gen_store(Gen& x, int c0, int mt,
+                                          const float (&acc)[CW][16]) {
 #pragma unroll
   for (int u = 0; u < CW; ++u) {
     const int at = (c0 + u) * x.kp + mt * 16;
@@ -1862,10 +2030,10 @@ __device__ __forceinline__ void load_m(const float* row, bool lo,
 
 // Q^T <- A(Q^T) M, A = lo or f32, M rounded to bf16 when lo. An item is
 // CW columns c0.. (CW = 4: one float4 of a row of M) by one 16-row tile.
-template <int CW, int KT>
-__device__ void wide_power(Wide<KT>& x, bool lo) {
+template <int CW>
+__device__ void gen_power(Gen& x, bool lo) {
   const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
-  const int groups = x.ne / CW, items = groups * KT;
+  const int groups = x.ne / CW, items = groups * (x.kp / 16);
   for (int it = x.first(); it < items; it += x.stride()) {
     const int mt = it / groups, c0 = CW * (it - mt * groups);
     float acc[CW][16] = {};
@@ -1874,40 +2042,37 @@ __device__ void wide_power(Wide<KT>& x, bool lo) {
       load_m<CW>(x.m + (size_t)j * x.n + c0, lo, mv);
       fma_tile<CW>(acc, a + j * x.kp + mt * 16, mv);
     }
-    wide_store<CW>(x, c0, mt, acc);
+    gen_store<CW>(x, c0, mt, acc);
   }
-  wide_sync(x);
+  gen_sync(x);
   x.cur ^= 1;
 }
 
 // Rows of Q^T scaled to unit norm (floor 1e-20), in place. Every block
 // of the cluster sums all of them; each scales its share.
-template <int KT>
-__device__ void wide_colunit(Wide<KT>& x) {
+__device__ void gen_colunit(Gen& x) {
   float* q = x.qf[x.cur];
   float* l = x.ql[x.cur];
   for (int r = x.warp; r < x.kp; r += x.nwarps) {
-    float s = 0.f;
-    for (int c = x.lane; c < x.ne; c += 32)
-      s = fmaf(q[c * x.kp + r], q[c * x.kp + r], s);
+    double s = 0.0;   // f64, rounded once (see SqSum)
+    for (int c = x.lane; c < x.ne; c += 32) s = sq_add(s, q[c * x.kp + r]);
     for (int off = 16; off > 0; off >>= 1)
       s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn(s), 1e-20f);
+    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn((float)s), 1e-20f);
   }
-  wide_sync(x);   // every block has read Q before any block rewrites it
+  gen_sync(x);   // every block has read Q before any block rewrites it
   for (int idx = x.first(); idx < x.ne * x.kp; idx += x.stride()) {
     const float v = __fdiv_rn(q[idx], x.red[idx % x.kp]);
     q[idx] = v;
     l[idx] = bf_round(v);
   }
-  wide_sync(x);
+  gen_sync(x);
 }
 
-// G = A(Q^T) A(Q^T)^T into shared memory (every block of the cluster),
+// G = A(Q^T) A(Q^T)^T into this block's G (every block of the cluster),
 // 4 x 4 tiles of the upper triangle mirrored into the lower.
-template <int KT>
-__device__ void wide_gram(Wide<KT>& x, bool lo) {
-  constexpr int kq = 4 * KT, tiles = kq * (kq + 1) / 2;
+__device__ void gen_gram(Gen& x, bool lo) {
+  const int kq = x.kp / 4, tiles = kq * (kq + 1) / 2;
   const float* q = lo ? x.ql[x.cur] : x.qf[x.cur];
   for (int tile = x.tid; tile < tiles; tile += x.nthreads) {
     int ta = 0, tb = tile;
@@ -1935,16 +2100,16 @@ __device__ void wide_gram(Wide<KT>& x, bool lo) {
         x.gram[b * x.kp + a] = acc[i][j];
       }
   }
-  wide_sync(x);   // and every block has read Q before it is rewritten
+  gen_sync(x);   // and every block has read Q before it is rewritten
 }
 
-// Newton-Schulz update Q^T <- 1.5 Q^T - 0.5 G A(Q^T) (G in shared memory,
-// already A-rounded), the power step's items.
-template <int CW, int KT>
-__device__ void wide_update(Wide<KT>& x, bool lo) {
+// Newton-Schulz update Q^T <- 1.5 Q^T - 0.5 G A(Q^T) (G already
+// A-rounded), the power step's items.
+template <int CW>
+__device__ void gen_update(Gen& x, bool lo) {
   const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
   const float* f = x.qf[x.cur];
-  const int groups = x.ne / CW, items = groups * KT;
+  const int groups = x.ne / CW, items = groups * (x.kp / 16);
   for (int it = x.first(); it < items; it += x.stride()) {
     const int mt = it / groups, c0 = CW * (it - mt * groups);
     float acc[CW][16] = {};
@@ -1972,19 +2137,19 @@ __device__ void wide_update(Wide<KT>& x, bool lo) {
         acc[u][i] = __fsub_rn(__fmul_rn(1.5f, q[i]),
                               __fmul_rn(0.5f, acc[u][i]));
     }
-    wide_store<CW>(x, c0, mt, acc);
+    gen_store<CW>(x, c0, mt, acc);
   }
-  wide_sync(x);
+  gen_sync(x);
   x.cur ^= 1;
 }
 
 // Newton-Schulz: colunit, Gershgorin scale, `steps` updates
 // Q^T <- 1.5 Q^T - 0.5 A(G) A(Q^T), A = lo or f32.
-template <int CW, int KT>
-__device__ void wide_ns(Wide<KT>& x, int steps, bool lo) {
-  wide_colunit(x);
-  wide_gram(x, lo);
-  gershgorin(x);
+template <int CW>
+__device__ void gen_ns(Gen& x, int steps, bool lo) {
+  gen_colunit(x);
+  gen_gram(x, lo);
+  gershgorin<true>(x);
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
   float* q = x.qf[x.cur];
@@ -1998,44 +2163,51 @@ __device__ void wide_ns(Wide<KT>& x, int steps, bool lo) {
     const float g = __fmul_rn(x.gram[idx], sc2);
     x.gram[idx] = lo ? bf_round(g) : g;
   }
-  wide_sync(x);
+  gen_sync(x);
   for (int s = 0; s < steps; ++s) {
     if (s) {
-      wide_gram(x, lo);
+      gen_gram(x, lo);
       if (lo) {
         for (int idx = x.tid; idx < x.kp * x.kp; idx += x.nthreads)
           x.gram[idx] = bf_round(x.gram[idx]);
         __syncthreads();
       }
     }
-    wide_update<CW>(x, lo);
+    gen_update<CW>(x, lo);
   }
 }
 
-template <int KT, int MAXT, int CW>
+template <int MAXT, int CW>
 __global__ void __launch_bounds__(MAXT)
-pe_wide_kernel(const float* __restrict__ m,    // (B, n, n)
-               const float* __restrict__ q0,   // (B, n, k)
-               float* __restrict__ out,        // (B, n, k)
-               float* __restrict__ scratch,    // (B, 4, n, kp)
-               int n, int k, int csize, int rounds, int orth_every,
-               int ns_steps, int polish, int final_ns, int lo) {
+pe_general_kernel(const float* __restrict__ m,    // (B, n, n)
+                  const float* __restrict__ q0,   // (B, n, k)
+                  float* __restrict__ out,        // (B, n, k)
+                  float* __restrict__ scratch,    // (B, 4 n kp [+ csize kp kp])
+                  int n, int k, int kp, int csize, int g_smem, int rounds,
+                  int orth_every, int ns_steps, int polish, int final_ns,
+                  int lo) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Wide<KT> x;
-  constexpr int kp = 16 * KT;
+  Gen x;
   const int graph = blockIdx.x / csize;
-  x.n = n;
+  x.n = n; x.kp = kp;
   x.tid = threadIdx.x; x.nthreads = blockDim.x;
   x.warp = threadIdx.x >> 5; x.lane = threadIdx.x & 31;
   x.nwarps = blockDim.x >> 5;
   x.rank = blockIdx.x - graph * csize; x.csize = csize;
   x.m = m + (size_t)graph * n * n;
-  float* sb = scratch + (size_t)graph * 4 * n * kp;
-  x.qf[0] = sb; x.qf[1] = sb + n * kp;
-  x.ql[0] = sb + 2 * n * kp; x.ql[1] = sb + 3 * n * kp;
+  const size_t nkp = (size_t)n * kp;
+  const size_t per_graph = 4 * nkp + (g_smem ? 0 : (size_t)csize * kp * kp);
+  float* sb = scratch + (size_t)graph * per_graph;
+  x.qf[0] = sb; x.qf[1] = sb + nkp;
+  x.ql[0] = sb + 2 * nkp; x.ql[1] = sb + 3 * nkp;
   x.cur = 0;
-  x.gram = reinterpret_cast<float*>(smem_raw);
-  x.red = x.gram + kp * kp;
+  if (g_smem) {
+    x.gram = reinterpret_cast<float*>(smem_raw);
+    x.red = x.gram + kp * kp;
+  } else {
+    x.gram = sb + 4 * nkp + (size_t)x.rank * kp * kp;
+    x.red = reinterpret_cast<float*>(smem_raw);
+  }
   x.scal = x.red + kp;
   int* extent = reinterpret_cast<int*>(x.scal + 1);
   const float* qb = q0 + (size_t)graph * n * k;
@@ -2065,17 +2237,17 @@ pe_wide_kernel(const float* __restrict__ m,    // (B, n, n)
     x.qf[0][idx] = v;
     x.ql[0][idx] = bf_round(v);
   }
-  wide_sync(x);
+  gen_sync(x);
 
   for (int r = 0; r < rounds; ++r) {
-    for (int s = 0; s < orth_every; ++s) wide_power<CW>(x, lo != 0);
-    wide_ns<CW>(x, ns_steps, lo != 0);
+    for (int s = 0; s < orth_every; ++s) gen_power<CW>(x, lo != 0);
+    gen_ns<CW>(x, ns_steps, lo != 0);
   }
   for (int s = 0; s < polish; ++s) {
-    wide_power<CW>(x, false);
-    wide_colunit(x);
+    gen_power<CW>(x, false);
+    gen_colunit(x);
   }
-  if (final_ns) wide_ns<CW>(x, final_ns, false);
+  if (final_ns) gen_ns<CW>(x, final_ns, false);
 
   const float* q = x.qf[x.cur];
   float* ob = out + (size_t)graph * n * k;
@@ -2085,11 +2257,17 @@ pe_wide_kernel(const float* __restrict__ m,    // (B, n, n)
   }
 }
 
-template <int KT, int MAXT, int CW>
-int launch_wide_as(const WidePlan& p, const void* m, const void* q0,
-                   void* out, void* scratch, int batch, int rounds,
-                   int orth_every, int ns_steps, int polish, int final_ns,
-                   int lo, cudaStream_t stream) {
+template <int MAXT, int CW>
+int launch_general_as(const GenPlan& p, const void* m, const void* q0,
+                      void* out, void* scratch, int batch, int rounds,
+                      int orth_every, int ns_steps, int polish, int final_ns,
+                      int lo, cudaStream_t stream) {
+  auto kern = pe_general_kernel<MAXT, CW>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = p.cluster;
@@ -2103,44 +2281,46 @@ int launch_wide_as(const WidePlan& p, const void* m, const void* q0,
   cfg.attrs = attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
   const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, pe_wide_kernel<KT, MAXT, CW>, (const float*)m, (const float*)q0,
-      (float*)out, (float*)scratch, p.n, p.k, p.cluster, rounds, orth_every,
-      ns_steps, polish, final_ns, lo);
+      &cfg, kern, (const float*)m, (const float*)q0, (float*)out,
+      (float*)scratch, p.n, p.k, p.kp, p.cluster, p.g_smem, rounds,
+      orth_every, ns_steps, polish, final_ns, lo);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-// N <= 128: one column an item (small graphs need the items, and the
-// registers stay low enough for three blocks an SM); above, four columns
-// an item (each value of M and of the tile read once for four).
-template <int KT>
-int launch_wide(const WidePlan& p, const void* m, const void* q0, void* out,
-                void* scratch, int batch, int rounds, int orth_every,
-                int ns_steps, int polish, int final_ns, int lo,
-                cudaStream_t stream) {
+// N <= 128: one column an item (small graphs need the items); above, four
+// columns an item (each value of M and of the tile read once for four).
+int launch_general(const GenPlan& p, const void* m, const void* q0, void* out,
+                   void* scratch, int batch, int rounds, int orth_every,
+                   int ns_steps, int polish, int final_ns, int lo,
+                   cudaStream_t stream) {
   if (p.cw == 1)
-    return launch_wide_as<KT, 256, 1>(p, m, q0, out, scratch, batch, rounds,
-                                      orth_every, ns_steps, polish, final_ns,
-                                      lo, stream);
+    return launch_general_as<256, 1>(p, m, q0, out, scratch, batch, rounds,
+                                     orth_every, ns_steps, polish, final_ns,
+                                     lo, stream);
   if (p.threads <= 256)
-    return launch_wide_as<KT, 256, 4>(p, m, q0, out, scratch, batch, rounds,
-                                      orth_every, ns_steps, polish, final_ns,
-                                      lo, stream);
-  return launch_wide_as<KT, 512, 4>(p, m, q0, out, scratch, batch, rounds,
-                                    orth_every, ns_steps, polish, final_ns,
-                                    lo, stream);
+    return launch_general_as<256, 4>(p, m, q0, out, scratch, batch, rounds,
+                                     orth_every, ns_steps, polish, final_ns,
+                                     lo, stream);
+  return launch_general_as<512, 4>(p, m, q0, out, scratch, batch, rounds,
+                                   orth_every, ns_steps, polish, final_ns, lo,
+                                   stream);
 }
 
 }  // namespace
 
 // plan[0..8] = threads, shared-memory bytes, kp, warps, depth split of the
-// tensor-core Gram, depth split of the f32 Gram (1 and 1 under the streamed
-// plan, which splits neither), blocks per graph (the cluster), most slabs
-// of 16 columns a block takes, bytes of device scratch per graph. Returns
-// 0, or non-zero for a shape the kernel does not take.
+// tensor-core Gram, depth split of the f32 Gram (1 and 1 under the cluster
+// layout and the general plan, which split neither), blocks per graph (the
+// cluster), most slabs of 16 columns a block takes, bytes of device
+// scratch per graph. Returns 0, or non-zero for a shape the kernel does
+// not take. The plans by width: k <= 48 "shared" (N <= 256) and "streamed"
+// (the cluster layout above); 48 < k <= 80 "wide", the same two layouts
+// (the shared one where it fits a block); 80 < k <= 832 "general".
 extern "C" int gcc_pe_plan(int n, int k, int* plan) {
   Plan p;
   BigPlan g;
+  GenPlan w;
   if (pe_plan(n, k, &p)) {
     plan[0] = p.threads; plan[1] = p.smem; plan[2] = p.kp; plan[3] = p.warps;
     plan[4] = p.ks; plan[5] = p.chunks;
@@ -2153,8 +2333,7 @@ extern "C" int gcc_pe_plan(int n, int k, int* plan) {
     plan[6] = g.cluster; plan[7] = g.spb; plan[8] = g.scratch;
     return 0;
   }
-  WidePlan w;
-  if (pe_wide_plan(n, k, &w)) {
+  if (pe_general_plan(n, k, &w)) {
     plan[0] = w.threads; plan[1] = w.smem; plan[2] = w.kp;
     plan[3] = w.threads / 32; plan[4] = 1; plan[5] = 1;
     plan[6] = w.cluster; plan[7] = n / 16; plan[8] = (int)w.scratch;
@@ -2163,9 +2342,10 @@ extern "C" int gcc_pe_plan(int n, int k, int* plan) {
   return 1;
 }
 
-// scratch: (batch, plan[8]) bytes for n > 256 (the streamed plan: the
-// bf16 copy of M per graph) and for k > 48 (the wide plan: four f32
-// copies of Q), unused and may be null else.
+// scratch: (batch, plan[8]) bytes for the cluster layout (the bf16 copy of
+// M per graph, and with one bf16 copy of Q^T a block the f32 Q^T) and for
+// the general plan (four f32 copies of Q, and G where it passes shared
+// memory); unused and may be null else.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                              void* scratch, int batch, int n, int k,
                              int iters, int orth_every, int ns_steps,
@@ -2177,6 +2357,7 @@ extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
   cudaStream_t s = (cudaStream_t)stream;
   Plan p;
   BigPlan g;
+  GenPlan w;
   if (pe_plan(n, k, &p)) {
     switch (p.kt) {
       case 1:
@@ -2185,18 +2366,20 @@ extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
       case 2:
         return launch<2>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
                          polish, final_ns, lo, s);
-      default:
+      case 3:
         return launch<3>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
+                         polish, final_ns, lo, s);
+      case 4:
+        return launch<4>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
+                         polish, final_ns, lo, s);
+      default:
+        return launch<5>(p, m, q0, out, batch, rounds, orth_every, ns_steps,
                          polish, final_ns, lo, s);
     }
   }
-  WidePlan w;
-  if (pe_wide_plan(n, k, &w)) {
+  if (pe_general_plan(n, k, &w)) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    if (w.kt == 4)
-      return launch_wide<4>(w, m, q0, out, scratch, batch, rounds,
-                            orth_every, ns_steps, polish, final_ns, lo, s);
-    return launch_wide<5>(w, m, q0, out, scratch, batch, rounds, orth_every,
+    return launch_general(w, m, q0, out, scratch, batch, rounds, orth_every,
                           ns_steps, polish, final_ns, lo, s);
   }
   if (!pe_big_plan(n, k, &g) || scratch == nullptr)
@@ -2208,8 +2391,14 @@ extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
     case 2:
       return launch_big<2>(g, m, q0, out, scratch, batch, rounds, orth_every,
                            ns_steps, polish, final_ns, lo, s);
-    default:
+    case 3:
       return launch_big<3>(g, m, q0, out, scratch, batch, rounds, orth_every,
+                           ns_steps, polish, final_ns, lo, s);
+    case 4:
+      return launch_big<4>(g, m, q0, out, scratch, batch, rounds, orth_every,
+                           ns_steps, polish, final_ns, lo, s);
+    default:
+      return launch_big<5>(g, m, q0, out, scratch, batch, rounds, orth_every,
                            ns_steps, polish, final_ns, lo, s);
   }
 }

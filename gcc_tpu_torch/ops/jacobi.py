@@ -21,9 +21,11 @@ thread per 2×2 block of A and one barrier a round; every other even n
 from 4 to 118 runs one block of 256 threads per matrix over shared
 memory with two barriers a round (dynamic shared memory above 48 KB, so
 n = 64 and 80, the widths of PE 64 on the train and eval profiles, take
-it too; n = 120 passes a block's 227 KB and raises). All round every
-operation as the plain
-version does, in its order, so all agree with it bit for bit.
+it too); every even n from 120 to 832, where A and Vᵀ pass a block's
+227 KB, runs the same block kernel with 1024 threads and A and Vᵀ in a
+per-matrix device scratch (16 n² bytes) that the wrapper allocates. All
+round every operation as the plain version does, in its order, so all
+agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -151,7 +153,7 @@ def jacobi_eigh_plain(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
     return sort_eig(w, v, descending)
 
 
-_JACOBI_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_JACOBI_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                 + [ctypes.c_float, ctypes.c_void_p])
 _tables: dict = {}
 
@@ -182,35 +184,43 @@ def _device_tables(n: int, device: torch.device) -> torch.Tensor:
 _WARP_N = 32            # the n the warp-per-matrix kernel takes
 _WARPS_PER_BLOCK = 4
 _BLOCK_THREADS = 256
+_DEVICE_THREADS = 1024  # the device-memory variant
 _PAIR_N = 48            # the n the thread-per-2x2-block kernel takes
 _MAX_SMEM = 232_448     # shared memory a Hopper block may use
-MAX_N = 118             # the widest even n whose block fits _MAX_SMEM
+MAX_N = 832             # the widest n, the widest block of Kernel 2
 
 
 def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
     """Launch plan of Kernel 3 for (batch, n, n), as ``csrc/jacobi.cu``
     launches it: which kernel, blocks, threads per block, bytes of shared
-    memory per block. Raises ``ValueError`` on an n the kernels do not
-    take."""
+    memory per block and of device scratch per matrix. Raises
+    ``ValueError`` on an n the kernels do not take."""
     if n % 2 or not 4 <= n <= MAX_N:
         raise ValueError(
-            f"jacobi kernel takes even 4 <= n <= {MAX_N}, got n={n}"
-            + (f" (its block would need {_block_smem(n)} B of shared "
-               f"memory, limit {_MAX_SMEM})" if n > MAX_N else ""))
+            f"jacobi kernel takes even 4 <= n <= {MAX_N}, got n={n}")
     if n == _WARP_N:
         # lay[n] + per warp: slab n(n+1), eigenvalues n, ranks n
         smem = 4 * (n + _WARPS_PER_BLOCK * (n * (n + 1) + 2 * n))
         return dict(variant="warp-per-matrix, registers",
                     blocks=-(-batch // _WARPS_PER_BLOCK),
-                    threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem)
+                    threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem,
+                    scratch_bytes=0)
     if n == _PAIR_N:
         # A and V^T double-buffered with rows padded to n + 8, the
         # eigenvalues and three index tables; static shared memory.
         smem = 4 * (4 * n * (n + 8) + n) + 3 * 4 * n
         return dict(variant="thread-per-2x2-block, one barrier a round",
-                    blocks=batch, threads=(n // 2) ** 2, smem_bytes=smem)
+                    blocks=batch, threads=(n // 2) ** 2, smem_bytes=smem,
+                    scratch_bytes=0)
+    if _block_smem(n) > _MAX_SMEM:
+        # c/s and the eigenvalues, four index tables; A and V^T,
+        # double-buffered, in the scratch.
+        return dict(variant="block-per-matrix, device memory", blocks=batch,
+                    threads=_DEVICE_THREADS, smem_bytes=4 * 2 * n + 4 * 4 * n,
+                    scratch_bytes=4 * 4 * n * n)
     return dict(variant="block-per-matrix, shared memory", blocks=batch,
-                threads=_BLOCK_THREADS, smem_bytes=_block_smem(n))
+                threads=_BLOCK_THREADS, smem_bytes=_block_smem(n),
+                scratch_bytes=0)
 
 
 def _block_smem(n: int) -> int:
@@ -225,32 +235,35 @@ def _check_input(a: torch.Tensor) -> None:
         raise TypeError(f"jacobi_eigh takes float32, got {a.dtype}")
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
         raise ValueError(f"jacobi_eigh takes (B, n, n), got {tuple(a.shape)}")
-    jacobi_launch_plan(a.shape[1], a.shape[0])
+    return jacobi_launch_plan(a.shape[1], a.shape[0])
 
 
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
                 descending: bool = False):
     """Kernel 3 wrapper: batched symmetric eigendecomposition, sorted.
-    a: (B, n, n) float32, n even ≤ 118 (32 on the train path, 48 for the
-    eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors launch ``csrc/jacobi.cu``
-    (one launch counted: the warp-per-matrix kernel at n = 32, the
-    thread-per-2x2-block kernel at n = 48, the block-per-matrix kernel at
-    any other n); CPU tensors run
-    :func:`jacobi_eigh_plain`."""
+    a: (B, n, n) float32, n even ≤ 832 (32 on the train path, 48 for the
+    eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors
+    launch ``csrc/jacobi.cu`` (one launch counted: the warp-per-matrix
+    kernel at n = 32, the thread-per-2x2-block kernel at n = 48, the
+    block-per-matrix kernel at any other n, over device memory above
+    n = 118); CPU tensors run :func:`jacobi_eigh_plain`."""
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps, eps, descending)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    _check_input(a)
+    plan = _check_input(a)
     b, n, _ = a.shape
     a = a.contiguous()
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     v = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
+    scratch = torch.empty((b, plan["scratch_bytes"]), dtype=torch.uint8,
+                          device=a.device)
     tables = _device_tables(n, a.device)
     lib = _jacobi_lib()
     with torch.cuda.device(a.device):
         err = lib.gcc_jacobi_launch(
             a.data_ptr(), tables.data_ptr(), w.data_ptr(), v.data_ptr(),
+            scratch.data_ptr() if scratch.numel() else None,
             b, n, sweeps, 1 if descending else 0, eps,
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "jacobi")

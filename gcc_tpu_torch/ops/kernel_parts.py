@@ -3,7 +3,7 @@
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python -m gcc_tpu_torch.ops.kernel_parts [--graphs 4096]
-        [--cases all|train|eval|jacobi]
+        [--cases all|train|eval|pe64|jacobi]
 
 Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
 under schedules that switch its parts off — the bf16 rounds alone, the
@@ -12,8 +12,11 @@ alone — at the training path's shapes and, on fewer graphs, at the
 shapes of embedding generation (k = 48; N = 512 and 832 take the
 kernel's streamed plan, a cluster of blocks per graph whose size is
 printed beside each case; a batch of 64 at N = 512 with 32 and with 384
-live nodes stands for the node path's and the graph path's buckets), and
-``jacobi_eigh`` per sweep count, on random symmetric operators (the Jacobi launches are queued behind a few ms of
+live nodes stands for the node path's and the graph path's buckets),
+at the four shapes of PE 64 (``--cases pe64``: k = 64 on 4096 graphs at
+N = 128 and 256, k = 80 on 128 graphs at N = 256 and 64 at N = 512 —
+the wide plan — with the mean live nodes of chip_smoke.py's batches
+there: 56, 166, 174 and 381), and ``jacobi_eigh`` per sweep count, on random symmetric operators (the Jacobi launches are queued behind a few ms of
 other work, so the card's time is read and not the host's rate of
 launching). Kernel 2 skips the zero padding of the
 node axis, so its time depends on how many nodes are live: the operators
@@ -81,7 +84,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graphs", type=int, default=4096)
     ap.add_argument("--cases", default="all",
-                    choices=("all", "train", "eval", "jacobi"))
+                    choices=("all", "train", "eval", "pe64", "jacobi"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_parts: needs an NVIDIA card")
@@ -95,8 +98,10 @@ def main() -> None:
              (256, 32, 256, args.graphs), (256, 48, 256, args.graphs))
     evals = ((512, 48, 512, 128), (512, 48, 384, 128), (512, 48, 384, 64),
              (512, 48, 32, 64), (832, 48, 832, 64))
-    pe_cases = {"all": train + evals, "train": train, "eval": evals,
-                "jacobi": ()}[args.cases]
+    pe64 = ((128, 64, 56, args.graphs), (256, 64, 166, args.graphs),
+            (256, 80, 174, 128), (512, 80, 381, 64))
+    pe_cases = {"all": train + evals + pe64, "train": train, "eval": evals,
+                "pe64": pe64, "jacobi": ()}[args.cases]
     for n, k, live, g in pe_cases:
         a = torch.rand(g, n, n, device=dev, generator=gen) / n
         m = a + a.transpose(1, 2) + torch.eye(n, device=dev)
@@ -108,9 +113,10 @@ def main() -> None:
         for name, kw in SCHEDULES:
             kw = dict(dict(iters=16), **kw)
             ms = timed_ms(lambda: pe_subspace_iterate(m, q0, **kw))
-            print(f"pe ({g}, {n}, {n}) k={k} live={live} cluster="
-                  f"{pe_launch_plan(n, k)['cluster']} {name}: {ms:.4f} ms",
-                  flush=True)
+            plan = pe_launch_plan(n, k)
+            print(f"pe ({g}, {n}, {n}) k={k} live={live} plan={plan['plan']}"
+                  f" layout={plan['layout']} cluster={plan['cluster']} "
+                  f"{name}: {ms:.4f} ms", flush=True)
         del a, m, q0
     jacobi_cases = ((32, args.graphs), (48, args.graphs), (48, 128), (48, 64))
     for n, g in jacobi_cases if args.cases in ("all", "jacobi") else ():

@@ -18,27 +18,35 @@ and G·Qᵀ) on the tensor cores and the f32 work on the CUDA cores;
 reference reads it, out[r, c] = Σ_j Qᵀ[r, j]·M[j, c]: ``m_shift`` is
 symmetric as a matrix but not bit for bit (it is formed as
 ``(a·inv_row)·inv_col``), so neither version may read M[c, j] in place of
-M[j, c]. N is padded to a multiple of 32, k ≤ 80 is padded to a
-multiple of 16 inside the kernel. Three launch plans serve the shapes:
+M[j, c]. N is padded to a multiple of 32 (at most 832, the largest
+multiple of 32 with N·N·6 ≤ 4 MiB), k to a multiple of 16 inside the
+kernel. The plans by width:
 
-* "shared" for N ≤ 256: one block of 2N threads per graph, M's bf16 copy
-  in shared memory;
-* "streamed" for 256 < N ≤ 832, the largest multiple of 32 with
-  N·N·6 ≤ 4 MiB: a thread block cluster per graph (2 blocks up to N =
-  512, 4 above; 512 threads a block) whose blocks split the live columns
-  of Qᵀ in slabs of 16, one warp a slab. The kernel makes a bf16 copy of
-  M once, in 16×16 tiles, in a device scratch that the wrapper allocates,
-  and every warp streams its own tiles of it through a private
-  ``cp.async`` ring for each power step; Qᵀ stays on the chip, in
-  registers and in a copy in every block's shared memory that the blocks
-  update through distributed shared memory;
-* "wide" for 48 < k ≤ 80 (PE 64: k = 64 on the train profile, 80 with
-  the eval profile's 16 guards) at every N ≤ 832, where neither plan
-  above fits a block: one block of 256 threads per graph up to N = 256,
-  a cluster of two blocks of 512 above; Q in a device scratch (four f32
-  copies: Q and its bf16 rounding, each double-buffered), every product
-  an f32 FMA on operands rounded to bf16 where the plain version rounds
-  them, a thread taking one column (N ≤ 128) or four of a 16-row tile.
+* k ≤ 48: "shared" for N ≤ 256, one block of 2N threads per graph, M's
+  bf16 copy in shared memory; "streamed" above, a thread block cluster
+  per graph (2 blocks up to N = 512, 4 above; 512 threads a block) whose
+  blocks split the live columns of Qᵀ in slabs of 16, one warp a slab.
+  The kernel makes a bf16 copy of M once, in 16×16 tiles, in a device
+  scratch that the wrapper allocates, and every warp streams its own
+  tiles of it through a private ``cp.async`` ring for each power step;
+  Qᵀ stays on the chip, in registers and in a copy in every block's
+  shared memory that the blocks update through distributed shared
+  memory;
+* 48 < k ≤ 80 (PE 64: k = 64 on the train profile, 80 with the eval
+  profile's 16 guards): "wide", the same two layouts at five row tiles —
+  the shared layout where its bytes fit a block (N ≤ 224 at kp = 64,
+  N ≤ 160 at kp = 80), the cluster layout above (one block per graph up
+  to N = 256, so a batch of 4096 graphs takes one SM a graph); where the
+  cluster's two
+  bf16 copies of Qᵀ do not fit beside the rest (kp = 80 above N = 384,
+  kp = 64 above N = 512) a block keeps one, written behind a barrier,
+  and the f32 Qᵀ of the polish and the finish moves to the scratch;
+* 80 < k ≤ 832: "general", reached by no configuration the repository
+  ships: one block of 256 threads per graph up to N = 256, a cluster of
+  two blocks of 512 above; Q in a device scratch (four f32 copies: Q
+  and its bf16 rounding, each double-buffered), G in shared memory up to
+  kp = 240 and in the scratch above, every product an f32 FMA on
+  operands rounded to bf16 where the plain version rounds them.
 
 Larger N or k raises.
 """
@@ -58,8 +66,12 @@ _MAX_SMEM = 232_448
 # N·N·6 <= 4 MiB, the bound under which the reference sends a bucket to
 # its fused kernel (positional.py:257-274).
 MAX_NODES = 832
-# Widest block the kernel takes: PE 64 plus the eval profile's 16 guards.
-MAX_WIDTH = 80
+# Widest block the kernel takes, and the widest its tensor-core plans
+# take (five row tiles: PE 64 plus the eval profile's 16 guards).
+MAX_WIDTH = 832
+_TC_MAX_WIDTH = 80
+# The general plan keeps G in shared memory up to this padded width.
+_GEN_SMEM_KP = 240
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -122,80 +134,85 @@ def _align16(x: int) -> int:
     return -(-x // 16) * 16
 
 
-def _streamed_plan(n_pad: int, kp: int) -> dict:
-    """The streamed plan (256 < N <= 832), as ``pe_big_plan`` in
-    ``csrc/pe.cu`` computes it: a cluster of blocks per graph that split
-    the columns of Qᵀ in slabs of 16."""
-    cluster = 2 if n_pad <= 512 else _CLUSTER_MAX
+def _cluster_smem(n_pad: int, kp: int, spb: int, nbuf: int) -> int:
+    """Shared memory of the cluster layout, as ``big_smem`` in
+    ``csrc/pe.cu`` computes it."""
+    kk = kp * kp
+    # nbuf bf16 copies of Q^T (rows padded by 8); with two, the f32 steps
+    # keep one f32 copy of Q^T in the same bytes.
+    smem = _align16(nbuf * kp * (n_pad + 8) * 2)
+    # The warps' rings of M tiles, the f32 power steps' three panels of 16
+    # rows of f32 M, or the two partial Grams; then G, its bf16 copy, the
+    # sums of squares per warp and per block, the row norms, two scalars
+    # and the blocks' extents.
+    smem += max(_RING_BYTES, 3 * 16 * 16 * spb * 4, 2 * kk * 4)
+    smem += kk * 4 + _align16(kp * (kp + 8) * 2)
+    smem += 16 * kp * 4 + _CLUSTER_MAX * kp * 4 + kp * 4 + 16 + _CLUSTER_MAX * 4
+    return smem
+
+
+def _cluster_plan(n_pad: int, kp: int, name: str) -> dict:
+    """The cluster layout (the streamed plan, k <= 48 and N > 256; the
+    wide plan where its shared layout does not fit), as ``pe_big_plan``
+    in ``csrc/pe.cu`` computes it: a cluster of blocks per graph that
+    split the columns of Qᵀ in slabs of 16."""
+    cluster = 1 if n_pad <= 256 else 2 if n_pad <= 512 else _CLUSTER_MAX
     slabs = n_pad // 16
     spb = -(-slabs // cluster)
     # Static split of all slabs; the kernel deals out the live ones the
     # same way (ceil(live / cluster) a block, the last blocks fewer).
     block_slabs = [max(0, min(spb, slabs - r * spb)) for r in range(cluster)]
-    kk = kp * kp
-    # Two bf16 copies of Q^T (rows padded by 8); the f32 steps keep one
-    # f32 copy of Q^T in the same bytes.
-    smem = _align16(2 * kp * (n_pad + 8) * 2)
-    # The warps' rings of M tiles, or the f32 power steps' three panels of
-    # 16 rows of f32 M (the partial Grams reuse them); then G, its bf16
-    # copy, the sums of squares per warp and per block, the row norms, two
-    # scalars and the blocks' extents.
-    smem += max(_RING_BYTES, 3 * 16 * 16 * spb * 4)
-    smem += kk * 4 + _align16(kp * (kp + 8) * 2)
-    smem += 16 * kp * 4 + _CLUSTER_MAX * kp * 4 + kp * 4 + 16 + _CLUSTER_MAX * 4
+    nbuf = 2
+    smem = _cluster_smem(n_pad, kp, spb, nbuf)
+    if smem > _MAX_SMEM:
+        nbuf = 1
+        smem = _cluster_smem(n_pad, kp, spb, nbuf)
     if smem > _MAX_SMEM or spb > 16:
         raise ValueError(
             f"pe kernel: N={n_pad}, kp={kp} needs {smem} B of shared memory "
             f"and {spb} warps per block (limits {_MAX_SMEM}, 16)")
+    qf = "f32 Q^T in device memory" if nbuf == 1 else "f32 Q^T on the chip"
     return dict(n_pad=n_pad, kp=kp, threads=512, warps=16,
                 smem_bytes=smem, gram_split=1, gram_f32_split=1,
-                plan="streamed", cluster=cluster, slabs_per_block=spb,
-                block_slabs=block_slabs,
-                scratch_bytes=n_pad * n_pad * 2,
+                plan=name, layout="cluster", cluster=cluster,
+                slabs_per_block=spb, block_slabs=block_slabs, qt_copies=nbuf,
+                scratch_bytes=n_pad * n_pad * 2
+                + (kp * (n_pad + 4) * 4 if nbuf == 1 else 0),
                 variant=f"cluster of {cluster} blocks per graph; mma.sync "
                         f"m16n8k16 bf16 on a bf16 copy of M streamed by "
                         f"cp.async, {kp // 16} row tile(s) x 16 columns per "
-                        f"warp; f32 4x{kp // 8} register tiles")
+                        f"warp, {nbuf} bf16 cop{'ies' if nbuf > 1 else 'y'} "
+                        f"of Q^T a block; f32 4x{kp // 8} register tiles, "
+                        f"{qf}")
 
 
-def _wide_plan(n_pad: int, kp: int) -> dict:
-    """The wide plan (48 < k <= 80, any N <= 832), as ``pe_wide_plan``
-    in ``csrc/pe.cu`` computes it."""
+def _general_plan(n_pad: int, kp: int) -> dict:
+    """The general plan (80 < k <= 832, any N <= 832), as
+    ``pe_general_plan`` in ``csrc/pe.cu`` computes it."""
     threads = 256 if n_pad <= 256 else 512
     cluster = 1 if n_pad <= 256 else 2
     cols = 1 if n_pad <= 128 else 4
+    g_smem = kp <= _GEN_SMEM_KP
     return dict(n_pad=n_pad, kp=kp, threads=threads, warps=threads // 32,
-                # G, the row norms, the Gershgorin scale and the extent
-                smem_bytes=kp * kp * 4 + kp * 4 + 16,
-                gram_split=1, gram_f32_split=1, plan="wide",
-                cluster=cluster, slabs_per_block=n_pad // 16,
-                block_slabs=[n_pad // 16] * cluster,
-                scratch_bytes=4 * n_pad * kp * 4,
+                # G (where it fits), the row norms, the Gershgorin scale and
+                # the extent
+                smem_bytes=(kp * kp * 4 if g_smem else 0) + kp * 4 + 16,
+                gram_split=1, gram_f32_split=1, plan="general",
+                layout="device", cluster=cluster,
+                slabs_per_block=n_pad // 16,
+                block_slabs=[n_pad // 16] * cluster, qt_copies=0,
+                scratch_bytes=4 * n_pad * kp * 4
+                + (0 if g_smem else cluster * kp * kp * 4),
                 variant=f"{'cluster of 2 blocks' if cluster > 1 else 'one block'}"
                         f" per graph; f32 FMA on bf16-rounded operands, Q "
-                        f"({n_pad}, {kp}) x 4 in device memory; ({cols} "
+                        f"({n_pad}, {kp}) x 4 in device memory, G in "
+                        f"{'shared' if g_smem else 'device'} memory; ({cols} "
                         f"column(s), 16-row tile) items, 4x4 Gram tiles")
 
 
-def pe_launch_plan(n: int, k: int) -> dict:
-    """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
-    width ``k``, as ``pe_plan`` in ``csrc/pe.cu`` computes it: threads
-    per block, bytes of dynamic shared memory, the padded sizes, the
-    splits of the two Gram products, the tile variant and, for the
-    streamed plan, the blocks per graph (``cluster``), the slabs of 16
-    columns each block takes when all N nodes are live (``block_slabs``)
-    and the bytes of device scratch per graph. Raises
-    ``ValueError`` with the numbers on a shape the kernel does not
-    take."""
-    n_pad = -(-n // 32) * 32
-    if not 1 <= n_pad <= MAX_NODES or not 1 <= k <= MAX_WIDTH:
-        raise ValueError(f"pe kernel takes 1 <= N <= {MAX_NODES} and "
-                         f"1 <= k <= {MAX_WIDTH}, got N={n}, k={k}")
-    kp = -(-k // 16) * 16
-    if k > 48:
-        return _wide_plan(n_pad, kp)
-    if n_pad > 256:
-        return _streamed_plan(n_pad, kp)
+def _shared_plan(n_pad: int, kp: int, name: str) -> dict | None:
+    """The shared layout (N <= 256), as ``pe_plan`` in ``csrc/pe.cu``
+    computes it; None where its bytes pass a block's shared memory."""
     kt = kp // 16
     threads, warps = 2 * n_pad, n_pad // 16
     ldm = ldq = n_pad + 8
@@ -213,16 +230,43 @@ def pe_launch_plan(n: int, k: int) -> dict:
     # share one region.
     smem += max(align16(2 * kp * ldq * 2) + align16(kp * ldg * 2)
                 + (ks * kk * 4 if ks > 1 else 0), 3 * 16 * n_pad * 4)
-    if smem > _MAX_SMEM or threads > 1024:
-        raise ValueError(
-            f"pe kernel: N={n}, k={k} needs {smem} B of shared memory and "
-            f"{threads} threads per block (limits {_MAX_SMEM}, 1024)")
+    if smem > _MAX_SMEM:
+        return None
     return dict(n_pad=n_pad, kp=kp, threads=threads, warps=warps,
                 smem_bytes=smem, gram_split=ks, gram_f32_split=chunks,
-                plan="shared", cluster=1, slabs_per_block=warps,
-                block_slabs=[warps], scratch_bytes=0,
+                plan=name, layout="shared", cluster=1, slabs_per_block=warps,
+                block_slabs=[warps], qt_copies=2, scratch_bytes=0,
                 variant=f"mma.sync m16n8k16 bf16, {kt} row tile(s) x 16 "
                         f"columns per warp; f32 4x{2 * kt} register tiles")
+
+
+def pe_launch_plan(n: int, k: int) -> dict:
+    """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
+    width ``k``, as ``gcc_pe_plan`` in ``csrc/pe.cu`` computes it: the plan
+    by width (``plan``: "shared" or "streamed" for k <= 48, "wide" for
+    48 < k <= 80, "general" above) and its ``layout`` ("shared": M's bf16
+    copy in shared memory; "cluster": a cluster of blocks per graph, M's
+    bf16 copy in a device scratch; "device": Q in a device scratch),
+    threads per block, bytes of dynamic shared memory, the padded sizes,
+    the splits of the two Gram products, the tile variant, the blocks per
+    graph (``cluster``), the slabs of 16 columns each block takes when all
+    N nodes are live (``block_slabs``), the bf16 copies of Qᵀ a block
+    keeps (``qt_copies``) and the bytes of device scratch per graph.
+    Raises ``ValueError`` with the numbers on a shape the kernel does not
+    take."""
+    n_pad = -(-n // 32) * 32
+    if not 1 <= n_pad <= MAX_NODES or not 1 <= k <= MAX_WIDTH:
+        raise ValueError(f"pe kernel takes 1 <= N <= {MAX_NODES} and "
+                         f"1 <= k <= {MAX_WIDTH}, got N={n}, k={k}")
+    kp = -(-k // 16) * 16
+    if k > _TC_MAX_WIDTH:
+        return _general_plan(n_pad, kp)
+    name = "wide" if k > 48 else None
+    if n_pad <= 256:
+        plan = _shared_plan(n_pad, kp, name or "shared")
+        if plan is not None:
+            return plan
+    return _cluster_plan(n_pad, kp, name or "streamed")
 
 
 _PE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
@@ -264,7 +308,7 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
     """Kernel 2 wrapper: m (B, N, N) float32, q0 (B, N, k) float32 →
     (B, N, k). CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
     CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 832 (padded
-    to a multiple of 32), k ≤ 80; ``power_lo`` both ways and any
+    to a multiple of 32), k ≤ 832; ``power_lo`` both ways and any
     ``iters``/``orth_every``/``ns_steps``/``polish``/``final_ns``."""
     if m.device.type == "cpu":
         return pe_subspace_iterate_plain(m, q0, iters, orth_every, ns_steps,

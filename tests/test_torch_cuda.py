@@ -270,9 +270,10 @@ def test_pe_plan_mirrors_the_source(cuda_device):
 
     lib = pe._pe_lib()
     out = (ctypes.c_int * 9)()
-    for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 512, 544,
-              800, 832):
-        for k in (1, 8, 16, 17, 32, 33, 48, 49, 64, 65, 80):
+    for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 384, 416,
+              512, 544, 800, 832):
+        for k in (1, 8, 16, 17, 32, 33, 48, 49, 64, 65, 80, 81, 96, 128,
+                  240, 241, 256, 832):
             assert lib.gcc_pe_plan(n, k, out) == 0
             plan = pe.pe_launch_plan(n, k)
             assert list(out) == [plan["threads"], plan["smem_bytes"],
@@ -281,7 +282,7 @@ def test_pe_plan_mirrors_the_source(cuda_device):
                                  plan["cluster"], plan["slabs_per_block"],
                                  plan["scratch_bytes"]]
     assert lib.gcc_pe_plan(864, 32, out) != 0
-    assert lib.gcc_pe_plan(128, 81, out) != 0
+    assert lib.gcc_pe_plan(128, 833, out) != 0
 
 
 @pytest.mark.parametrize("n,batch", [(64, 1), (64, 4096), (80, 64),
@@ -305,7 +306,7 @@ def test_jacobi_block_kernel_wide(cuda_device, n, batch):
         assert torch.equal(w, w0) and torch.equal(v, v0)
 
 
-@pytest.mark.parametrize("n", [120, 65])
+@pytest.mark.parametrize("n", [834, 65])
 def test_jacobi_kernel_refuses_beyond_its_widths(cuda_device, n):
     a = torch.zeros(2, n, n, device=cuda_device)
     with pytest.raises(ValueError, match=f"n={n}"):
@@ -322,9 +323,10 @@ def test_jacobi_kernel_refuses_beyond_its_widths(cuda_device, n):
     (160, 80, 140),    # more blocks than SMs
 ])
 def test_pe_wide_plan_matches_plain(cuda_device, n_max, k, graphs):
-    """48 < k <= 80: one block per graph, Q in a device scratch, f32 FMAs
-    on operands rounded to bf16 where the plain version rounds them; the
-    limits of the other plans."""
+    """48 < k <= 80: the rounds on the tensor cores against a bf16 copy of
+    M made once per graph (in shared memory up to N = 224 / 160 at kp =
+    64 / 80, in a device scratch above), the f32 polish and finish on the
+    CUDA cores; the limits of the other plans."""
     assert pe.pe_launch_plan(n_max, k)["plan"] == "wide"
     big = n_max > 256
     _pe_compare(*_pe_case(cuda_device, n_max, k, graphs,
@@ -363,7 +365,68 @@ def test_pe_wide_plan_small_graphs_and_batch_of_one(cuda_device):
 
 
 def test_pe_kernel_refuses_beyond_80(cuda_device):
+    """Beyond the widest block the kernel takes, k = 832 (the general
+    plan now takes 80 < k <= 832)."""
     m = torch.zeros(1, 128, 128, device=cuda_device)
-    q0 = torch.zeros(1, 128, 81, device=cuda_device)
-    with pytest.raises(ValueError, match="N=128, k=81"):
+    q0 = torch.zeros(1, 128, 833, device=cuda_device)
+    with pytest.raises(ValueError, match="N=128, k=833"):
         pe.pe_subspace_iterate(m, q0)
+
+
+@pytest.mark.parametrize("k", [64, 80])
+@pytest.mark.parametrize("n_max", [32, 128, 256, 512, 832])
+def test_pe_wide_plan_by_layout(cuda_device, n_max, k):
+    """The wide plan at both of its widths across its layouts (shared up
+    to N = 224 / 160, a cluster of 2 or 4 blocks above, one bf16 copy of
+    Q^T a block at (512, 80) and (832, 64 / 80)): a batch of graphs of 1
+    to N nodes, then a batch of one graph with a few live nodes, each
+    against the plain version."""
+    assert pe.pe_launch_plan(n_max, k)["plan"] == "wide"
+    big = n_max > 256
+    m_shift, q0 = _pe_case(cuda_device, n_max, k, 4,
+                           e_tot=16384 if big else 4096,
+                           id_bits=16 if big else 8)
+    _pe_compare(m_shift, q0)
+    m_shift[1, 5:, :] = 0
+    m_shift[1, :, 5:] = 0
+    q0[1, 5:] = 0
+    _pe_compare(m_shift[1:2].contiguous(), q0[1:2].contiguous())
+
+
+@pytest.mark.parametrize("n_max,k,graphs", [
+    (128, 96, 8),      # PE 80 with the eval profile's 16 guards
+    (256, 96, 6),      # one block per graph, four columns an item
+    (512, 128, 4),     # PE 112 with 16 guards, a cluster of two
+    (160, 240, 2),     # G in shared memory at its widest
+    (256, 256, 2),     # G in the device scratch
+    (100, 81, 3),      # N and k both padded
+])
+def test_pe_general_plan_matches_plain(cuda_device, n_max, k, graphs):
+    """80 < k <= 832: f32 FMAs on operands rounded to bf16 where the plain
+    version rounds them, Q (and G above kp = 240) in a device scratch; the
+    limits of the other plans."""
+    assert pe.pe_launch_plan(n_max, k)["plan"] == "general"
+    big = n_max > 256
+    _pe_compare(*_pe_case(cuda_device, n_max, k, graphs,
+                          e_tot=16384 if big else 4096,
+                          id_bits=16 if big else 8))
+
+
+@pytest.mark.parametrize("n,batch", [(120, 5), (128, 3), (256, 2), (832, 1)])
+def test_jacobi_device_variant(cuda_device, n, batch):
+    """Even n above 118 (A and V^T pass a block's shared memory): the block
+    kernel over a device scratch, bit for bit the plain version, both
+    orders."""
+    a = torch.randn(batch, n, n, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
+    assert jacobi.jacobi_launch_plan(n, batch)["variant"] == \
+        "block-per-matrix, device memory"
+    sweeps = 1 if n > 256 else 3
+    for desc in (False, True):
+        before = jacobi.jacobi_eigh.launches
+        w, v = jacobi.jacobi_eigh(a, sweeps=sweeps, descending=desc)
+        assert jacobi.jacobi_eigh.launches == before + 1
+        w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=sweeps, descending=desc)
+        assert torch.equal(w, w0) and torch.equal(v, v0)

@@ -65,18 +65,31 @@ def test_pe_streamed_plan_fits_a_block(n, k):
 @pytest.mark.parametrize("n", [32, 128, 160, 256, 288, 512, 832])
 def test_pe_wide_plan_fits_a_block(n, k):
     """48 < k <= 80 (PE 64 on the train and eval profiles) takes the wide
-    plan at every N: one block per graph up to N = 256 and a cluster of
-    two above, G in shared memory, four f32 copies of Q (n, kp) in a
-    device scratch."""
+    plan at every N: the shared plan's layout at five row tiles where its
+    bytes fit a block (N <= 224 at kp = 64, N <= 160 at kp = 80: M's bf16
+    copy and Q^T in shared memory), else the streamed plan's cluster
+    layout (M's bf16 copy in a device scratch; one block per graph up to N
+    = 256) with one bf16 copy of Q^T a block and the f32 Q^T in the
+    scratch where two copies do not fit."""
     plan = pe.pe_launch_plan(n, k)
     assert plan["plan"] == "wide" and plan["n_pad"] == n
     assert plan["kp"] in (64, 80) and 0 <= plan["kp"] - k < 16
-    assert plan["threads"] == (256 if n <= 256 else 512)
     assert plan["threads"] == 32 * plan["warps"] <= MAX_THREADS
-    assert plan["kp"] ** 2 * 4 < plan["smem_bytes"] <= 48 * 1024
-    assert plan["cluster"] == (1 if n <= 256 else 2)
-    assert len(plan["block_slabs"]) == plan["cluster"]
-    assert plan["scratch_bytes"] == 4 * n * plan["kp"] * 4
+    assert 0 < plan["smem_bytes"] <= MAX_SMEM
+    assert "mma.sync m16n8k16" in plan["variant"]
+    if n <= (224 if plan["kp"] == 64 else 160):
+        assert plan["layout"] == "shared" and plan["cluster"] == 1
+        assert plan["threads"] == 2 * n and plan["scratch_bytes"] == 0
+        assert plan["smem_bytes"] >= n * (n + 8) * 2
+    else:
+        assert plan["layout"] == "cluster" and plan["threads"] == 512
+        assert plan["cluster"] == (1 if n <= 256 else 2 if n <= 512 else 4)
+        assert len(plan["block_slabs"]) == plan["cluster"]
+        copies = plan["qt_copies"]
+        assert plan["smem_bytes"] >= copies * plan["kp"] * (n + 8) * 2
+        assert plan["scratch_bytes"] == n * n * 2 + (
+            plan["kp"] * (n + 4) * 4 if copies == 1 else 0)
+        assert copies == (1 if n > (512 if plan["kp"] == 64 else 384) else 2)
 
 
 @pytest.mark.parametrize("n,k,plan", [(128, 48, "shared"),
@@ -114,8 +127,8 @@ def test_pe_plan_pads_the_node_axis(n, n_pad):
     assert plan["n_pad"] == n_pad and plan["threads"] == 2 * n_pad
 
 
-@pytest.mark.parametrize("n,k", [(833, 32), (864, 48), (128, 81),
-                                 (832, 96), (128, 0)])
+@pytest.mark.parametrize("n,k", [(833, 32), (864, 48), (128, 833),
+                                 (832, 864), (128, 0)])
 def test_pe_plan_refuses_with_the_numbers(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
         pe.pe_launch_plan(n, k)
@@ -150,7 +163,7 @@ def test_jacobi_pair_plan(batch):
     assert plan["smem_bytes"] >= 4 * 48 * 56 * 4
 
 
-@pytest.mark.parametrize("n", [3, 5, 33, 120, 65, 2, 0])
+@pytest.mark.parametrize("n", [3, 5, 33, 834, 65, 2, 0])
 def test_jacobi_plan_refuses_with_the_number(n):
     with pytest.raises(ValueError, match=str(n)):
         jacobi.jacobi_launch_plan(n)
@@ -185,7 +198,7 @@ def test_pe_wrapper_refuses_shapes(m_shape, q_shape):
                          4, 4, 2, 8)
 
 
-@pytest.mark.parametrize("n,k", [(864, 32), (64, 81)])
+@pytest.mark.parametrize("n,k", [(864, 32), (64, 833)])
 def test_pe_wrapper_refuses_sizes(n, k):
     with pytest.raises(ValueError, match=f"N={n}, k={k}"):
         pe._check_inputs(*_pe_args(n=n, k=k), 4, 4, 2, 8)
@@ -205,7 +218,7 @@ def test_pe_wrapper_accepts_what_the_plan_takes():
 
 @pytest.mark.parametrize("shape,exc", [
     ((2, 7, 7), ValueError),        # odd n
-    ((2, 120, 120), ValueError),    # n > 118
+    ((2, 834, 834), ValueError),    # n > 832
     ((2, 2, 2), ValueError),        # n < 4
     ((2, 32, 16), ValueError),      # not square
     ((32, 32), ValueError),         # no batch axis
