@@ -164,7 +164,10 @@ ODD_BATCH = 1037  # no multiple of the 132 SMs, nor of a block's 4 warps
 # featurize is unchanged since). Eval shapes: the streamed plan's first
 # version (one block per graph, every product an f32 FMA, Q^T in a device
 # scratch) and the block-per-matrix Jacobi kernel with two barriers a
-# round, timed without work queued ahead of it.
+# round, timed without work queued ahead of it. PE 64's Jacobi widths:
+# that kernel, queued behind other work (at (1, 80, 80), 5 sweeps, timed
+# by ops/kernel_parts.py on random matrices: a fixed count of rounds, so
+# the time does not depend on the data).
 FIRST = "the port's first kernels, H100 80GB HBM3, 700 W"
 STREAMED_V1 = ("the streamed plan's first version (one block per graph, f32 "
                "FMAs), H100 80GB HBM3, 700 W")
@@ -172,6 +175,8 @@ BLOCK_JACOBI = ("the block-per-matrix kernel (not queued behind other "
                 "work), H100 80GB HBM3, 700 W")
 WIDE_V1 = ("the wide plan's first version (every product an f32 FMA on the "
            "CUDA cores, Q in device memory), H100 80GB HBM3, 700 W")
+BLOCK_JACOBI_PE64 = ("the two-barrier block-per-matrix kernel (queued behind "
+                     "other work), H100 80GB HBM3, 700 W")
 EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", 32): (0.951, FIRST),
               ("featurize", 128): (0.1915, FIRST),
@@ -183,7 +188,10 @@ EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("pe", "128k64"): (13.8251, WIDE_V1),
               ("pe", "256k64"): (47.9811, WIDE_V1),
               ("pe", "256k80"): (3.9861, WIDE_V1),
-              ("pe", "512k80"): (6.6312, WIDE_V1)}
+              ("pe", "512k80"): (6.6312, WIDE_V1),
+              ("jacobi", "n64"): (6.3719, BLOCK_JACOBI_PE64),
+              ("jacobi", "n80"): (0.6657, BLOCK_JACOBI_PE64),
+              ("jacobi", "giant80"): (1.0912, BLOCK_JACOBI_PE64)}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 # The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
@@ -735,6 +743,20 @@ def guarded_rr_matrices(m_shift, q):
     w = v * (torch.rsqrt(torch.maximum(sv, floor))
              * (sv > floor).float())[:, None, :]
     return s_g, rr_matrices(m_shift, torch.bmm(q, w))
+
+
+@contextlib.contextmanager
+def jacobi_inputs(module):
+    """A list that gets a copy of every matrix module.jacobi_eigh is
+    handed while the block runs (the giant PE's finish looks it up in its
+    module)."""
+    recorded, real = [], module.jacobi_eigh
+    module.jacobi_eigh = lambda a, **kw: (recorded.append(a.clone())
+                                          or real(a, **kw))
+    try:
+        yield recorded
+    finally:
+        module.jacobi_eigh = real
 
 
 @contextlib.contextmanager
@@ -1475,13 +1497,8 @@ def giant_path(ops, cfg, ckpt, check, results):
                 q = gf.giant_pe_iterate(pe_dev, q0)
                 if dev == "cuda" and g is reddit[-1]:
                     # The two matrices Kernel 3 gets in the finish.
-                    real = gf.jacobi_eigh
-                    gf.jacobi_eigh = lambda a, **kw: (
-                        recorded.append(a.clone()) or real(a, **kw))
-                    try:
+                    with jacobi_inputs(gf) as recorded:
                         pe = gf.giant_pe_finish(pe_dev, q, mask, n)
-                    finally:
-                        gf.jacobi_eigh = real
                 else:
                     pe = gf.giant_pe_finish(pe_dev, q, mask, n)
             out[dev] = (q, pe, pe_dev, enc_dev, mask, q0)
@@ -1695,7 +1712,8 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
     on the 512 call's graphs (eval profile: WITNESS_FACTOR x the CPU
     path's own 1-ulp change + PE_MEAN_LIMIT, max PE_MAX_LIMIT); and the
     giant PE of the smallest REDDIT-shaped graph at PE 64 (its finish:
-    Kernel 3 twice at (1, 80, 80), 5 sweeps), card vs CPU by the giant
+    Kernel 3 twice at (1, 80, 80), 5 sweeps, both matrices recorded and
+    held to error 0, the second timed), card vs CPU by the giant
     phase's rules. Adds the rows; returns {row key: launches}."""
     import dataclasses
 
@@ -1840,8 +1858,11 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
             if dev == "cuda":
                 q, got, _, _ = counted(ops, lambda: gf.giant_pe_iterate(
                     placed, q0))
-                pe, got, plain, _ = counted(ops, lambda: gf.giant_pe_finish(
-                    placed, q, mask, n, pos_size=pos))
+                # The two matrices Kernel 3 gets in the finish.
+                with jacobi_inputs(gf) as recorded:
+                    pe, got, plain, _ = counted(
+                        ops, lambda: gf.giant_pe_finish(placed, q, mask, n,
+                                                        pos_size=pos))
                 launches["giant"] = got
             else:
                 q = gf.giant_pe_iterate(placed, q0)
@@ -1868,12 +1889,22 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
           f"{PE_MEAN_LIMIT}, max {span[1]:.3g} <= {PE_MAX_LIMIT}; PE row "
           f"cosines mean {cos[0]:.3g} <= {limit:.3g}, max {cos[1]:.3g} <= "
           f"{PE_MAX_LIMIT}")
+    check(len(recorded) == 2 and all(a.shape == (1, k_eval, k_eval)
+                                     for a in recorded),
+          f"PE {pos} giant finish hands Kernel 3 two (1, {k_eval}, "
+          f"{k_eval}) matrices {[tuple(a.shape) for a in recorded]}")
+    check_jacobi(recorded[0], check, timed=False, sweeps=GIANT_SWEEPS,
+                 exact=True)
+    results[("jacobi", f"giant{k_eval}")] = check_jacobi(
+        recorded[1], check, key=f"giant{k_eval}", sweeps=GIANT_SWEEPS,
+        exact=True)
     return {("pe", f"{N_SMALL}k{pos}"): launches[("train", N_SMALL)]["pe"],
             ("pe", f"{N_MAX}k{pos}"): launches[("train", N_MAX)]["pe"],
             ("jacobi", f"n{pos}"): launches[("train", N_SMALL)]["jacobi"],
             ("pe", f"{N_MAX}k{k_eval}"): launches[("eval", N_MAX)]["pe"],
             ("pe", f"{GEN_N_MAX}k{k_eval}"): launches[("eval", GEN_N_MAX)]["pe"],
-            ("jacobi", f"n{k_eval}"): launches[("eval", GEN_N_MAX)]["jacobi"]}
+            ("jacobi", f"n{k_eval}"): launches[("eval", GEN_N_MAX)]["jacobi"],
+            ("jacobi", f"giant{k_eval}"): launches["giant"]["jacobi"]}
 
 
 def wide_widths_path(ops, cfg, check, results):

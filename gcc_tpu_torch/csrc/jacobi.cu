@@ -12,10 +12,13 @@
 //
 // Bound on Hopper: operations (f32, outside the tensor cores). One matrix
 // is 4 KB at n = 32 and its round chain is serial, so a matrix is bound by
-// latency and the batch (4096 matrices) supplies the parallelism.
+// latency and the batch (4096 matrices) supplies the parallelism. Every
+// product and sum is rounded on its own (no FMA), so half the card's
+// counted f32 rate is the ceiling, and a round moves about 4 n^2 words of
+// shared memory (A and V^T read once and written once) beside them.
 //
 // Three hand-written kernels, chosen by shape (jacobi_launch_plan in
-// ops/jacobi.py mirrors the choice):
+// ops/jacobi.py mirrors the choice, gcc_jacobi_plan below reports it):
 //   * n == 32 (the train path): jacobi_warp_kernel, one WARP per matrix
 //     and no block-wide barrier in the round loop. Lane c holds column c
 //     of A and column c of V^T in registers (32 + 32). The row mix of pair
@@ -28,31 +31,39 @@
 //     (c, s) pairs are broadcast by shuffle. The rank sort and the
 //     coalesced write-out go through a warp-private slab of shared memory
 //     with __syncwarp(). Four warps share a block only to fill the SM.
-//   * n == 48 (the serve path: the eval profile's guarded finish, batches
-//     of 64 or 128 matrices, so the card is mostly empty and the time is
-//     one matrix's serial chain of sweeps * 47 rounds): jacobi_pair_kernel,
-//     specialised at compile time. One block of 576 threads per matrix,
-//     ONE thread per 2x2 block (pair pa rows, pair pb columns) of A, and
-//     ONE barrier a round. A warp owns a 4 x 8 patch of blocks, so it
-//     needs 12 rotations: its lanes read the pivots straight from the
-//     current buffer, compute them (redundant arithmetic in place of a
-//     24-thread phase and its barrier), and hand them round by shuffle.
-//     Each thread then mixes its block (rows, then columns) and two entry
-//     pairs of V^T and writes them to their re-paired slots of the other
-//     buffer; its slots are constants of the thread. Rows are padded to
-//     56 floats, which keeps a patch's loads and stores off each other's
-//     banks. What is left of a round is the rotation's chain of dependent
-//     square roots and divisions.
-//   * any other even n from 4 to 118: jacobi_block_kernel, one block per
-//     matrix, A and V^T double-buffered in shared memory (16 n^2 bytes),
-//     two barriers a round: the n/2 rotations, then one pass in which each
-//     thread takes 2x2 blocks of A, applies the row mix and then the
-//     column mix, and writes them to their re-paired positions. Its
-//     shared memory, 4 (4 n^2 + 2 n) + 16 n bytes, passes the 48 KB of a
-//     plain launch above n = 52 (67,072 B at n = 64, 104,320 B at n = 80,
-//     the widths of PE 64 on the train and eval profiles); the launch
-//     then opts in to dynamic shared memory up to the 232,448 B a Hopper
-//     block may hold, which n = 118 fits and n = 120 does not.
+//   * n == 48, 64, 80 (the eval profile's guarded finish at PE 32; PE 64's
+//     finish on the train profile, n = 64 on 4096 matrices, and on the
+//     eval profile and the giant path, n = 80 on 64 matrices or one):
+//     jacobi_pair_kernel<N, ITEMS, MIN_BLOCKS>, one block per matrix, one
+//     thread per ITEMS 2x2 blocks (pair pa rows, pair pb columns) of A and
+//     ONE barrier a round. A warp owns a (4 ITEMS) x 8 patch of blocks, so
+//     it needs 8 + 4 ITEMS rotations: its lanes read the pivots straight
+//     from the current buffer, compute them (redundant arithmetic in place
+//     of a phase of n/2 threads and its barrier), and hand them round by
+//     shuffle. Each thread then mixes its blocks (rows, then columns) and
+//     two entry pairs of V^T per block and writes them to their re-paired
+//     slots of the other buffer; its slots are constants of the thread.
+//     Rows are padded to N + 8 floats, which keeps a patch's loads off
+//     each other's banks (and most of the re-pair's stores). The round
+//     loop runs two rounds a pass, so both buffers' addresses are
+//     constants. A matrix at n = 48 fills a block alone (a batch of 64 is
+//     bound by one matrix's chain of rounds); at n = 64 and 4096 matrices
+//     the card is full and a round is bound by the SM's issue slots and
+//     shared-memory traffic (about 4 n^2 words a round), so fewer warps of
+//     more items spend less on the redundant rotations. Shared memory
+//     (4 (4 N (N + 8) + N) + 12 N bytes) passes a plain launch's 48 KB at
+//     n = 64 (74,752 B) and 80 (113,920 B): the launch then opts in to
+//     dynamic shared memory.
+//   * any other even n from 4 to 118 (no configuration the repository
+//     ships): jacobi_block_kernel, one block per matrix, A and V^T
+//     double-buffered in shared memory (16 n^2 bytes), two barriers a
+//     round: the n/2 rotations, then one pass in which each thread takes
+//     2x2 blocks of A, applies the row mix and then the column mix, and
+//     writes them to their re-paired positions. Its shared memory,
+//     4 (4 n^2 + 2 n) + 16 n bytes, passes the 48 KB of a plain launch
+//     above n = 52; the launch then opts in to dynamic shared memory up to
+//     the 232,448 B a Hopper block may hold, which n = 118 fits and
+//     n = 120 does not.
 //   * every even n from 120 to 832 (PE 104 and more on the eval profile,
 //     PE 120 and more on the train profile; no configuration the
 //     repository ships): the same block kernel with A and V^T, still
@@ -329,28 +340,35 @@ jacobi_warp_kernel(const float* __restrict__ t,      // (B, 32, 32) symmetric
     vb[row * kN + lane] = slab[row * (kN + 1) + lane];
 }
 
-// ---- n == 48: one thread per 2x2 block, one barrier a round -----------
+// ---- n == 48, 64, 80: a thread per 2x2 blocks, one barrier a round -----
 
-constexpr int kPairN = 48;
+// Shared memory of the pair kernel: A and V^T double-buffered with rows
+// padded to N + 8 floats, the eigenvalues and three index tables.
+__host__ __device__ constexpr size_t pair_smem(int n) {
+  return (size_t)(4 * n * (n + 8) + n) * sizeof(float)
+       + (size_t)3 * n * sizeof(int);
+}
 
-template <int N>
-__global__ void __launch_bounds__((N / 2) * (N / 2))
+// ITEMS: 2x2 blocks a thread mixes, one above the other 4 pair rows apart,
+// so a warp owns a (4 ITEMS) x 8 patch of blocks and needs 8 + 4 ITEMS
+// rotations. MIN_BLOCKS: blocks an SM is to hold (caps the registers).
+template <int N, int ITEMS, int MIN_BLOCKS>
+__global__ void __launch_bounds__((N / 2) * (N / 2) / ITEMS, MIN_BLOCKS)
 jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
                    const int* __restrict__ tables,   // layout0[N] | repair_dst[N]
                    float* __restrict__ w_out,        // (B, N)
                    float* __restrict__ v_out,        // (B, N, N)
                    int rounds, int descending, float eps) {
-  constexpr int H = N / 2, LD = N + 8, T = H * H;
-  constexpr int kRows = 4;                // a warp's patch: 4 x 8 pairs
+  constexpr int H = N / 2, LD = N + 8, T = H * H / ITEMS;
+  constexpr int kRows = 4 * ITEMS;        // a warp's patch: kRows x 8 pairs
   constexpr int kPatchCols = H / 8;
-  static_assert(H % 8 == 0 && H % kRows == 0,
-                "patches of 4 x 8 pairs, a rotation a lane");
-  __shared__ float a_buf[2][N * LD];
-  __shared__ float v_buf[2][N * LD];
-  __shared__ float w_nat[N];              // natural order
-  __shared__ int lay[N];                  // round-0 position -> node index
-  __shared__ int pos_of[N];               // node index -> round-0 position
-  __shared__ int rank[N];
+  static_assert(H % 8 == 0 && H % kRows == 0 && 8 + kRows <= 32,
+                "patches of 4 ITEMS x 8 pairs, a rotation a lane");
+  extern __shared__ float sm[];           // A, A', V^T, V^T' (N x LD each)
+  float* w_nat = sm + 4 * N * LD;         // natural order
+  int* lay = (int*)(w_nat + N);           // round-0 position -> node index
+  int* pos_of = lay + N;                  // node index -> round-0 position
+  int* rank = pos_of + N;
   constexpr unsigned kFull = 0xffffffffu;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -363,62 +381,76 @@ jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
   // Natural order -> round-0 layout: A = T[lay][:, lay], V^T = I[lay].
   for (int idx = tid; idx < N * N; idx += T) {
     const int i = idx / N, k = idx - i * N;
-    a_buf[0][i * LD + k] = tb[lay[i] * N + lay[k]];
-    v_buf[0][i * LD + k] = (lay[i] == k) ? 1.f : 0.f;
+    sm[i * LD + k] = tb[lay[i] * N + lay[k]];
+    sm[2 * N * LD + i * LD + k] = (lay[i] == k) ? 1.f : 0.f;
   }
-  // This thread's block (pair pa rows, pair pb columns) and where the
-  // re-pair sends its rows and columns.
+  // This thread's blocks (pair pa[it] rows, pair pb columns) and where
+  // the re-pair sends their rows and columns.
   const int pa0 = (warp / kPatchCols) * kRows, pb0 = (warp % kPatchCols) * 8;
-  const int pa = pa0 + (lane >> 3), pb = pb0 + (lane & 7);
-  const int i0 = tables[N + pa], i1 = tables[N + pa + H];
+  const int pb = pb0 + (lane & 7);
   const int k0 = tables[N + pb], k1 = tables[N + pb + H];
+  int pa[ITEMS], i0[ITEMS], i1[ITEMS];
+#pragma unroll
+  for (int it = 0; it < ITEMS; ++it) {
+    pa[it] = pa0 + 4 * it + (lane >> 3);
+    i0[it] = tables[N + pa[it]];
+    i1[it] = tables[N + pa[it] + H];
+  }
   // The rotation this lane computes: lanes 0-7 the patch's column pairs,
-  // lanes 8 to 11 its row pairs (the rest repeat those).
+  // lanes 8 to 7 + kRows its row pairs (the rest repeat those).
   const int j = lane < 8 ? pb0 + lane : pa0 + (lane - 8) % kRows;
   __syncthreads();
 
-  int cur = 0;
-  for (int r = 0; r < rounds; ++r) {
-    const float* a = a_buf[cur];
-    const float* v = v_buf[cur];
-    float* an = a_buf[cur ^ 1];
-    float* vn = v_buf[cur ^ 1];
+  // One round from (a, v) into (an, v'). The loop below runs two a pass,
+  // so that each buffer's address is a constant of the code.
+  auto round = [&](const float* a, const float* v, float* an, float* vn) {
     float c, s;
     rotation_cs(a[j * LD + j], a[(j + H) * LD + j + H], a[j * LD + j + H],
                 eps, &c, &s);
     const float cb = __shfl_sync(kFull, c, lane & 7);
     const float sb = __shfl_sync(kFull, s, lane & 7);
-    const float a00 = a[pa * LD + pb], a01 = a[pa * LD + pb + H];
-    const float a10 = a[(pa + H) * LD + pb];
-    const float a11 = a[(pa + H) * LD + pb + H];
-    const float v00 = v[pa * LD + pb], v01 = v[pa * LD + pb + H];
-    const float v10 = v[(pa + H) * LD + pb];
-    const float v11 = v[(pa + H) * LD + pb + H];
-    const float ca = __shfl_sync(kFull, c, 8 + (lane >> 3));
-    const float sa = __shfl_sync(kFull, s, 8 + (lane >> 3));
-    // A <- R A R^T on the block: row mix, then column mix, then the
-    // re-paired slots.
-    const float r00 = sub(mul(ca, a00), mul(sa, a10));
-    const float r01 = sub(mul(ca, a01), mul(sa, a11));
-    const float r10 = add(mul(sa, a00), mul(ca, a10));
-    const float r11 = add(mul(sa, a01), mul(ca, a11));
-    an[i0 * LD + k0] = sub(mul(cb, r00), mul(sb, r01));
-    an[i0 * LD + k1] = add(mul(sb, r00), mul(cb, r01));
-    an[i1 * LD + k0] = sub(mul(cb, r10), mul(sb, r11));
-    an[i1 * LD + k1] = add(mul(sb, r10), mul(cb, r11));
-    // V^T <- R V^T on columns pb and pb + H, rows re-paired.
-    vn[i0 * LD + pb] = sub(mul(ca, v00), mul(sa, v10));
-    vn[i1 * LD + pb] = add(mul(sa, v00), mul(ca, v10));
-    vn[i0 * LD + pb + H] = sub(mul(ca, v01), mul(sa, v11));
-    vn[i1 * LD + pb + H] = add(mul(sa, v01), mul(ca, v11));
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int p = pa[it];
+      const float a00 = a[p * LD + pb], a01 = a[p * LD + pb + H];
+      const float a10 = a[(p + H) * LD + pb];
+      const float a11 = a[(p + H) * LD + pb + H];
+      const float v00 = v[p * LD + pb], v01 = v[p * LD + pb + H];
+      const float v10 = v[(p + H) * LD + pb];
+      const float v11 = v[(p + H) * LD + pb + H];
+      const float ca = __shfl_sync(kFull, c, 8 + 4 * it + (lane >> 3));
+      const float sa = __shfl_sync(kFull, s, 8 + 4 * it + (lane >> 3));
+      // A <- R A R^T on the block: row mix, then column mix, then the
+      // re-paired slots.
+      const float r00 = sub(mul(ca, a00), mul(sa, a10));
+      const float r01 = sub(mul(ca, a01), mul(sa, a11));
+      const float r10 = add(mul(sa, a00), mul(ca, a10));
+      const float r11 = add(mul(sa, a01), mul(ca, a11));
+      an[i0[it] * LD + k0] = sub(mul(cb, r00), mul(sb, r01));
+      an[i0[it] * LD + k1] = add(mul(sb, r00), mul(cb, r01));
+      an[i1[it] * LD + k0] = sub(mul(cb, r10), mul(sb, r11));
+      an[i1[it] * LD + k1] = add(mul(sb, r10), mul(cb, r11));
+      // V^T <- R V^T on columns pb and pb + H, rows re-paired.
+      vn[i0[it] * LD + pb] = sub(mul(ca, v00), mul(sa, v10));
+      vn[i1[it] * LD + pb] = add(mul(sa, v00), mul(ca, v10));
+      vn[i0[it] * LD + pb + H] = sub(mul(ca, v01), mul(sa, v11));
+      vn[i1[it] * LD + pb + H] = add(mul(sa, v01), mul(ca, v11));
+    }
     __syncthreads();
-    cur ^= 1;
+  };
+  float* const a0 = sm;
+  float* const a1 = sm + N * LD;
+  float* const v0 = sm + 2 * N * LD;
+  float* const v1 = sm + 3 * N * LD;
+  for (int r = 0; r < rounds; r += 2) {
+    round(a0, v0, a1, v1);
+    if (r + 1 < rounds) round(a1, v1, a0, v0);
   }
 
   // sweeps * (N - 1) re-pairs return the layout to round-0 form:
   // eigenpair at position j belongs to node index lay[j].
-  const float* a = a_buf[cur];
-  const float* v = v_buf[cur];
+  const float* a = (rounds & 1) ? a1 : a0;
+  const float* v = (rounds & 1) ? v1 : v0;
   if (tid < N) w_nat[lay[tid]] = a[tid * LD + tid];
   __syncthreads();
   if (tid < N) {
@@ -441,7 +473,81 @@ jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
   }
 }
 
+// The pair kernel's instances: items per thread and blocks per SM, chosen
+// by timing each width's main-path batch (gcc_tpu_torch/ops/
+// jacobi_instances.py). n = 48 (the eval profile's finish, 64 or 128
+// matrices): 576 threads, 32 registers, so that 3 blocks fit an SM at any
+// batch. n = 64 (PE 64's train profile, 4096 matrices): 256 threads of 4
+// items, 3 blocks an SM (shared memory allows no more); fewer warps spend
+// fewer issue slots on the redundant rotations. n = 80 (PE 64's eval
+// profile and giant finish, 64 matrices or one: one block an SM): 320
+// threads of 5 items.
+constexpr int kPair48Items = 1, kPair48Blocks = 3;
+constexpr int kPair64Items = 4, kPair64Blocks = 3;
+constexpr int kPair80Items = 5, kPair80Blocks = 1;
+
+template <int N, int ITEMS, int MIN_BLOCKS>
+int launch_pair(const void* t, const void* tables, void* w, void* v,
+                int batch, int sweeps, int descending, float eps,
+                void* stream) {
+  constexpr size_t smem = pair_smem(N);
+  const auto kernel = jacobi_pair_kernel<N, ITEMS, MIN_BLOCKS>;
+  if (smem > kPlainSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  kernel<<<batch, (N / 2) * (N / 2) / ITEMS, smem, (cudaStream_t)stream>>>(
+      (const float*)t, (const int*)tables, (float*)w, (float*)v,
+      sweeps * (N - 1), descending, eps);
+  return (int)cudaGetLastError();
+}
+
+// Shared memory of the block kernel: A and V^T double-buffered, c/s and
+// the eigenvalues (2 n floats), four index tables.
+size_t block_smem(int n) {
+  return (size_t)(4 * n * n + 2 * n) * sizeof(float)
+       + (size_t)4 * n * sizeof(int);
+}
+
 }  // namespace
+
+// Kernels by plan: out[0] of gcc_jacobi_plan.
+enum Kernel { kWarpKernel = 0, kPairKernel, kBlockKernel, kDeviceKernel };
+
+// The launch plan of width n, as gcc_jacobi_launch launches it: out =
+// {kernel (Kernel), threads per block, bytes of shared memory per block,
+// bytes of device scratch per matrix}. ops/jacobi.py jacobi_launch_plan
+// mirrors it.
+extern "C" int gcc_jacobi_plan(int n, int* out) {
+  if (n % 2 != 0 || n < 4 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const int pair_items = n == 48 ? kPair48Items
+                       : n == 64 ? kPair64Items
+                       : n == 80 ? kPair80Items : 0;
+  out[3] = 0;
+  if (n == kN) {
+    out[0] = kWarpKernel;
+    out[1] = kWarps * 32;
+    out[2] = (int)(sizeof(int) * kN + sizeof(float) * kWarps * (kSlab + kN)
+                   + sizeof(int) * kWarps * kN);
+  } else if (pair_items) {
+    out[0] = kPairKernel;
+    out[1] = (n / 2) * (n / 2) / pair_items;
+    out[2] = (int)pair_smem(n);
+  } else if (block_smem(n) > kMaxSmem) {
+    // c/s and the eigenvalues (2 n floats), four index tables; A and V^T,
+    // double-buffered, in the scratch.
+    out[0] = kDeviceKernel;
+    out[1] = kDeviceThreads;
+    out[2] = (int)((size_t)2 * n * sizeof(float) + (size_t)4 * n * sizeof(int));
+    out[3] = (int)((size_t)4 * n * n * sizeof(float));
+  } else {
+    out[0] = kBlockKernel;
+    out[1] = kThreads;
+    out[2] = (int)block_smem(n);
+  }
+  return 0;
+}
 
 // scratch: (batch, 4, n, n) f32 for n > 118 (A and V^T of the device-
 // memory variant), unused and may be null else.
@@ -450,43 +556,44 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
                                  int sweeps, int descending, float eps,
                                  void* stream) {
   if (batch <= 0) return 0;
-  if (n % 2 != 0 || n < 4 || n > kMaxN || sweeps < 0)
+  int plan[4];
+  if (sweeps < 0 || gcc_jacobi_plan(n, plan) != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      (size_t)(4 * n * n + 2 * n) * sizeof(float) + (size_t)4 * n * sizeof(int);
-  if (n == kN) {
-    jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0,
-                         (cudaStream_t)stream>>>(
-        (const float*)t, (const int*)tables, (float*)w, (float*)v, batch,
-        sweeps * (n - 1), descending, eps);
-    return (int)cudaGetLastError();
+  const int threads = plan[1];
+  const size_t smem = (size_t)plan[2];
+  const int rounds = sweeps * (n - 1);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (plan[0]) {
+    case kWarpKernel:
+      jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, threads, 0, st>>>(
+          (const float*)t, (const int*)tables, (float*)w, (float*)v, batch,
+          rounds, descending, eps);
+      return (int)cudaGetLastError();
+    case kPairKernel:
+      if (n == 48)
+        return launch_pair<48, kPair48Items, kPair48Blocks>(
+            t, tables, w, v, batch, sweeps, descending, eps, stream);
+      if (n == 64)
+        return launch_pair<64, kPair64Items, kPair64Blocks>(
+            t, tables, w, v, batch, sweeps, descending, eps, stream);
+      return launch_pair<80, kPair80Items, kPair80Blocks>(
+          t, tables, w, v, batch, sweeps, descending, eps, stream);
+    case kDeviceKernel:
+      if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+      jacobi_block_kernel<true><<<batch, threads, smem, st>>>(
+          (const float*)t, (const int*)tables, (float*)w, (float*)v,
+          (float*)scratch, n, rounds, descending, eps);
+      return (int)cudaGetLastError();
+    default:
+      if (smem > kPlainSmem) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            jacobi_block_kernel<false>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+      }
+      jacobi_block_kernel<false><<<batch, threads, smem, st>>>(
+          (const float*)t, (const int*)tables, (float*)w, (float*)v, nullptr,
+          n, rounds, descending, eps);
+      return (int)cudaGetLastError();
   }
-  if (n == kPairN) {
-    jacobi_pair_kernel<kPairN><<<batch, (kPairN / 2) * (kPairN / 2), 0,
-                                 (cudaStream_t)stream>>>(
-        (const float*)t, (const int*)tables, (float*)w, (float*)v,
-        sweeps * (n - 1), descending, eps);
-    return (int)cudaGetLastError();
-  }
-  if (smem > kMaxSmem) {
-    // c/s and the eigenvalues (2 n floats), four index tables.
-    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    const size_t small =
-        (size_t)2 * n * sizeof(float) + (size_t)4 * n * sizeof(int);
-    jacobi_block_kernel<true><<<batch, kDeviceThreads, small,
-                                (cudaStream_t)stream>>>(
-        (const float*)t, (const int*)tables, (float*)w, (float*)v,
-        (float*)scratch, n, sweeps * (n - 1), descending, eps);
-    return (int)cudaGetLastError();
-  }
-  if (smem > kPlainSmem) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        jacobi_block_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  jacobi_block_kernel<false><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)t, (const int*)tables, (float*)w, (float*)v, nullptr, n,
-      sweeps * (n - 1), descending, eps);
-  return (int)cudaGetLastError();
 }

@@ -15,17 +15,18 @@ then the layout is undone and a comparison-rank sort orders the pairs.
 same rounds as plain PyTorch. The source holds three hand-written
 kernels and the launch picks one by shape (:func:`jacobi_launch_plan`):
 n = 32, the train path, runs one warp per matrix with A and Vᵀ in
-registers and no block-wide barrier in the round loop; n = 48, the eval
-profile's guarded finish, runs one block of 576 threads per matrix, one
-thread per 2×2 block of A and one barrier a round; every other even n
-from 4 to 118 runs one block of 256 threads per matrix over shared
-memory with two barriers a round (dynamic shared memory above 48 KB, so
-n = 64 and 80, the widths of PE 64 on the train and eval profiles, take
-it too); every even n from 120 to 832, where A and Vᵀ pass a block's
-227 KB, runs the same block kernel with 1024 threads and A and Vᵀ in a
-per-matrix device scratch (16 n² bytes) that the wrapper allocates. All
-round every operation as the plain version does, in its order, so all
-agree with it bit for bit.
+registers and no block-wide barrier in the round loop; n = 48 (the eval
+profile's guarded finish at PE 32), 64 and 80 (PE 64's finish on the
+train profile, and on the eval profile and the giant path) run the pair
+kernel: one block per matrix, each thread mixing 1, 4 or 5 2×2 blocks of
+A (576, 256 or 320 threads), one barrier a round, dynamic shared memory
+above 48 KB; every other even n from 4 to 118 runs one block of 256
+threads per matrix over shared memory with two barriers a round; every
+even n from 120 to 832, where A and Vᵀ pass a block's 227 KB, runs the
+same block kernel with 1024 threads and A and Vᵀ in a per-matrix device
+scratch (16 n² bytes) that the wrapper allocates. All round every
+operation as the plain version does, in its order, so all agree with it
+bit for bit.
 """
 
 from __future__ import annotations
@@ -185,7 +186,8 @@ _WARP_N = 32            # the n the warp-per-matrix kernel takes
 _WARPS_PER_BLOCK = 4
 _BLOCK_THREADS = 256
 _DEVICE_THREADS = 1024  # the device-memory variant
-_PAIR_N = 48            # the n the thread-per-2x2-block kernel takes
+# The pair kernel's widths: items (2x2 blocks) per thread.
+_PAIR_ITEMS = {48: 1, 64: 4, 80: 5}
 _MAX_SMEM = 232_448     # shared memory a Hopper block may use
 MAX_N = 832             # the widest n, the widest block of Kernel 2
 
@@ -205,13 +207,13 @@ def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
                     blocks=-(-batch // _WARPS_PER_BLOCK),
                     threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem,
                     scratch_bytes=0)
-    if n == _PAIR_N:
+    if n in _PAIR_ITEMS:
         # A and V^T double-buffered with rows padded to n + 8, the
-        # eigenvalues and three index tables; static shared memory.
+        # eigenvalues and three index tables.
         smem = 4 * (4 * n * (n + 8) + n) + 3 * 4 * n
         return dict(variant="thread-per-2x2-block, one barrier a round",
-                    blocks=batch, threads=(n // 2) ** 2, smem_bytes=smem,
-                    scratch_bytes=0)
+                    blocks=batch, threads=(n // 2) ** 2 // _PAIR_ITEMS[n],
+                    smem_bytes=smem, scratch_bytes=0)
     if _block_smem(n) > _MAX_SMEM:
         # c/s and the eigenvalues, four index tables; A and V^T,
         # double-buffered, in the scratch.
@@ -244,9 +246,9 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
     a: (B, n, n) float32, n even ≤ 832 (32 on the train path, 48 for the
     eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors
     launch ``csrc/jacobi.cu`` (one launch counted: the warp-per-matrix
-    kernel at n = 32, the thread-per-2x2-block kernel at n = 48, the
-    block-per-matrix kernel at any other n, over device memory above
-    n = 118); CPU tensors run :func:`jacobi_eigh_plain`."""
+    kernel at n = 32, the thread-per-2x2-block kernel at n = 48, 64 and
+    80, the block-per-matrix kernel at any other n, over device memory
+    above n = 118); CPU tensors run :func:`jacobi_eigh_plain`."""
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps, eps, descending)
     if a.device.type != "cuda":

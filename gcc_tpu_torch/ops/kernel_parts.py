@@ -16,13 +16,16 @@ live nodes stands for the node path's and the graph path's buckets),
 at the four shapes of PE 64 (``--cases pe64``: k = 64 on 4096 graphs at
 N = 128 and 256, k = 80 on 128 graphs at N = 256 and 64 at N = 512 —
 the wide plan — with the mean live nodes of chip_smoke.py's batches
-there: 56, 166, 174 and 381), and ``jacobi_eigh`` per sweep count, on random symmetric operators (the Jacobi launches are queued behind a few ms of
-other work, so the card's time is read and not the host's rate of
-launching). Kernel 2 skips the zero padding of the
-node axis, so its time depends on how many nodes are live: the operators
-are dense (all N live, the most work a shape can ask for) except one
-case with 56 live nodes of 128, the mean of the main path's small
-bucket. Prints the card's nvidia-smi name and power limit first. The
+there: 56, 166, 174 and 381), and ``jacobi_eigh`` per sweep count (0,
+1, 3, 5) on random symmetric matrices at each width's main-path batch —
+n = 32 and 48 on 4096, 48 on 128 and 64, PE 64's n = 64 on 4096 and
+n = 80 on 64 and one (its giant finish) — so that a round's cost can be
+read (the Jacobi launches are queued behind a few ms of other work, so
+the card's time is read and not the host's rate of launching). Kernel 2
+skips the zero padding of the node axis, so its time depends on how
+many nodes are live: the operators are dense (all N live, the most work
+a shape can ask for) except one case with 56 live nodes of 128, the
+mean of the main path's small bucket. Prints the card's nvidia-smi name and power limit first. The
 parts do not add up exactly to the whole: every schedule also loads M
 and writes the result.
 """
@@ -118,11 +121,12 @@ def main() -> None:
                   f" layout={plan['layout']} cluster={plan['cluster']} "
                   f"{name}: {ms:.4f} ms", flush=True)
         del a, m, q0
-    jacobi_cases = ((32, args.graphs), (48, args.graphs), (48, 128), (48, 64))
+    jacobi_cases = ((32, args.graphs), (48, args.graphs), (48, 128), (48, 64),
+                    (64, args.graphs), (80, 64), (80, 1))
     for n, g in jacobi_cases if args.cases in ("all", "jacobi") else ():
         t = torch.randn(g, n, n, device=dev, generator=gen)
         t = 0.5 * (t + t.transpose(1, 2))
-        for sweeps in (0, 1, 3):
+        for sweeps in (0, 1, 3, 5):
             ms = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps,
                                               descending=True), 20,
                           run_ahead=True)

@@ -285,13 +285,11 @@ def test_pe_plan_mirrors_the_source(cuda_device):
     assert lib.gcc_pe_plan(128, 833, out) != 0
 
 
-@pytest.mark.parametrize("n,batch", [(64, 1), (64, 4096), (80, 64),
-                                     (80, 3), (118, 5), (56, 7)])
+@pytest.mark.parametrize("n,batch", [(118, 5), (56, 7)])
 def test_jacobi_block_kernel_wide(cuda_device, n, batch):
-    """Even n above 48 (PE 64: n = 64 on the train profile, 80 on the eval
-    profile and the giant finish; 118 the widest block; 56 the first
-    beyond a plain launch's 48 KB) run the block kernel with dynamic
-    shared memory, bit for bit the plain version, both orders."""
+    """Even n above 48 beside PE 64's widths (118 the widest block; 56 the
+    first beyond a plain launch's 48 KB) run the block kernel with
+    dynamic shared memory, bit for bit the plain version, both orders."""
     a = torch.randn(batch, n, n, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(n))
     a = 0.5 * (a + a.transpose(1, 2))
@@ -304,6 +302,50 @@ def test_jacobi_block_kernel_wide(cuda_device, n, batch):
         assert jacobi.jacobi_eigh.launches == before + 1
         w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=3, descending=desc)
         assert torch.equal(w, w0) and torch.equal(v, v0)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 4096])
+@pytest.mark.parametrize("n", [64, 80])
+def test_jacobi_pair_kernel_wide(cuda_device, n, batch):
+    """PE 64's widths (n = 64 on the train profile, 80 on the eval profile
+    and the giant finish) run the pair kernel, 3 and 5 sweeps, both
+    orders, a diagonal matrix with repeated eigenvalues first: bit for
+    bit the plain version."""
+    a = torch.randn(batch, n, n, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
+    assert jacobi.jacobi_launch_plan(n, batch)["variant"].startswith(
+        "thread-per-2x2-block")
+    for sweeps in (3, 5):
+        for desc in (False, True):
+            before = jacobi.jacobi_eigh.launches
+            w, v = jacobi.jacobi_eigh(a, sweeps=sweeps, descending=desc)
+            assert jacobi.jacobi_eigh.launches == before + 1
+            w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=sweeps,
+                                              descending=desc)
+            assert torch.equal(w, w0) and torch.equal(v, v0)
+
+
+def test_jacobi_plan_mirrors_the_source(cuda_device):
+    """jacobi_launch_plan (Python) and gcc_jacobi_plan (csrc/jacobi.cu)
+    agree at every width the wrapper takes."""
+    import ctypes
+
+    lib = jacobi._jacobi_lib()
+    kernels = ("warp-per-matrix, registers",
+               "thread-per-2x2-block, one barrier a round",
+               "block-per-matrix, shared memory",
+               "block-per-matrix, device memory")
+    out = (ctypes.c_int * 4)()
+    for n in range(4, jacobi.MAX_N + 1, 2):
+        assert lib.gcc_jacobi_plan(n, out) == 0
+        plan = jacobi.jacobi_launch_plan(n)
+        assert [kernels[out[0]], *out[1:]] == [
+            plan["variant"], plan["threads"], plan["smem_bytes"],
+            plan["scratch_bytes"]], n
+    for n in (3, 2, 834):
+        assert lib.gcc_jacobi_plan(n, out) != 0
 
 
 @pytest.mark.parametrize("n", [834, 65])

@@ -143,10 +143,11 @@ def test_jacobi_plan_fits_a_block(n):
         assert plan["variant"].startswith("warp-per-matrix")
         assert plan["blocks"] * (plan["threads"] // 32) >= 4097
         assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
-    elif n == 48:
+    elif n in (48, 64, 80):
         assert plan["variant"].startswith("thread-per-2x2-block")
         assert plan["blocks"] == 4097
-        assert plan["smem_bytes"] <= 48 * 1024     # static shared memory
+        if n == 48:
+            assert plan["smem_bytes"] <= 48 * 1024     # a plain launch
     else:
         assert plan["variant"].startswith("block-per-matrix")
         assert plan["blocks"] == 4097
@@ -161,6 +162,33 @@ def test_jacobi_pair_plan(batch):
     assert plan["threads"] == 576 and plan["blocks"] == batch
     # A and V^T double-buffered, rows padded to 56 floats.
     assert plan["smem_bytes"] >= 4 * 48 * 56 * 4
+
+
+@pytest.mark.parametrize("batch", [1, 3, 64, 1037, 4096])
+@pytest.mark.parametrize("n", [64, 80])
+def test_jacobi_pair_plan_wide(n, batch):
+    """PE 64's widths (n = 64 on the train profile, 80 on the eval profile
+    and the giant finish) take the pair kernel: one block per matrix,
+    whole warps each mixing whole 2x2 blocks of A, a warp's rotations
+    (8 + 4 per block a thread mixes) within its 32 lanes, A and V^T
+    double-buffered with rows padded to n + 8 floats within a block."""
+    plan = jacobi.jacobi_launch_plan(n, batch)
+    assert plan["variant"] == "thread-per-2x2-block, one barrier a round"
+    assert plan["blocks"] == batch and plan["scratch_bytes"] == 0
+    threads = plan["threads"]
+    assert 0 < threads <= MAX_THREADS and threads % 32 == 0
+    assert (n // 2) ** 2 % threads == 0
+    items = (n // 2) ** 2 // threads
+    assert 8 + 4 * items <= 32 and (n // 2) % (4 * items) == 0
+    assert 4 * 4 * n * (n + 8) < plan["smem_bytes"] <= MAX_SMEM
+
+
+@pytest.mark.parametrize("n", [56, 118])
+def test_jacobi_block_plan_keeps_the_other_widths(n):
+    """Widths beside PE 64's keep the two-barrier block kernel."""
+    plan = jacobi.jacobi_launch_plan(n, 64)
+    assert plan["variant"] == "block-per-matrix, shared memory"
+    assert plan["threads"] == 256 and plan["blocks"] == 64
 
 
 @pytest.mark.parametrize("n", [3, 5, 33, 834, 65, 2, 0])
