@@ -106,9 +106,12 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    finish: Kernel 3 at (1, 80, 80)), card vs CPU.
 13. Wide widths (Kernel 2 above k = 80, Kernel 3 above n = 118): Kernel
    2's general plan against its plain version at (128, 256, 256), k = 96,
-   (64, 512, 512), k = 128 and (16, 832, 832), k = 256; Kernel 3's
-   device-memory variant at (64, 120, 120), (64, 128, 128) and (16, 256,
-   256), 3 sweeps, error 0, beside torch.linalg.eigh; encode calls
+   (64, 512, 512), k = 128 and (16, 832, 832), k = 256 (clusters of 1, 2
+   and 6 blocks a graph, each printed with its plan's variant and how many
+   such clusters the card holds at once); Kernel 3's two-barrier block
+   kernel at (128, 96, 96) (the PE-80 call's Rayleigh-Ritz matrices) and
+   its device-memory variant at (64, 120, 120), (64, 128, 128) and (16,
+   256, 256), 3 sweeps, error 0, beside torch.linalg.eigh; encode calls
    through generate_embeddings at PE 112 (n_max 512, batch 64: Kernel 2
    at k = 128, Kernel 3 at n = 128; the PE's row cosines card vs CPU by
    the eval-profile rules), PE 80 (n_max 256), PE 104 (Kernel 3 at n =
@@ -177,6 +180,8 @@ WIDE_V1 = ("the wide plan's first version (every product an f32 FMA on the "
            "CUDA cores, Q in device memory), H100 80GB HBM3, 700 W")
 BLOCK_JACOBI_PE64 = ("the two-barrier block-per-matrix kernel (queued behind "
                      "other work), H100 80GB HBM3, 700 W")
+GENERAL_V1 = ("the general plan's first version (f32 FMAs on bf16-rounded "
+              "operands, Q in device memory), H100 80GB HBM3, 700 W")
 EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", 32): (0.951, FIRST),
               ("featurize", 128): (0.1915, FIRST),
@@ -191,7 +196,10 @@ EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("pe", "512k80"): (6.6312, WIDE_V1),
               ("jacobi", "n64"): (6.3719, BLOCK_JACOBI_PE64),
               ("jacobi", "n80"): (0.6657, BLOCK_JACOBI_PE64),
-              ("jacobi", "giant80"): (1.0912, BLOCK_JACOBI_PE64)}
+              ("jacobi", "giant80"): (1.0912, BLOCK_JACOBI_PE64),
+              ("pe", "256k96"): (5.0374, GENERAL_V1),
+              ("pe", "512k128"): (8.7633, GENERAL_V1),
+              ("pe", "832k256"): (44.3354, GENERAL_V1)}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 # The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
@@ -1910,10 +1918,11 @@ def pe64_path(ops, cfg, small_items, large_items, check, results):
 def wide_widths_path(ops, cfg, check, results):
     """Every width the reference computes: Kernel 2's general plan against
     its plain version at (128, 256, 256), k = 96 (PE 80 + 16 guards),
-    (64, 512, 512), k = 128 (PE 112 + 16) and (16, 832, 832), k = 256 (G
-    in device memory), untimed at k = 120; Kernel 3's device-memory
-    variant at (64, 120, 120), (64, 128, 128) and (16, 256, 256), 3 sweeps,
-    on those outputs' Rayleigh-Ritz matrices, error 0, beside
+    (64, 512, 512), k = 128 (PE 112 + 16) and (16, 832, 832), k = 256
+    (clusters of 1, 2 and 6 blocks a graph), untimed at k = 120; Kernel
+    3's two-barrier block kernel at (128, 96, 96) and its device-memory
+    variant at (64, 120, 120), (64, 128, 128) and (16, 256, 256), 3
+    sweeps, on those outputs' Rayleigh-Ritz matrices, error 0, beside
     torch.linalg.eigh. Then the WIDE_CALLS encode calls through
     generate_embeddings, the launch counters zeroed before each (Kernel 2
     once, Kernel 3 twice, no plain-version call), the PE 112 call's PE row
@@ -1927,6 +1936,7 @@ def wide_widths_path(ops, cfg, check, results):
     from gcc_tpu_torch.features.featurize import featurize_batch
     from gcc_tpu_torch.graph.batch import batch_subgraphs
     from gcc_tpu_torch.models import GraphEncoder
+    from gcc_tpu_torch.ops.pe import general_clusters, pe_launch_plan
 
     dev = torch.device("cuda")
     # -- the kernels at the new widths -------------------------------------
@@ -1936,9 +1946,25 @@ def wide_widths_path(ops, cfg, check, results):
         m_shift, n_nodes = entire_graph_operator(
             random_graphs(n_b + k, count, lo, n_b), n_b, GEN_E_MAX, dev)
         key = f"{n_b}k{k}"
+        plan = pe_launch_plan(n_b, k, count, tuple(
+            general_clusters(c) for c in range(1, 9)))
+        held = general_clusters(plan["cluster"])
+        print(f"pe ({count}, {n_b}, {n_b}) k={k}: plan {plan['plan']}, "
+              f"cluster of {plan['cluster']} (the card holds {held} such "
+              f"clusters at once); {plan['variant']}", flush=True)
+        check(plan["plan"] == "general" and (plan["cluster"] == 1
+                                             or held >= count),
+              f"pe ({count}, {n_b}, {n_b}) k={k}: the general plan's "
+              f"{count} clusters of {plan['cluster']} fit the card at once")
         results[("pe", key)], q = check_pe(m_shift, n_nodes, k, check,
                                            key=key)
-        if k == 128:
+        if k == 96:
+            s_g, t_rr = guarded_rr_matrices(m_shift, q)
+            check_jacobi(s_g, check, timed=False, exact=True)
+            results[("jacobi", "n96")] = check_jacobi(
+                t_rr, check, key="n96", exact=True)
+            del s_g, t_rr
+        elif k == 128:
             s_g, t_rr = guarded_rr_matrices(m_shift, q)
             check_jacobi(s_g, check, timed=False, exact=True)
             results[("jacobi", "n128")] = check_jacobi(
@@ -2000,6 +2026,7 @@ def wide_widths_path(ops, cfg, check, results):
     return {("pe", "512k128"): launches[112]["pe"],
             ("jacobi", "n128"): launches[112]["jacobi"],
             ("pe", "256k96"): launches[80]["pe"],
+            ("jacobi", "n96"): launches[80]["jacobi"],
             ("jacobi", "n120"): launches[104]["jacobi"],
             ("pe", "832k256"): launches[240]["pe"],
             ("jacobi", "n256"): launches[240]["jacobi"]}

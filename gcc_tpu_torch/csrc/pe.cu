@@ -108,8 +108,10 @@
 // (0.24 and 1.03 ms at peak): the f32 work on the CUDA cores.
 //
 // Widths 80 < k <= 832 take the GENERAL plan (pe_general_kernel, at the
-// end): Q in a device scratch, every product an f32 FMA on the CUDA cores
-// on operands rounded to bf16 where the reference rounds them.
+// end): a cluster of blocks per graph sized by the batch, every step a
+// GEMM of 128 x 64 tiles over operands in a device scratch (bf16 copies of
+// M and Q for the rounds, on the tensor cores with the A operand split;
+// f32 copies for the polish and finish, on the CUDA cores).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1885,389 +1887,804 @@ int launch_big(const BigPlan& p, const void* m, const void* q0, void* out,
 
 // ---- the general plan: 80 < k <= 832, every N <= 832 -------------------
 //
-// Widths above 80 (PE 72 and more with the eval profile's 16 guards, PE 81
+// Widths above 80 (PE 66 and more with the eval profile's 16 guards, PE 81
 // and more on the train profile) are reached by no configuration the
 // repository ships, but the reference computes them: it sends every bucket
-// with N*N*6 <= 4 MiB to its kernel whatever k. This plan takes them, the
-// simple kernel, right first: Q in a device scratch, where the L1 and L2
-// caches serve it, and every product an f32 FMA on the CUDA cores on
-// operands rounded to bf16 where the reference rounds them (a product of
-// two bf16 values is exact in f32, so each sum is the plain version's
-// arithmetic in another order). Its time is in PERF.md.
-//   * One block per graph up to N = 256 (256 threads); above, a cluster
-//     of two blocks of 512 threads: the blocks split every product's items
-//     and every write of Q, each keeps its own copy of G, and a cluster
-//     barrier follows every write. Q is stored as (N, kp), row c holding
-//     column c of Q^T, four copies in a device scratch: f32 and its bf16
-//     rounding (kept as f32), each double-buffered, so no step reads what
-//     it writes.
-//   * G (kp x kp f32) in shared memory up to kp = 240 (230,400 B of the
-//     232,448 a block may use); above, each block's copy in the scratch.
-//   * A thread computes one (CW columns, 16-row tile) item of a product at
-//     a time: 16·CW accumulators, the tile's 16 values of one operand read
-//     as four float4 (the same address across most of a warp: a
-//     broadcast) for every CW values of the other. CW = 4 above N = 128,
-//     else 1 (small graphs need the items more than the reuse). The power
-//     step streams M[j][c0..] and rounds it to bf16 where the round does;
-//     the Newton-Schulz update reads lo(G) and rows c0.. of lo(Q). Each
-//     output's sum runs over its depth in order, whatever CW.
-//   * The Gram is 4 x 4 tiles of its upper triangle, one a thread,
-//     mirrored, so G is symmetric bit for bit and lo(G) is formed in place.
-//   * Work follows the data: the live extent of M and q0 is found first,
-//     and every loop runs over it only (skipped terms are exact zeros).
+// with N*N*6 <= 4 MiB to its kernel whatever k. No fixed tile of Q^T fits
+// a warp's registers at these widths (k = 832 would take 416 accumulators
+// a lane), so this plan is a chain of small batched GEMMs, every operand
+// in a device scratch that stays in L2, tiles streamed through shared
+// memory. What bounds it on the card: operations — at (16, 832, 832), k =
+// 256, the bf16 rounds are four fifths of the operations, and the f32
+// polish and finish (a fifteenth of the bf16 rate) four fifths of the
+// bound. What holds this design back (PERF.md): the issue slots of the
+// tensor-core loop (the split A operand costs four IEEE adds per mma) and
+// the f32 tiles at about half the FMA rate; the rounds take over half the
+// time.
+//   * A thread block CLUSTER per graph: the most blocks (at most 8, the
+//     portable size) whose batch x cluster fits one wave of the card's 132
+//     SMs and whose clusters the card holds at once (it is asked: a GPC
+//     holds whole clusters, and an H100 80GB HBM3 holds 15 of 8 blocks,
+//     17 of 6): 6 at a batch of 16, 2 at 64, 1 from 67 up. 512 threads a
+//     block. Every step is one GEMM whose 128 x 64 output tiles
+//     are dealt to the cluster's blocks round robin; a cluster barrier
+//     (release/acquire, which also orders the scratch in device memory)
+//     closes the step. A tile's result does not depend on which block
+//     computes it, so the output does not depend on the batch.
+//   * Q is stored as (N, kp), row c holding column c of Q^T: an f32 copy
+//     and a bf16 copy, each double-buffered; M's bf16 copy (N, N) is made
+//     once, by the prologue that also finds the live extent. G (kp, kp) in
+//     f32 (two buffers) and bf16. Every step reads its operands at the live
+//     extent only: at (16, 832, 832), k = 256 a power step touches 27 MB
+//     (lo(M) and the two copies of lo(Q)), well inside the 50 MB L2.
+//   * The bf16 rounds on the tensor cores: mma.sync m16n8k16, bf16 inputs,
+//     f32 accumulators, operands by ldmatrix from a four-stage cp.async
+//     ring of 64-deep slices (one barrier a slice; a block's tiles run as
+//     one stream of slices, so the next tile's loads overlap this one's
+//     last slices). 16 warps as 4 x 4, 32 x 16 outputs a warp. The A
+//     operand is split in two (mma_step<true>, as the wide plan's
+//     five-tile widths): the tensor core cuts its sums.
+//     Power step Q <- lo(M)^T lo(Q) (A = lo(M) as stored, M[j][c], read
+//     with ldmatrix.trans: M[c][j] never stands in for it), Gram lo(Q)^T
+//     lo(Q), update Q <- 1.5 Q - 0.5 lo(Q) lo(G).
+//   * The f32 steps (polish, finish, and every round when lo = 0) on the
+//     CUDA cores: the same tiles from the ring in 32-deep f32 slices, a
+//     thread owns a 4 x 4 register tile (16 FMAs per two 128-bit loads:
+//     the shared memory's 128 B a clock, not the FMAs, bounds them). No
+//     TF32.
+//   * The Gram's tiles cover its upper triangle only and each is written
+//     twice, at (a, b) and (b, a), so G is symmetric bit for bit: the
+//     update reads row b of G as column b, and the Gershgorin sums read a
+//     column as the row.
+//   * colunit's sums of squares and the Gershgorin sums in f64, rounded to
+//     f32 once (see SqSum): the sums of squares in fixed chunks of 128
+//     rows, added in chunk order. The 1e-20 floors. bf16 rounding exactly
+//     where the plain version rounds.
+//   * Work follows the data: every GEMM runs over the live rows and columns
+//     only (the extent rounded up to 32; skipped terms are exact zeros),
+//     tiles beyond it are zero-filled by cp.async, and zeros come out
+//     beyond it.
 
 constexpr int kGenMaxN = 832;
 constexpr int kGenMaxK = 832;
-constexpr int kGenSmemKp = 240;   // G in shared memory up to this kp
+constexpr int kGenThreads = 512;
+constexpr int kGenMaxCluster = 8;   // the portable cluster size
+constexpr int kGenSms = 132;        // an H100's SMs: batch x cluster fills them
+constexpr int kGenBm = 128, kGenBn = 64;   // output tile
+constexpr int kGenBkLo = 64, kGenBkF = 32;   // depth of a bf16 / f32 slice
+constexpr int kGenStages = 4;       // slices in the ring, 3 copies in flight
+constexpr int kGenChunk = 128;      // rows of a partial sum of squares
+// Row strides (elements) of the staged slices, padded so that ldmatrix's
+// eight rows and the f32 steps' 128-bit loads fall on distinct banks.
+constexpr int kLdAk = kGenBm + 8;     // bf16 A, depth-major [k][m]
+constexpr int kLdAm = kGenBkLo + 8;   // bf16 A, row-major [m][k]
+constexpr int kLdB = kGenBn + 8;      // bf16 B [k][n]
+constexpr int kLdFk = kGenBm + 4;     // f32 A, depth-major
+constexpr int kLdFm = kGenBkF + 4;    // f32 A, row-major
+constexpr int kLdFb = kGenBn + 4;     // f32 B
+constexpr int kOffBLo =               // bytes: a bf16 slice's B after its A
+    2 * (kGenBm * kLdAm > kGenBkLo * kLdAk ? kGenBm * kLdAm
+                                           : kGenBkLo * kLdAk);
+constexpr int kOffBF =                // bytes: an f32 slice's B after its A
+    4 * (kGenBm * kLdFm > kGenBkF * kLdFk ? kGenBm * kLdFm : kGenBkF * kLdFk);
+constexpr int kStageLo = kOffBLo + 2 * kGenBkLo * kLdB;
+constexpr int kStageF = kOffBF + 4 * kGenBkF * kLdFb;
+constexpr int kGenStage = kStageLo > kStageF ? kStageLo : kStageF;
+constexpr int kGenMisc = 256;       // per-warp partials, the scale, the extent
 
 struct GenPlan {
-  int n, k, kp, threads, smem;
+  int n, k, kp;
   int cluster;         // blocks per graph
-  int cw;              // columns an item (1 or 4)
-  int g_smem;          // 1: G in shared memory; 0: each block's in the scratch
-  long long scratch;   // bytes per graph: 4 (N, kp) f32 copies of Q [+ G's]
+  int tiles;           // most tiles of a power step a block takes, all N live
+  int smem;            // bytes of dynamic shared memory
+  long long scratch;   // bytes of device scratch per graph
 };
 
-// Shapes: n a multiple of 32 up to 832, 80 < k <= 832.
-inline bool pe_general_plan(int n, int k, GenPlan* p) {
+// Shapes: n a multiple of 32 up to 832, 80 < k <= 832, any batch.
+// held[c]: how many clusters of c blocks the card holds at once (c = 1 ..
+// 8), or null to ask only whether the shape is the plan's. The cluster is
+// the largest c whose batch x c blocks fit one wave of the SMs and whose
+// batch of clusters the card holds at once: a GPC holds whole clusters
+// only, and an H100 80GB HBM3 holds 15 clusters of 8 blocks, not 16.
+inline bool pe_general_plan(int n, int k, int batch, const int* held,
+                            GenPlan* p) {
   if (n < 32 || n > kGenMaxN || n % 32 != 0 || k <= 16 * kMaxKt ||
       k > kGenMaxK)
     return false;
   p->n = n; p->k = k;
-  p->kp = (k + 15) / 16 * 16;
-  p->threads = n <= 256 ? 256 : 512;
-  p->cluster = n <= 256 ? 1 : 2;
-  p->cw = n <= 128 ? 1 : 4;
-  p->g_smem = p->kp <= kGenSmemKp;
-  // G (where it is in shared memory), the row norms, the Gershgorin scale
-  // and the extent.
-  p->smem = (p->g_smem ? p->kp * p->kp * 4 : 0) + p->kp * 4 + 16;
-  p->scratch = 4LL * n * p->kp * 4 +
-               (p->g_smem ? 0 : (long long)p->cluster * p->kp * p->kp * 4);
+  p->kp = align16(k);
+  p->cluster = 1;
+  for (int c = 2; held && c <= kGenMaxCluster; ++c)
+    if ((long long)batch * c <= kGenSms && batch <= held[c]) p->cluster = c;
+  const int tiles =
+      ((n + kGenBm - 1) / kGenBm) * ((p->kp + kGenBn - 1) / kGenBn);
+  p->tiles = (tiles + p->cluster - 1) / p->cluster;
+  p->smem = kGenStages * kGenStage + p->kp * 4 + kGenMisc;
+  // lo(M) | f32 Q x 2 | bf16 Q x 2 | f32 G x 2 | bf16 G | partial sums of
+  // squares | the blocks' extents. Every part a multiple of 256 bytes.
+  const long long nn = n, kp = p->kp;
+  const long long part = ((n + kGenChunk - 1) / kGenChunk) * kp * 8;
+  p->scratch = 2 * nn * nn + 12 * nn * kp + 10 * kp * kp +
+               (part + 255) / 256 * 256 + 256;
   return true;
 }
 
-__device__ __forceinline__ float bf_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-struct Gen {
-  int n, ne, kp, tid, nthreads, warp, lane, nwarps;
-  int rank, csize;                // this block's place in the graph's cluster
-  const float* m;                 // this graph's M (n, n)
-  float* qf[2];                   // f32 Q (n, kp), double-buffered
-  float* ql[2];                   // lo(Q), the same
-  int cur;
-  float* gram;                    // (kp, kp), this block's
-  float* red;                     // kp
-  float* scal;
-  // This thread's first index and stride over work split by the cluster.
-  __device__ int first() const { return rank * nthreads + tid; }
-  __device__ int stride() const { return csize * nthreads; }
+struct Gx {
+  int n, kp, ne;         // ne: live nodes, a multiple of 32
+  int tid, rank, csize;  // this thread, this block in its cluster, blocks
+  const float* m;        // this graph's M (n, n), f32, as stored
+  bf16* mlo;             // (n, n) bf16 copy of M
+  float* qf[2];          // (n, kp) f32 Q, double-buffered
+  bf16* ql[2];           // (n, kp) bf16 Q, double-buffered
+  float* ga;             // (kp, kp) f32 G
+  float* gb;             // (kp, kp) f32 G scaled (the f32 finish's first step)
+  bf16* glo;             // (kp, kp) bf16 G
+  double* part;          // (ceil(n / 128), kp) partial sums of squares
+  float* red;            // shared: (kp) row norms
+  double* wred;          // shared: (16) per-warp maxima
+  float* scal;           // shared: the Gershgorin scale
+  int f, cur;            // which f32 copy and which bf16 copy hold Q
 };
 
-// Every write to the graph's Q (in device memory) is followed by this:
-// a block barrier, or with a cluster of blocks a cluster barrier, whose
+// Every step ends here: a block barrier, or a cluster barrier whose
 // release/acquire also orders the device-memory writes between blocks.
-__device__ __forceinline__ void gen_sync(const Gen& x) {
-  if (x.csize > 1) cooperative_groups::this_cluster().sync();
+__device__ __forceinline__ void gsync(const Gx& x) {
+  if (x.csize > 1) cg::this_cluster().sync();
   else __syncthreads();
 }
 
-// Writes item (columns c0..c0+CW-1, tile mt) of the next buffers.
-template <int CW>
-__device__ __forceinline__ void gen_store(Gen& x, int c0, int mt,
-                                          const float (&acc)[CW][16]) {
-#pragma unroll
-  for (int u = 0; u < CW; ++u) {
-    const int at = (c0 + u) * x.kp + mt * 16;
-    float4* f = reinterpret_cast<float4*>(x.qf[x.cur ^ 1] + at);
-    float4* l = reinterpret_cast<float4*>(x.ql[x.cur ^ 1] + at);
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const float* a = &acc[u][4 * v];
-      f[v] = make_float4(a[0], a[1], a[2], a[3]);
-      l[v] = make_float4(bf_round(a[0]), bf_round(a[1]), bf_round(a[2]),
-                         bf_round(a[3]));
-    }
-  }
+// A 16-byte copy to shared memory, zeros where !ok (nothing is read).
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
 }
 
-// acc[u][i] += a[i] * b[u]: 16 values of one operand (four float4, a
-// broadcast across the warp) against CW of the other.
-template <int CW>
-__device__ __forceinline__ void fma_tile(float (&acc)[CW][16],
-                                         const float* a, const float* b) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-#pragma unroll
-  for (int v = 0; v < 4; ++v) {
-    const float4 q = a4[v];
-#pragma unroll
-    for (int u = 0; u < CW; ++u) {
-      acc[u][4 * v] = fmaf(q.x, b[u], acc[u][4 * v]);
-      acc[u][4 * v + 1] = fmaf(q.y, b[u], acc[u][4 * v + 1]);
-      acc[u][4 * v + 2] = fmaf(q.z, b[u], acc[u][4 * v + 2]);
-      acc[u][4 * v + 3] = fmaf(q.w, b[u], acc[u][4 * v + 3]);
-    }
+// The output tiles of a step: tm x tn tiles of 128 x 64, or (upper) those
+// of a kp x kp Gram that hold an entry (a, b) with a <= b: J >= 2 I.
+struct Tiles {
+  int tm, tn;
+  bool upper;
+  __device__ int count() const {
+    if (!upper) return tm * tn;
+    int s = 0;
+    for (int i = 0; i < tm; ++i) s += max(0, tn - 2 * i);
+    return s;
   }
-}
+  __device__ void at(int t, int& i, int& j) const {
+    if (!upper) { i = t / tn; j = t - i * tn; return; }
+    i = 0;
+    while (t >= tn - 2 * i) { t -= tn - 2 * i; ++i; }
+    j = 2 * i + t;
+  }
+};
 
-// Columns c0..c0+CW-1 of row j of M, rounded to bf16 when lo.
-template <int CW>
-__device__ __forceinline__ void load_m(const float* row, bool lo,
-                                       float (&mv)[CW]) {
-  if constexpr (CW == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(row));
-    mv[0] = v.x; mv[1] = v.y; mv[2] = v.z; mv[3] = v.w;
-  } else {
-    mv[0] = __ldg(row);
-  }
-  if (lo) {
-#pragma unroll
-    for (int u = 0; u < CW; ++u) mv[u] = bf_round(mv[u]);
-  }
-}
+// The general plan's dynamic shared memory: the ring of slices, then the
+// row norms and the reductions' scratch. Named at file scope so that every
+// access compiles to a shared-memory instruction.
+extern __shared__ __align__(16) unsigned char gen_smem[];
 
-// Q^T <- A(Q^T) M, A = lo or f32, M rounded to bf16 when lo. An item is
-// CW columns c0.. (CW = 4: one float4 of a row of M) by one 16-row tile.
-template <int CW>
-__device__ void gen_power(Gen& x, bool lo) {
-  const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
-  const int groups = x.ne / CW, items = groups * (x.kp / 16);
-  for (int it = x.first(); it < items; it += x.stride()) {
-    const int mt = it / groups, c0 = CW * (it - mt * groups);
-    float acc[CW][16] = {};
-    for (int j = 0; j < x.ne; ++j) {
-      float mv[CW];
-      load_m<CW>(x.m + (size_t)j * x.n + c0, lo, mv);
-      fma_tile<CW>(acc, a + j * x.kp + mt * 16, mv);
-    }
-    gen_store<CW>(x, c0, mt, acc);
+// The next slice of a block's stream of tiles: its tile's origin, its
+// depth offset and its stage of the ring. Advanced without a division.
+struct Cursor {
+  int tile, k0, m0, n0, stage;
+  __device__ void start(const Gx& x, const Tiles& tl, int mine) {
+    tile = 0; k0 = 0; stage = 0;
+    if (mine) origin(x, tl);
   }
-  gen_sync(x);
-  x.cur ^= 1;
-}
+  __device__ void origin(const Gx& x, const Tiles& tl) {
+    int ti, tj;
+    tl.at(x.rank + tile * x.csize, ti, tj);
+    m0 = ti * kGenBm; n0 = tj * kGenBn;
+  }
+  // Returns true where this slice ended its tile.
+  __device__ bool next(const Gx& x, const Tiles& tl, int mine, int K,
+                       int bk) {
+    stage = stage + 1 == kGenStages ? 0 : stage + 1;
+    k0 += bk;
+    if (k0 < K) return false;
+    k0 = 0;
+    if (++tile < mine) origin(x, tl);
+    return true;
+  }
+};
 
-// Rows of Q^T scaled to unit norm (floor 1e-20), in place. Every block
-// of the cluster sums all of them; each scales its share.
-__device__ void gen_colunit(Gen& x) {
-  float* q = x.qf[x.cur];
-  float* l = x.ql[x.cur];
-  for (int r = x.warp; r < x.kp; r += x.nwarps) {
-    double s = 0.0;   // f64, rounded once (see SqSum)
-    for (int c = x.lane; c < x.ne; c += 32) s = sq_add(s, q[c * x.kp + r]);
-    for (int off = 16; off > 0; off >>= 1)
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-    if (x.lane == 0) x.red[r] = fmaxf(__fsqrt_rn((float)s), 1e-20f);
-  }
-  gen_sync(x);   // every block has read Q before any block rewrites it
-  for (int idx = x.first(); idx < x.ne * x.kp; idx += x.stride()) {
-    const float v = __fdiv_rn(q[idx], x.red[idx % x.kp]);
-    q[idx] = v;
-    l[idx] = bf_round(v);
-  }
-  gen_sync(x);
-}
-
-// G = A(Q^T) A(Q^T)^T into this block's G (every block of the cluster),
-// 4 x 4 tiles of the upper triangle mirrored into the lower.
-__device__ void gen_gram(Gen& x, bool lo) {
-  const int kq = x.kp / 4, tiles = kq * (kq + 1) / 2;
-  const float* q = lo ? x.ql[x.cur] : x.qf[x.cur];
-  for (int tile = x.tid; tile < tiles; tile += x.nthreads) {
-    int ta = 0, tb = tile;
-    while (tb >= kq - ta) { tb -= kq - ta; ++ta; }
-    tb += ta;
-    float acc[4][4] = {};
-    for (int c = 0; c < x.ne; ++c) {
-      const float4 av =
-          *reinterpret_cast<const float4*>(q + c * x.kp + 4 * ta);
-      const float4 bv =
-          *reinterpret_cast<const float4*>(q + c * x.kp + 4 * tb);
-      const float a4[4] = {av.x, av.y, av.z, av.w};
-      const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+// out[m][n] = sum over k < K of A(m, k) B(k, n) for m < M, n < N, on the
+// tensor cores; epi(m, n, v0, v1) takes outputs (m, n) and (m, n + 1). A is
+// bf16 in device memory, depth-major (AK: A(m, k) = A[k * lda + m]) or
+// row-major (A[m * lda + k]); B is bf16, B(k, n) = B[k * ldb + n]. Each
+// output's sum runs over k in order, one 16-deep step at a time. The
+// block's tiles run as one stream of 64-deep slices through the ring, so
+// the next tile's first slices are in flight during this tile's last ones
+// and its epilogue.
+template <bool AK, class Epi>
+__device__ void gemm_lo(const Gx& x, const bf16* A, int lda, const bf16* B,
+                        int ldb, int M, int N, int K, bool upper, Epi epi) {
+  constexpr int bk = kGenBkLo;
+  const Tiles tl{(M + kGenBm - 1) / kGenBm, (N + kGenBn - 1) / kGenBn, upper};
+  const int ntiles = tl.count();
+  const int mine = ntiles > x.rank ? (ntiles - x.rank - 1) / x.csize + 1 : 0;
+  const int tid = x.tid, warp = tid >> 5, lane = tid & 31;
+  const int wm = (warp >> 2) * 32, wn = (warp & 3) * 16;
+  const int slices = mine * ((K + bk - 1) / bk);
+  const int lr = lane & 15, lc = (lane >> 4) * 8;
+  // ldmatrix.trans of a depth-major A: this lane's row of matrix lane / 8.
+  const int ak = (lane & 7) + 8 * (lane >> 4), am = 8 * ((lane >> 3) & 1);
+  const int g = lane >> 2, t4 = lane & 3;
+  Cursor ld, cp;
+  ld.start(x, tl, mine);
+  cp.start(x, tl, mine);
+  int loaded = 0;
+  auto load = [&]() {
+    if (loaded < slices) {
+      unsigned char* st = gen_smem + ld.stage * kGenStage;
+      bf16* as = reinterpret_cast<bf16*>(st);
+      bf16* bs = reinterpret_cast<bf16*>(st + kOffBLo);
+      const int k0 = ld.k0, m0 = ld.m0, n0 = ld.n0;
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a4[i], b4[j], acc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int a = 4 * ta + i, b = 4 * tb + j;
-        x.gram[a * x.kp + b] = acc[i][j];
-        x.gram[b * x.kp + a] = acc[i][j];
+      for (int h = 0; h < 2; ++h) {
+        const int idx = tid + h * kGenThreads;
+        if (AK) {
+          const int kk = idx >> 4, mm = (idx & 15) * 8;
+          const bool ok = k0 + kk < K && m0 + mm < M;
+          cp_async16z(as + kk * kLdAk + mm,
+                      ok ? A + (size_t)(k0 + kk) * lda + m0 + mm : A, ok);
+        } else {
+          const int mm = idx >> 3, kk = (idx & 7) * 8;
+          const bool ok = m0 + mm < M && k0 + kk < K;
+          cp_async16z(as + mm * kLdAm + kk,
+                      ok ? A + (size_t)(m0 + mm) * lda + k0 + kk : A, ok);
+        }
       }
-  }
-  gen_sync(x);   // and every block has read Q before it is rewritten
-}
-
-// Newton-Schulz update Q^T <- 1.5 Q^T - 0.5 G A(Q^T) (G already
-// A-rounded), the power step's items.
-template <int CW>
-__device__ void gen_update(Gen& x, bool lo) {
-  const float* a = lo ? x.ql[x.cur] : x.qf[x.cur];
-  const float* f = x.qf[x.cur];
-  const int groups = x.ne / CW, items = groups * (x.kp / 16);
-  for (int it = x.first(); it < items; it += x.stride()) {
-    const int mt = it / groups, c0 = CW * (it - mt * groups);
-    float acc[CW][16] = {};
-    // G is symmetric bit for bit: row b of G is column b.
-    for (int b = 0; b < x.kp; b += 4) {
-      float4 qv[CW];
+      const int kk = tid >> 3, nn = (tid & 7) * 8;
+      const bool ok = k0 + kk < K && n0 + nn < N;
+      cp_async16z(bs + kk * kLdB + nn,
+                  ok ? B + (size_t)(k0 + kk) * ldb + n0 + nn : B, ok);
+      ld.next(x, tl, mine, K, bk);
+      ++loaded;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  float acc[2][2][4];
 #pragma unroll
-      for (int u = 0; u < CW; ++u)
-        qv[u] = *reinterpret_cast<const float4*>(a + (c0 + u) * x.kp + b);
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        float col[CW];
+    for (int nt = 0; nt < 2; ++nt)
 #pragma unroll
-        for (int u = 0; u < CW; ++u)
-          col[u] = bb == 0 ? qv[u].x : bb == 1 ? qv[u].y
-                 : bb == 2 ? qv[u].z : qv[u].w;
-        fma_tile<CW>(acc, x.gram + (b + bb) * x.kp + mt * 16, col);
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kGenStages - 1; ++s) load();
+  for (int s = 0; s < slices; ++s) {
+    // Slice s has landed for every thread, and every warp is done with
+    // slice s - 1, whose stage the next copy refills.
+    asm volatile("cp.async.wait_group %0;" :: "n"(kGenStages - 2) : "memory");
+    __syncthreads();
+    load();
+    const unsigned char* st = gen_smem + cp.stage * kGenStage;
+    const bf16* as = reinterpret_cast<const bf16*>(st);
+    const bf16* bs = reinterpret_cast<const bf16*>(st + kOffBLo);
+#pragma unroll
+    for (int ks = 0; ks < bk / 16; ++ks) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, bs + (ks * 16 + lr) * kLdB + wn + lc);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        uint32_t a[4];
+        if (AK)
+          ldsm_x4_trans(a, as + (ks * 16 + ak) * kLdAk + wm + mt * 16 + am);
+        else
+          ldsm_x4(a, as + (wm + mt * 16 + lr) * kLdAm + ks * 16 + lc);
+        mma_step<true>(acc[mt][0], a, b[0], b[1]);
+        mma_step<true>(acc[mt][1], a, b[2], b[3]);
       }
     }
+    const int m0 = cp.m0, n0 = cp.n0;
+    if (!cp.next(x, tl, mine, K, bk)) continue;
 #pragma unroll
-    for (int u = 0; u < CW; ++u) {
-      const float* q = f + (c0 + u) * x.kp + mt * 16;
+    for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int i = 0; i < 16; ++i)
-        acc[u][i] = __fsub_rn(__fmul_rn(1.5f, q[i]),
-                              __fmul_rn(0.5f, acc[u][i]));
-    }
-    gen_store<CW>(x, c0, mt, acc);
+      for (int nt = 0; nt < 2; ++nt) {
+        const int m = m0 + wm + mt * 16 + g, n = n0 + wn + nt * 8 + 2 * t4;
+        if (n < N) {
+          if (m < M) epi(m, n, acc[mt][nt][0], acc[mt][nt][1]);
+          if (m + 8 < M) epi(m + 8, n, acc[mt][nt][2], acc[mt][nt][3]);
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+      }
   }
-  gen_sync(x);
-  x.cur ^= 1;
 }
 
-// Newton-Schulz: colunit, Gershgorin scale, `steps` updates
-// Q^T <- 1.5 Q^T - 0.5 A(G) A(Q^T), A = lo or f32.
-template <int CW>
-__device__ void gen_ns(Gen& x, int steps, bool lo) {
-  gen_colunit(x);
-  gen_gram(x, lo);
-  gershgorin<true>(x);
+// The same product in f32 on the CUDA cores (32-deep slices): A and B
+// f32, a thread owns rows 4 ty .. 4 ty + 3 by columns 4 tx .. 4 tx + 3 of
+// the tile; a warp's lanes take 4 rows of threads by 8 columns.
+template <bool AK, class Epi>
+__device__ void gemm_f32(const Gx& x, const float* A, int lda, const float* B,
+                         int ldb, int M, int N, int K, bool upper, Epi epi) {
+  constexpr int bk = kGenBkF;
+  const Tiles tl{(M + kGenBm - 1) / kGenBm, (N + kGenBn - 1) / kGenBn, upper};
+  const int ntiles = tl.count();
+  const int mine = ntiles > x.rank ? (ntiles - x.rank - 1) / x.csize + 1 : 0;
+  const int tid = x.tid, warp = tid >> 5, lane = tid & 31;
+  const int ty = (warp >> 1) * 4 + (lane >> 3);
+  const int tx = (warp & 1) * 8 + (lane & 7);
+  const int slices = mine * ((K + bk - 1) / bk);
+  Cursor ld, cp;
+  ld.start(x, tl, mine);
+  cp.start(x, tl, mine);
+  int loaded = 0;
+  auto load = [&]() {
+    if (loaded < slices) {
+      unsigned char* st = gen_smem + ld.stage * kGenStage;
+      float* as = reinterpret_cast<float*>(st);
+      float* bs = reinterpret_cast<float*>(st + kOffBF);
+      const int k0 = ld.k0, m0 = ld.m0, n0 = ld.n0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = tid + h * kGenThreads;
+        if (AK) {
+          const int kk = idx >> 5, mm = (idx & 31) * 4;
+          const bool ok = k0 + kk < K && m0 + mm < M;
+          cp_async16z(as + kk * kLdFk + mm,
+                      ok ? A + (size_t)(k0 + kk) * lda + m0 + mm : A, ok);
+        } else {
+          const int mm = idx >> 3, kk = (idx & 7) * 4;
+          const bool ok = m0 + mm < M && k0 + kk < K;
+          cp_async16z(as + mm * kLdFm + kk,
+                      ok ? A + (size_t)(m0 + mm) * lda + k0 + kk : A, ok);
+        }
+      }
+      const int kk = tid >> 4, nn = (tid & 15) * 4;
+      const bool ok = k0 + kk < K && n0 + nn < N;
+      cp_async16z(bs + kk * kLdFb + nn,
+                  ok ? B + (size_t)(k0 + kk) * ldb + n0 + nn : B, ok);
+      ld.next(x, tl, mine, K, bk);
+      ++loaded;
+    }
+    asm volatile("cp.async.commit_group;" ::: "memory");
+  };
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+#pragma unroll
+  for (int s = 0; s < kGenStages - 1; ++s) load();
+  for (int s = 0; s < slices; ++s) {
+    asm volatile("cp.async.wait_group %0;" :: "n"(kGenStages - 2) : "memory");
+    __syncthreads();
+    load();
+    const unsigned char* st = gen_smem + cp.stage * kGenStage;
+    const float* as = reinterpret_cast<const float*>(st);
+    const float* bs = reinterpret_cast<const float*>(st + kOffBF) + 4 * tx;
+    if (AK) {
+      as += 4 * ty;
+#pragma unroll 8
+      for (int kk = 0; kk < bk; ++kk) {
+        const float4 a = *reinterpret_cast<const float4*>(as + kk * kLdFk);
+        const float4 b = *reinterpret_cast<const float4*>(bs + kk * kLdFb);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][0] = fmaf(av[i], b.x, acc[i][0]);
+          acc[i][1] = fmaf(av[i], b.y, acc[i][1]);
+          acc[i][2] = fmaf(av[i], b.z, acc[i][2]);
+          acc[i][3] = fmaf(av[i], b.w, acc[i][3]);
+        }
+      }
+    } else {
+      as += 4 * ty * kLdFm;
+#pragma unroll 2
+      for (int kk = 0; kk < bk; kk += 4) {
+        float4 b[4];
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          b[v] = *reinterpret_cast<const float4*>(bs + (kk + v) * kLdFb);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          fma_1x4x4(acc[i],
+                    *reinterpret_cast<const float4*>(as + i * kLdFm + kk), b);
+      }
+    }
+    const int m0 = cp.m0, n = cp.n0 + 4 * tx;
+    if (!cp.next(x, tl, mine, K, bk)) continue;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + 4 * ty + i;
+      if (n < N && m < M) {
+        epi(m, n, acc[i][0], acc[i][1]);
+        epi(m, n + 2, acc[i][2], acc[i][3]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][u] = 0.f;
+    }
+  }
+}
+
+// Gram entries (a, b) and (a, b + 1) of a tile, written where a <= b and
+// mirrored: G is symmetric bit for bit.
+template <class T>
+__device__ __forceinline__ void gram_put(T* g, int kp, int a, int b, T v0,
+                                         T v1) {
+  if (a <= b) { g[a * kp + b] = v0; g[b * kp + a] = v0; }
+  if (a <= b + 1) { g[a * kp + b + 1] = v1; g[(b + 1) * kp + a] = v1; }
+}
+
+// Columns of Q (rows of Q^T) to unit norm, floor 1e-20, in place on the
+// current f32 copy; LO: also its bf16 copy into ql[cur]. The sums of
+// squares in f64 over chunks of 128 rows (one per thread of the cluster),
+// then the chunks in order by every block; each block scales its share.
+template <bool LO>
+__device__ void gen_colunit(Gx& x) {
+  float* q = x.qf[x.f];
+  const int kp = x.kp, all = x.csize * kGenThreads;
+  const int nct = (x.ne + kGenChunk - 1) / kGenChunk;
+  for (int it = x.rank * kGenThreads + x.tid; it < nct * kp; it += all) {
+    const int ct = it / kp, r = it - ct * kp;
+    const int c1 = min(x.ne, (ct + 1) * kGenChunk);
+    double s = 0.0;
+    for (int c = ct * kGenChunk; c < c1; ++c) s = sq_add(s, q[c * kp + r]);
+    x.part[it] = s;
+  }
+  gsync(x);
+  for (int r = x.tid; r < kp; r += kGenThreads) {
+    double s = 0.0;
+    for (int ct = 0; ct < nct; ++ct) s += x.part[ct * kp + r];
+    x.red[r] = fmaxf(__fsqrt_rn((float)s), 1e-20f);
+  }
+  __syncthreads();
+  for (int i = 4 * (x.rank * kGenThreads + x.tid); i < x.ne * kp;
+       i += 4 * all) {
+    float4 v = *reinterpret_cast<float4*>(q + i);
+    const float* d = x.red + i % kp;
+    v.x = __fdiv_rn(v.x, d[0]);
+    v.y = __fdiv_rn(v.y, d[1]);
+    v.z = __fdiv_rn(v.z, d[2]);
+    v.w = __fdiv_rn(v.w, d[3]);
+    *reinterpret_cast<float4*>(q + i) = v;
+    if (LO) {
+      __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(x.ql[x.cur] + i);
+      l[0] = __floats2bfloat162_rn(v.x, v.y);
+      l[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
+  }
+  gsync(x);
+}
+
+// The Gershgorin scale sc = 1 / sqrt(max_a sum_b |G_ab|), floor 1e-20, from
+// the f32 G in x.ga (every block, each sum in f64 over a column, which is
+// the row), then Q *= sc in place (LO: and its bf16 copy) and G's scaled
+// copy: lo(sc^2 G) into glo (LO) or sc^2 G into gb, each block its share.
+template <bool LO>
+__device__ void gen_scale(Gx& x) {
+  const int kp = x.kp, all = x.csize * kGenThreads;
+  const int warp = x.tid >> 5, lane = x.tid & 31;
+  double best = 0.0;
+  for (int a = x.tid; a < kp; a += kGenThreads) {
+    double s = 0.0;
+#pragma unroll 8
+    for (int b = 0; b < kp; ++b) s += fabs((double)x.ga[b * kp + a]);
+    best = fmax(best, s);
+  }
+  for (int off = 16; off > 0; off >>= 1)
+    best = fmax(best, __shfl_xor_sync(0xffffffffu, best, off));
+  if (lane == 0) x.wred[warp] = best;
+  __syncthreads();
+  if (x.tid == 0) {
+    double b = 0.0;
+    for (int w = 0; w < kGenThreads / 32; ++w) b = fmax(b, x.wred[w]);
+    x.scal[0] = rsqrtf(fmaxf((float)b, 1e-20f));
+  }
+  __syncthreads();
   const float sc = x.scal[0];
   const float sc2 = __fmul_rn(sc, sc);
-  float* q = x.qf[x.cur];
-  float* l = x.ql[x.cur];
-  for (int idx = x.first(); idx < x.ne * x.kp; idx += x.stride()) {
-    const float v = __fmul_rn(q[idx], sc);
-    q[idx] = v;
-    l[idx] = bf_round(v);
-  }
-  for (int idx = x.tid; idx < x.kp * x.kp; idx += x.nthreads) {
-    const float g = __fmul_rn(x.gram[idx], sc2);
-    x.gram[idx] = lo ? bf_round(g) : g;
-  }
-  gen_sync(x);
-  for (int s = 0; s < steps; ++s) {
-    if (s) {
-      gen_gram(x, lo);
-      if (lo) {
-        for (int idx = x.tid; idx < x.kp * x.kp; idx += x.nthreads)
-          x.gram[idx] = bf_round(x.gram[idx]);
-        __syncthreads();
-      }
+  float* q = x.qf[x.f];
+  for (int i = 4 * (x.rank * kGenThreads + x.tid); i < x.ne * kp;
+       i += 4 * all) {
+    float4 v = *reinterpret_cast<float4*>(q + i);
+    v.x = __fmul_rn(v.x, sc);
+    v.y = __fmul_rn(v.y, sc);
+    v.z = __fmul_rn(v.z, sc);
+    v.w = __fmul_rn(v.w, sc);
+    *reinterpret_cast<float4*>(q + i) = v;
+    if (LO) {
+      __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(x.ql[x.cur] + i);
+      l[0] = __floats2bfloat162_rn(v.x, v.y);
+      l[1] = __floats2bfloat162_rn(v.z, v.w);
     }
-    gen_update<CW>(x, lo);
+  }
+  for (int i = 4 * (x.rank * kGenThreads + x.tid); i < kp * kp;
+       i += 4 * all) {
+    float4 v = *reinterpret_cast<const float4*>(x.ga + i);
+    v.x = __fmul_rn(v.x, sc2);
+    v.y = __fmul_rn(v.y, sc2);
+    v.z = __fmul_rn(v.z, sc2);
+    v.w = __fmul_rn(v.w, sc2);
+    if (LO) {
+      __nv_bfloat162* l = reinterpret_cast<__nv_bfloat162*>(x.glo + i);
+      l[0] = __floats2bfloat162_rn(v.x, v.y);
+      l[1] = __floats2bfloat162_rn(v.z, v.w);
+    } else {
+      *reinterpret_cast<float4*>(x.gb + i) = v;
+    }
+  }
+  gsync(x);
+}
+
+// One bf16 power step, Q <- lo(M)^T lo(Q): the next bf16 copy, or (last of
+// the round, which colunit reads next) the f32 copy.
+__device__ void gen_power_lo(Gx& x, bool last) {
+  const int kp = x.kp;
+  bf16* nxt = x.ql[x.cur ^ 1];
+  float* qf = x.qf[x.f];
+  gemm_lo<true>(x, x.mlo, x.n, x.ql[x.cur], kp, x.ne, kp, x.ne, false,
+                [&](int c, int r, float v0, float v1) {
+                  if (last)
+                    *reinterpret_cast<float2*>(qf + c * kp + r) =
+                        make_float2(v0, v1);
+                  else
+                    *reinterpret_cast<__nv_bfloat162*>(nxt + c * kp + r) =
+                        __floats2bfloat162_rn(v0, v1);
+                });
+  gsync(x);
+  if (!last) x.cur ^= 1;
+}
+
+// G = lo(Q)^T lo(Q) from ql[cur]: into the f32 G (the round's first Gram,
+// which the scale reads) or straight into lo(G).
+__device__ void gen_gram_lo(Gx& x, bool to_f32) {
+  const int kp = x.kp;
+  const bf16* q = x.ql[x.cur];
+  float* ga = x.ga;
+  bf16* glo = x.glo;
+  gemm_lo<true>(x, q, kp, q, kp, kp, kp, x.ne, true,
+                [&](int a, int b, float v0, float v1) {
+                  if (to_f32)
+                    gram_put(ga, kp, a, b, v0, v1);
+                  else
+                    gram_put(glo, kp, a, b, __float2bfloat16_rn(v0),
+                             __float2bfloat16_rn(v1));
+                });
+  gsync(x);
+}
+
+// Newton-Schulz with bf16-input products, on the f32 copy and ql[cur]:
+// colunit, the Gram, the Gershgorin scale, then `steps` updates
+// Q <- 1.5 Q - 0.5 lo(Q) lo(G), each after a new Gram but the first.
+__device__ void gen_ns_lo(Gx& x, int steps) {
+  const int kp = x.kp;
+  gen_colunit<true>(x);
+  gen_gram_lo(x, true);
+  gen_scale<true>(x);
+  for (int it = 0; it < steps; ++it) {
+    if (it) gen_gram_lo(x, false);
+    float* qf = x.qf[x.f];
+    bf16* nxt = x.ql[x.cur ^ 1];
+    gemm_lo<false>(x, x.ql[x.cur], kp, x.glo, kp, x.ne, kp, kp, false,
+                   [&](int c, int a, float v0, float v1) {
+                     float2* p = reinterpret_cast<float2*>(qf + c * kp + a);
+                     const float2 q = *p;
+                     const float u0 = __fsub_rn(__fmul_rn(1.5f, q.x),
+                                                __fmul_rn(0.5f, v0));
+                     const float u1 = __fsub_rn(__fmul_rn(1.5f, q.y),
+                                                __fmul_rn(0.5f, v1));
+                     *p = make_float2(u0, u1);
+                     *reinterpret_cast<__nv_bfloat162*>(nxt + c * kp + a) =
+                         __floats2bfloat162_rn(u0, u1);
+                   });
+    gsync(x);
+    x.cur ^= 1;
   }
 }
 
-template <int MAXT, int CW>
-__global__ void __launch_bounds__(MAXT)
+// One f32 power step, Q <- M^T Q into the other f32 copy.
+__device__ void gen_power_f32(Gx& x) {
+  const int kp = x.kp;
+  float* nxt = x.qf[x.f ^ 1];
+  gemm_f32<true>(x, x.m, x.n, x.qf[x.f], kp, x.ne, kp, x.ne, false,
+                 [&](int c, int r, float v0, float v1) {
+                   *reinterpret_cast<float2*>(nxt + c * kp + r) =
+                       make_float2(v0, v1);
+                 });
+  gsync(x);
+  x.f ^= 1;
+}
+
+// G = Q^T Q in f32 from the current f32 copy, into x.ga.
+__device__ void gen_gram_f32(Gx& x) {
+  const int kp = x.kp;
+  const float* q = x.qf[x.f];
+  float* ga = x.ga;
+  gemm_f32<true>(x, q, kp, q, kp, kp, kp, x.ne, true,
+                 [&](int a, int b, float v0, float v1) {
+                   gram_put(ga, kp, a, b, v0, v1);
+                 });
+  gsync(x);
+}
+
+// Newton-Schulz in f32 on the f32 copy; the first update reads the scaled
+// Gram (x.gb), the others a new one.
+__device__ void gen_ns_f32(Gx& x, int steps) {
+  const int kp = x.kp;
+  gen_colunit<false>(x);
+  gen_gram_f32(x);
+  gen_scale<false>(x);
+  for (int it = 0; it < steps; ++it) {
+    if (it) gen_gram_f32(x);
+    const float* cur = x.qf[x.f];
+    float* nxt = x.qf[x.f ^ 1];
+    gemm_f32<false>(x, cur, kp, it ? x.ga : x.gb, kp, x.ne, kp, kp, false,
+                    [&](int c, int a, float v0, float v1) {
+                      const float2 q =
+                          *reinterpret_cast<const float2*>(cur + c * kp + a);
+                      *reinterpret_cast<float2*>(nxt + c * kp + a) =
+                          make_float2(__fsub_rn(__fmul_rn(1.5f, q.x),
+                                                __fmul_rn(0.5f, v0)),
+                                      __fsub_rn(__fmul_rn(1.5f, q.y),
+                                                __fmul_rn(0.5f, v1)));
+                    });
+    gsync(x);
+    x.f ^= 1;
+  }
+}
+
+__global__ void __launch_bounds__(kGenThreads, 1)
 pe_general_kernel(const float* __restrict__ m,    // (B, n, n)
                   const float* __restrict__ q0,   // (B, n, k)
                   float* __restrict__ out,        // (B, n, k)
-                  float* __restrict__ scratch,    // (B, 4 n kp [+ csize kp kp])
-                  int n, int k, int kp, int csize, int g_smem, int rounds,
-                  int orth_every, int ns_steps, int polish, int final_ns,
-                  int lo) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Gen x;
+                  unsigned char* scratch,         // (B, p.scratch)
+                  GenPlan p, int rounds, int orth_every, int ns_steps,
+                  int polish, int final_ns, int lo) {
+  const int n = p.n, k = p.k, kp = p.kp, csize = p.cluster;
   const int graph = blockIdx.x / csize;
+  Gx x;
   x.n = n; x.kp = kp;
-  x.tid = threadIdx.x; x.nthreads = blockDim.x;
-  x.warp = threadIdx.x >> 5; x.lane = threadIdx.x & 31;
-  x.nwarps = blockDim.x >> 5;
-  x.rank = blockIdx.x - graph * csize; x.csize = csize;
+  x.tid = threadIdx.x; x.rank = blockIdx.x - graph * csize; x.csize = csize;
   x.m = m + (size_t)graph * n * n;
-  const size_t nkp = (size_t)n * kp;
-  const size_t per_graph = 4 * nkp + (g_smem ? 0 : (size_t)csize * kp * kp);
-  float* sb = scratch + (size_t)graph * per_graph;
-  x.qf[0] = sb; x.qf[1] = sb + nkp;
-  x.ql[0] = sb + 2 * nkp; x.ql[1] = sb + 3 * nkp;
-  x.cur = 0;
-  if (g_smem) {
-    x.gram = reinterpret_cast<float*>(smem_raw);
-    x.red = x.gram + kp * kp;
-  } else {
-    x.gram = sb + 4 * nkp + (size_t)x.rank * kp * kp;
-    x.red = reinterpret_cast<float*>(smem_raw);
-  }
-  x.scal = x.red + kp;
-  int* extent = reinterpret_cast<int*>(x.scal + 1);
-  const float* qb = q0 + (size_t)graph * n * k;
+  unsigned char* sb = scratch + (size_t)graph * p.scratch;
+  const size_t nn = (size_t)n * n, nkp = (size_t)n * kp, kk = (size_t)kp * kp;
+  x.mlo = reinterpret_cast<bf16*>(sb);
+  x.qf[0] = reinterpret_cast<float*>(sb + 2 * nn);
+  x.qf[1] = x.qf[0] + nkp;
+  x.ql[0] = reinterpret_cast<bf16*>(x.qf[1] + nkp);
+  x.ql[1] = x.ql[0] + nkp;
+  x.ga = reinterpret_cast<float*>(x.ql[1] + nkp);
+  x.gb = x.ga + kk;
+  x.glo = reinterpret_cast<bf16*>(x.gb + kk);
+  x.part = reinterpret_cast<double*>(x.glo + kk);
+  int* ext_g = reinterpret_cast<int*>(
+      sb + p.scratch - 256);   // (cluster) every block's extent
+  x.red = reinterpret_cast<float*>(gen_smem + kGenStages * kGenStage);
+  x.wred = reinterpret_cast<double*>(x.red + kp);
+  x.scal = reinterpret_cast<float*>(x.wred + kGenThreads / 32);
+  int* ext_s = reinterpret_cast<int*>(x.scal + 1);
+  x.f = 0; x.cur = 0;
+  const int all = csize * kGenThreads, first = x.rank * kGenThreads + x.tid;
 
-  // extent: 1 + the last row or column of M or q0 with a non-zero (every
-  // block of the cluster finds it).
-  if (x.tid == 0) *extent = 0;
+  // Prologue: the extent (1 + the last row or column of M or q0 with a
+  // non-zero) and lo(M), the blocks splitting M's rows; q0 into both copies
+  // of Q (padding columns >= k zero), the blocks splitting its entries.
+  if (x.tid == 0) *ext_s = 0;
   __syncthreads();
   int ext = 0;
   const int nq = n / 4;
-  for (int idx = x.tid; idx < n * nq; idx += x.nthreads) {
-    const int j = idx / nq, c4 = idx - j * nq;
+  const int j0 = x.rank * n / csize, j1 = (x.rank + 1) * n / csize;
+  for (int idx = j0 * nq + x.tid; idx < j1 * nq; idx += kGenThreads) {
+    const int j = idx / nq, c = 4 * (idx - j * nq);
     const float4 v = __ldg(reinterpret_cast<const float4*>(x.m) + idx);
     if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
-      ext = max(ext, max(j + 1, 4 * c4 + 4));
+      ext = max(ext, max(j + 1, c + 4));
+    if (lo) {
+      __nv_bfloat162* d =
+          reinterpret_cast<__nv_bfloat162*>(x.mlo + (size_t)j * n + c);
+      d[0] = __floats2bfloat162_rn(v.x, v.y);
+      d[1] = __floats2bfloat162_rn(v.z, v.w);
+    }
   }
-  for (int idx = x.tid; idx < n * k; idx += x.nthreads)
-    if (qb[idx] != 0.f) ext = max(ext, idx / k + 1);
-  ext = __reduce_max_sync(0xffffffffu, ext);
-  if (x.lane == 0) atomicMax(extent, ext);
-  __syncthreads();
-  x.ne = min(n, (*extent + 3) / 4 * 4);   // whole float4 column groups
-  // q0 into both copies of the current buffer; rows >= k are zero.
-  for (int idx = x.first(); idx < x.ne * kp; idx += x.stride()) {
+  const float* qg = q0 + (size_t)graph * n * k;
+  for (int idx = first; idx < n * kp; idx += all) {
     const int c = idx / kp, r = idx - c * kp;
-    const float v = r < k ? qb[c * k + r] : 0.f;
+    const float v = r < k ? qg[(size_t)c * k + r] : 0.f;
+    if (v != 0.f) ext = max(ext, c + 1);
     x.qf[0][idx] = v;
-    x.ql[0][idx] = bf_round(v);
+    x.ql[0][idx] = __float2bfloat16_rn(v);
   }
-  gen_sync(x);
+  ext = __reduce_max_sync(0xffffffffu, ext);
+  if ((x.tid & 31) == 0) atomicMax(ext_s, ext);
+  __syncthreads();
+  if (x.tid == 0) ext_g[x.rank] = *ext_s;
+  gsync(x);
+  ext = 0;
+  for (int r = 0; r < csize; ++r) ext = max(ext, ext_g[r]);
+  x.ne = min(n, max(32, (ext + 31) / 32 * 32));
 
-  for (int r = 0; r < rounds; ++r) {
-    for (int s = 0; s < orth_every; ++s) gen_power<CW>(x, lo != 0);
-    gen_ns<CW>(x, ns_steps, lo != 0);
+  if (lo) {
+    for (int r = 0; r < rounds; ++r) {
+      for (int s = 0; s < orth_every; ++s)
+        gen_power_lo(x, s + 1 == orth_every);
+      gen_ns_lo(x, ns_steps);
+    }
+  } else {
+    for (int r = 0; r < rounds; ++r) {
+      for (int s = 0; s < orth_every; ++s) gen_power_f32(x);
+      gen_ns_f32(x, ns_steps);
+    }
   }
   for (int s = 0; s < polish; ++s) {
-    gen_power<CW>(x, false);
-    gen_colunit(x);
+    gen_power_f32(x);
+    gen_colunit<false>(x);
   }
-  if (final_ns) gen_ns<CW>(x, final_ns, false);
+  if (final_ns) gen_ns_f32(x, final_ns);
 
-  const float* q = x.qf[x.cur];
+  // Every step ended with a barrier of the whole cluster.
+  const float* q = x.qf[x.f];
   float* ob = out + (size_t)graph * n * k;
-  for (int idx = x.first(); idx < n * k; idx += x.stride()) {
+  for (int idx = first; idx < n * k; idx += all) {
     const int c = idx / k, r = idx - c * k;
-    ob[idx] = c < x.ne ? q[c * kp + r] : 0.f;
+    ob[idx] = c < x.ne ? q[(size_t)c * kp + r] : 0.f;
   }
 }
 
-template <int MAXT, int CW>
-int launch_general_as(const GenPlan& p, const void* m, const void* q0,
-                      void* out, void* scratch, int batch, int rounds,
-                      int orth_every, int ns_steps, int polish, int final_ns,
-                      int lo, cudaStream_t stream) {
-  auto kern = pe_general_kernel<MAXT, CW>;
-  if (p.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
-    if (err != cudaSuccess) return (int)err;
+// held[c] = how many clusters of c blocks of pe_general_kernel the current
+// device holds at once, c = 1 .. 8 (cudaOccupancyMaxActiveClusters; one
+// block an SM whatever the shape: the registers of 512 threads fill it).
+// Asked once per device. Returns a CUDA error code.
+std::atomic<int> g_general_held[kFitsDevices][kGenMaxCluster + 1];
+
+int general_held(int* held) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const int smem = kGenStages * kGenStage + kGenMaxK * 4 + kGenMisc;
+  for (int c = 1; c <= kGenMaxCluster; ++c) {
+    int v = dev < kFitsDevices
+                ? g_general_held[dev][c].load(std::memory_order_relaxed)
+                : 0;
+    if (v == 0) {
+      err = cudaFuncSetAttribute(pe_general_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      cudaLaunchAttribute attr[1];
+      attr[0].id = cudaLaunchAttributeClusterDimension;
+      attr[0].val.clusterDim.x = c;
+      attr[0].val.clusterDim.y = 1;
+      attr[0].val.clusterDim.z = 1;
+      cudaLaunchConfig_t cfg = {};
+      cfg.gridDim = dim3(c, 1, 1);
+      cfg.blockDim = dim3(kGenThreads, 1, 1);
+      cfg.dynamicSmemBytes = smem;
+      cfg.attrs = attr;
+      cfg.numAttrs = 1;
+      err = cudaOccupancyMaxActiveClusters(&v, pe_general_kernel, &cfg);
+      if (err != cudaSuccess) return (int)err;
+      if (dev < kFitsDevices)
+        g_general_held[dev][c].store(v, std::memory_order_relaxed);
+    }
+    held[c] = v;
   }
+  return 0;
+}
+
+// The plan on this device: general_held, then pe_general_plan. Raises
+// (cudaErrorLaunchOutOfResources) where the card cannot place the cluster.
+int general_plan_here(int n, int k, int batch, GenPlan* p) {
+  int held[kGenMaxCluster + 1];
+  const int err = general_held(held);
+  if (err != 0) return err;
+  pe_general_plan(n, k, batch, held, p);
+  return held[p->cluster] > 0 ? 0 : (int)cudaErrorLaunchOutOfResources;
+}
+
+int launch_general(const GenPlan& p, const void* m, const void* q0, void* out,
+                   void* scratch, int batch, int rounds, int orth_every,
+                   int ns_steps, int polish, int final_ns, int lo,
+                   cudaStream_t stream) {
+  auto kern = pe_general_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = p.cluster;
@@ -2275,36 +2692,16 @@ int launch_general_as(const GenPlan& p, const void* m, const void* q0,
   attr[0].val.clusterDim.z = 1;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(batch * p.cluster, 1, 1);
-  cfg.blockDim = dim3(p.threads, 1, 1);
+  cfg.blockDim = dim3(kGenThreads, 1, 1);
   cfg.dynamicSmemBytes = p.smem;
   cfg.stream = stream;
   cfg.attrs = attr;
   cfg.numAttrs = p.cluster > 1 ? 1 : 0;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, kern, (const float*)m, (const float*)q0, (float*)out,
-      (float*)scratch, p.n, p.k, p.kp, p.cluster, p.g_smem, rounds,
-      orth_every, ns_steps, polish, final_ns, lo);
+  err = cudaLaunchKernelEx(&cfg, kern, (const float*)m, (const float*)q0,
+                           (float*)out, (unsigned char*)scratch, p, rounds,
+                           orth_every, ns_steps, polish, final_ns, lo);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
-}
-
-// N <= 128: one column an item (small graphs need the items); above, four
-// columns an item (each value of M and of the tile read once for four).
-int launch_general(const GenPlan& p, const void* m, const void* q0, void* out,
-                   void* scratch, int batch, int rounds, int orth_every,
-                   int ns_steps, int polish, int final_ns, int lo,
-                   cudaStream_t stream) {
-  if (p.cw == 1)
-    return launch_general_as<256, 1>(p, m, q0, out, scratch, batch, rounds,
-                                     orth_every, ns_steps, polish, final_ns,
-                                     lo, stream);
-  if (p.threads <= 256)
-    return launch_general_as<256, 4>(p, m, q0, out, scratch, batch, rounds,
-                                     orth_every, ns_steps, polish, final_ns,
-                                     lo, stream);
-  return launch_general_as<512, 4>(p, m, q0, out, scratch, batch, rounds,
-                                   orth_every, ns_steps, polish, final_ns, lo,
-                                   stream);
 }
 
 }  // namespace
@@ -2312,12 +2709,14 @@ int launch_general(const GenPlan& p, const void* m, const void* q0, void* out,
 // plan[0..8] = threads, shared-memory bytes, kp, warps, depth split of the
 // tensor-core Gram, depth split of the f32 Gram (1 and 1 under the cluster
 // layout and the general plan, which split neither), blocks per graph (the
-// cluster), most slabs of 16 columns a block takes, bytes of device
-// scratch per graph. Returns 0, or non-zero for a shape the kernel does
-// not take. The plans by width: k <= 48 "shared" (N <= 256) and "streamed"
-// (the cluster layout above); 48 < k <= 80 "wide", the same two layouts
-// (the shared one where it fits a block); 80 < k <= 832 "general".
-extern "C" int gcc_pe_plan(int n, int k, int* plan) {
+// cluster), most slabs of 16 columns a block takes (the general plan: most
+// 128 x 64 tiles of a power step a block takes), bytes of device scratch
+// per graph. `batch` sizes the general plan's cluster only. Returns 0, or
+// non-zero for a shape the kernel does not take. The plans by width: k <=
+// 48 "shared" (N <= 256) and "streamed" (the cluster layout above); 48 < k
+// <= 80 "wide", the same two layouts (the shared one where it fits a
+// block); 80 < k <= 832 "general".
+extern "C" int gcc_pe_plan(int n, int k, int batch, int* plan) {
   Plan p;
   BigPlan g;
   GenPlan w;
@@ -2333,19 +2732,32 @@ extern "C" int gcc_pe_plan(int n, int k, int* plan) {
     plan[6] = g.cluster; plan[7] = g.spb; plan[8] = g.scratch;
     return 0;
   }
-  if (pe_general_plan(n, k, &w)) {
-    plan[0] = w.threads; plan[1] = w.smem; plan[2] = w.kp;
-    plan[3] = w.threads / 32; plan[4] = 1; plan[5] = 1;
-    plan[6] = w.cluster; plan[7] = n / 16; plan[8] = (int)w.scratch;
+  if (pe_general_plan(n, k, batch, nullptr, &w)) {
+    const int err = general_plan_here(n, k, batch, &w);
+    if (err != 0) return err;
+    plan[0] = kGenThreads; plan[1] = w.smem; plan[2] = w.kp;
+    plan[3] = kGenThreads / 32; plan[4] = 1; plan[5] = 1;
+    plan[6] = w.cluster; plan[7] = w.tiles; plan[8] = (int)w.scratch;
     return 0;
   }
   return 1;
 }
 
+// How many clusters of `cluster` blocks of the general plan's kernel the
+// card holds at once, into *count. Returns a CUDA error code.
+extern "C" int gcc_pe_general_clusters(int cluster, int* count) {
+  if (cluster < 1 || cluster > kGenMaxCluster)
+    return (int)cudaErrorInvalidValue;
+  int held[kGenMaxCluster + 1];
+  const int err = general_held(held);
+  if (err == 0) *count = held[cluster];
+  return err;
+}
+
 // scratch: (batch, plan[8]) bytes for the cluster layout (the bf16 copy of
 // M per graph, and with one bf16 copy of Q^T a block the f32 Q^T) and for
-// the general plan (four f32 copies of Q, and G where it passes shared
-// memory); unused and may be null else.
+// the general plan (bf16 M, f32 and bf16 Q and G); unused and may be null
+// else.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                              void* scratch, int batch, int n, int k,
                              int iters, int orth_every, int ns_steps,
@@ -2377,8 +2789,10 @@ extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                          polish, final_ns, lo, s);
     }
   }
-  if (pe_general_plan(n, k, &w)) {
+  if (pe_general_plan(n, k, batch, nullptr, &w)) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    const int err = general_plan_here(n, k, batch, &w);
+    if (err != 0) return err;
     return launch_general(w, m, q0, out, scratch, batch, rounds, orth_every,
                           ns_steps, polish, final_ns, lo, s);
   }

@@ -3,7 +3,7 @@
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python -m gcc_tpu_torch.ops.kernel_parts [--graphs 4096]
-        [--cases all|train|eval|pe64|jacobi]
+        [--cases all|train|eval|pe64|general|jacobi]
 
 Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
 under schedules that switch its parts off — the bf16 rounds alone, the
@@ -16,7 +16,11 @@ live nodes stands for the node path's and the graph path's buckets),
 at the four shapes of PE 64 (``--cases pe64``: k = 64 on 4096 graphs at
 N = 128 and 256, k = 80 on 128 graphs at N = 256 and 64 at N = 512 —
 the wide plan — with the mean live nodes of chip_smoke.py's batches
-there: 56, 166, 174 and 381), and ``jacobi_eigh`` per sweep count (0,
+there: 56, 166, 174 and 381), at the three shapes of the general plan
+(``--cases general``: k = 96 on 128 graphs at N = 256, k = 128 on 64 at
+N = 512, k = 256 on 16 at N = 832 — clusters of 1, 2 and 6 blocks a
+graph — with the mean live nodes of chip_smoke.py's seeded graphs there:
+174, 381 and 677), and ``jacobi_eigh`` per sweep count (0,
 1, 3, 5) on random symmetric matrices at each width's main-path batch —
 n = 32 and 48 on 4096, 48 on 128 and 64, PE 64's n = 64 on 4096 and
 n = 80 on 64 and one (its giant finish) — so that a round's cost can be
@@ -63,6 +67,13 @@ def timed_ms(fn, reps: int = 5, run_ahead: bool = False) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _plan(n: int, k: int, graphs: int) -> dict:
+    try:
+        return pe_launch_plan(n, k, graphs)
+    except TypeError:   # a package whose plan does not take the batch
+        return pe_launch_plan(n, k)
+
+
 SCHEDULES = (
     ("whole (train profile)", dict()),
     ("bf16 rounds only", dict(polish=0, final_ns=0)),
@@ -87,7 +98,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--graphs", type=int, default=4096)
     ap.add_argument("--cases", default="all",
-                    choices=("all", "train", "eval", "pe64", "jacobi"))
+                    choices=("all", "train", "eval", "pe64", "general",
+                             "jacobi"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_parts: needs an NVIDIA card")
@@ -103,8 +115,10 @@ def main() -> None:
              (512, 48, 32, 64), (832, 48, 832, 64))
     pe64 = ((128, 64, 56, args.graphs), (256, 64, 166, args.graphs),
             (256, 80, 174, 128), (512, 80, 381, 64))
-    pe_cases = {"all": train + evals + pe64, "train": train, "eval": evals,
-                "pe64": pe64, "jacobi": ()}[args.cases]
+    general = ((256, 96, 174, 128), (512, 128, 381, 64), (832, 256, 677, 16))
+    pe_cases = {"all": train + evals + pe64 + general, "train": train,
+                "eval": evals, "pe64": pe64, "general": general,
+                "jacobi": ()}[args.cases]
     for n, k, live, g in pe_cases:
         a = torch.rand(g, n, n, device=dev, generator=gen) / n
         m = a + a.transpose(1, 2) + torch.eye(n, device=dev)
@@ -116,7 +130,7 @@ def main() -> None:
         for name, kw in SCHEDULES:
             kw = dict(dict(iters=16), **kw)
             ms = timed_ms(lambda: pe_subspace_iterate(m, q0, **kw))
-            plan = pe_launch_plan(n, k)
+            plan = _plan(n, k, g)
             print(f"pe ({g}, {n}, {n}) k={k} live={live} plan={plan['plan']}"
                   f" layout={plan['layout']} cluster={plan['cluster']} "
                   f"{name}: {ms:.4f} ms", flush=True)

@@ -42,11 +42,16 @@ kernel. The plans by width:
   kp = 64 above N = 512) a block keeps one, written behind a barrier,
   and the f32 Qᵀ of the polish and the finish moves to the scratch;
 * 80 < k ≤ 832: "general", reached by no configuration the repository
-  ships: one block of 256 threads per graph up to N = 256, a cluster of
-  two blocks of 512 above; Q in a device scratch (four f32 copies: Q
-  and its bf16 rounding, each double-buffered), G in shared memory up to
-  kp = 240 and in the scratch above, every product an f32 FMA on
-  operands rounded to bf16 where the plain version rounds them.
+  ships: a thread block cluster per graph sized by the batch (the most
+  blocks, up to 8, whose batch × cluster fills one wave of 132 SMs and
+  whose clusters the card holds at once: 6 at a batch of 16, 2 at 64, 1
+  at 128), 512 threads a block; every step one GEMM whose 128 × 64
+  output tiles are dealt to the cluster's blocks, operands streamed by
+  ``cp.async`` from a device scratch that stays in L2 — bf16 copies of
+  M and Q (Q double-buffered) for the rounds, on the tensor cores with
+  the A operand split; f32 copies of Q and G for the polish and finish,
+  register-tiled on the CUDA cores. The Gram is formed on its upper
+  triangle and mirrored, so it is symmetric bit for bit.
 
 Larger N or k raises.
 """
@@ -70,8 +75,30 @@ MAX_NODES = 832
 # take (five row tiles: PE 64 plus the eval profile's 16 guards).
 MAX_WIDTH = 832
 _TC_MAX_WIDTH = 80
-# The general plan keeps G in shared memory up to this padded width.
-_GEN_SMEM_KP = 240
+# The general plan: threads a block, most blocks a graph (the portable
+# cluster size), the SMs whose one wave batch x cluster fills (an H100's),
+# output tile, depth of a bf16 and of an f32 slice, stages of the ring,
+# rows of a partial sum of squares.
+_GEN_THREADS = 512
+_GEN_MAX_CLUSTER = 8
+_SMS = 132
+_GEN_BM, _GEN_BN, _GEN_BK_LO, _GEN_BK_F = 128, 64, 64, 32
+_GEN_STAGES, _GEN_CHUNK = 4, 128
+# How many clusters of 1 to 8 blocks of the general plan's kernel an NVIDIA
+# H100 80GB HBM3 holds at once (cudaOccupancyMaxActiveClusters there, by
+# general_clusters): a GPC holds whole clusters only, so 15 of 8 blocks,
+# not 16. The kernel asks the card it runs on; this is the plan's default.
+H100_CLUSTERS_HELD = (132, 66, 39, 30, 22, 17, 15, 15)
+
+
+def _gen_stage_bytes() -> int:
+    """Bytes of one slice of the general plan's ring, as ``kGenStage`` in
+    ``csrc/pe.cu``: the larger of a bf16 slice (A depth- or row-major,
+    rows padded by 8 values, then B) and an f32 one (padded by 4)."""
+    bm, bn, lo, f = _GEN_BM, _GEN_BN, _GEN_BK_LO, _GEN_BK_F
+    bf16 = 2 * max(bm * (lo + 8), lo * (bm + 8)) + 2 * lo * (bn + 8)
+    f32 = 4 * max(bm * (f + 4), f * (bm + 4)) + 4 * f * (bn + 4)
+    return max(bf16, f32)
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -186,28 +213,46 @@ def _cluster_plan(n_pad: int, kp: int, name: str) -> dict:
                         f"{qf}")
 
 
-def _general_plan(n_pad: int, kp: int) -> dict:
+def _general_cluster(batch: int, held=H100_CLUSTERS_HELD) -> int:
+    """Blocks per graph of the general plan, 1 to 8: the most whose batch
+    × cluster blocks fit one wave of the SMs and whose ``batch`` clusters
+    the card holds at once (``held[c - 1]`` clusters of c blocks)."""
+    return max(c for c in range(1, _GEN_MAX_CLUSTER + 1)
+               if c == 1 or (batch * c <= _SMS and batch <= held[c - 1]))
+
+
+def _general_plan(n_pad: int, kp: int, batch: int, held) -> dict:
     """The general plan (80 < k <= 832, any N <= 832), as
-    ``pe_general_plan`` in ``csrc/pe.cu`` computes it."""
-    threads = 256 if n_pad <= 256 else 512
-    cluster = 1 if n_pad <= 256 else 2
-    cols = 1 if n_pad <= 128 else 4
-    g_smem = kp <= _GEN_SMEM_KP
-    return dict(n_pad=n_pad, kp=kp, threads=threads, warps=threads // 32,
-                # G (where it fits), the row norms, the Gershgorin scale and
-                # the extent
-                smem_bytes=(kp * kp * 4 if g_smem else 0) + kp * 4 + 16,
+    ``pe_general_plan`` in ``csrc/pe.cu`` computes it. ``slabs_per_block``
+    and ``block_slabs`` count its 128 × 64 tiles of a power step when all
+    N nodes are live."""
+    cluster = _general_cluster(batch, held)
+    tiles = -(-n_pad // _GEN_BM) * -(-kp // _GEN_BN)
+    stages = _GEN_STAGES * _gen_stage_bytes()
+    mlo, qf, ql = n_pad * n_pad * 2, n_pad * kp * 4, n_pad * kp * 2
+    gf, gl = kp * kp * 4, kp * kp * 2
+    part = -(-n_pad // _GEN_CHUNK) * kp * 8
+    return dict(n_pad=n_pad, kp=kp, threads=_GEN_THREADS,
+                warps=_GEN_THREADS // 32,
+                # the ring, the row norms, per-warp partials and scalars
+                smem_bytes=stages + kp * 4 + 256,
                 gram_split=1, gram_f32_split=1, plan="general",
                 layout="device", cluster=cluster,
-                slabs_per_block=n_pad // 16,
-                block_slabs=[n_pad // 16] * cluster, qt_copies=0,
-                scratch_bytes=4 * n_pad * kp * 4
-                + (0 if g_smem else cluster * kp * kp * 4),
-                variant=f"{'cluster of 2 blocks' if cluster > 1 else 'one block'}"
-                        f" per graph; f32 FMA on bf16-rounded operands, Q "
-                        f"({n_pad}, {kp}) x 4 in device memory, G in "
-                        f"{'shared' if g_smem else 'device'} memory; ({cols} "
-                        f"column(s), 16-row tile) items, 4x4 Gram tiles")
+                slabs_per_block=-(-tiles // cluster),
+                block_slabs=[len(range(r, tiles, cluster))
+                             for r in range(cluster)],
+                qt_copies=0,
+                # bf16 M, f32 Q x 2, bf16 Q x 2, f32 G x 2, bf16 G, the
+                # partial sums of squares, the blocks' extents
+                scratch_bytes=mlo + 2 * qf + 2 * ql + 2 * gf + gl
+                + -(-part // 256) * 256 + 256,
+                variant=f"cluster of {cluster} block(s) of {_GEN_THREADS} per "
+                        f"graph; 128x64 tiles dealt to the blocks, mma.sync "
+                        f"m16n8k16 bf16 (A split) over bf16 M ({mlo} B) and "
+                        f"bf16 Q (2 x {ql} B), f32 4x4 register tiles over "
+                        f"f32 M and Q (2 x {qf} B), G (2 x {gf} B f32, "
+                        f"{gl} B bf16), all in the device scratch, streamed "
+                        f"through {stages} B of shared memory")
 
 
 def _shared_plan(n_pad: int, kp: int, name: str) -> dict | None:
@@ -240,9 +285,12 @@ def _shared_plan(n_pad: int, kp: int, name: str) -> dict | None:
                         f"columns per warp; f32 4x{2 * kt} register tiles")
 
 
-def pe_launch_plan(n: int, k: int) -> dict:
-    """Launch plan of Kernel 2 for N = ``n`` nodes (before padding) and
-    width ``k``, as ``gcc_pe_plan`` in ``csrc/pe.cu`` computes it: the plan
+def pe_launch_plan(n: int, k: int, batch: int = 1,
+                   held=H100_CLUSTERS_HELD) -> dict:
+    """Launch plan of Kernel 2 for N = ``n`` nodes (before padding), width
+    ``k`` and ``batch`` graphs, as ``gcc_pe_plan`` in ``csrc/pe.cu``
+    computes it (the batch, and ``held``, the clusters of 1 to 8 blocks the
+    card holds at once, size the general plan's cluster only): the plan
     by width (``plan``: "shared" or "streamed" for k <= 48, "wide" for
     48 < k <= 80, "general" above) and its ``layout`` ("shared": M's bf16
     copy in shared memory; "cluster": a cluster of blocks per graph, M's
@@ -260,7 +308,7 @@ def pe_launch_plan(n: int, k: int) -> dict:
                          f"1 <= k <= {MAX_WIDTH}, got N={n}, k={k}")
     kp = -(-k // 16) * 16
     if k > _TC_MAX_WIDTH:
-        return _general_plan(n_pad, kp)
+        return _general_plan(n_pad, kp, batch, held)
     name = "wide" if k > 48 else None
     if n_pad <= 256:
         plan = _shared_plan(n_pad, kp, name or "shared")
@@ -276,10 +324,23 @@ def _pe_lib() -> ctypes.CDLL:
     lib = _build.load("pe")
     lib.gcc_pe_launch.argtypes = _PE_ARGS
     lib.gcc_pe_launch.restype = ctypes.c_int
-    lib.gcc_pe_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+    lib.gcc_pe_plan.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                 ctypes.POINTER(ctypes.c_int)]
     lib.gcc_pe_plan.restype = ctypes.c_int
     return lib
+
+
+def general_clusters(cluster: int) -> int:
+    """How many clusters of ``cluster`` blocks of the general plan's
+    kernel the card holds at once (what the kernel sizes its cluster by;
+    ``H100_CLUSTERS_HELD`` for an H100 80GB HBM3). Needs the card."""
+    lib = _pe_lib()
+    lib.gcc_pe_general_clusters.argtypes = [ctypes.c_int,
+                                            ctypes.POINTER(ctypes.c_int)]
+    count = ctypes.c_int(0)
+    _build.check(lib.gcc_pe_general_clusters(cluster, ctypes.byref(count)),
+                 "pe general_clusters")
+    return count.value
 
 
 def _check_inputs(m, q0, orth_every, ns_steps, polish, final_ns) -> dict:
@@ -298,7 +359,7 @@ def _check_inputs(m, q0, orth_every, ns_steps, polish, final_ns) -> dict:
         raise ValueError(
             f"orth_every must be >= 1 and ns_steps, polish, final_ns >= 0, "
             f"got {orth_every}, {ns_steps}, {polish}, {final_ns}")
-    return pe_launch_plan(n, k)
+    return pe_launch_plan(n, k, b)
 
 
 def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,

@@ -265,24 +265,27 @@ def test_pe_kernel_schedules(cuda_device, kw):
 
 def test_pe_plan_mirrors_the_source(cuda_device):
     """pe_launch_plan (Python) and pe_plan (csrc/pe.cu) agree on every
-    shape the wrapper takes."""
+    shape the wrapper takes, the general plan's cluster sized by the
+    clusters this card holds at once."""
     import ctypes
 
     lib = pe._pe_lib()
     out = (ctypes.c_int * 9)()
+    held = tuple(pe.general_clusters(c) for c in range(1, 9))
     for n in (32, 64, 96, 128, 160, 192, 224, 256, 288, 320, 352, 384, 416,
               512, 544, 800, 832):
         for k in (1, 8, 16, 17, 32, 33, 48, 49, 64, 65, 80, 81, 96, 128,
                   240, 241, 256, 832):
-            assert lib.gcc_pe_plan(n, k, out) == 0
-            plan = pe.pe_launch_plan(n, k)
-            assert list(out) == [plan["threads"], plan["smem_bytes"],
-                                 plan["kp"], plan["warps"],
-                                 plan["gram_split"], plan["gram_f32_split"],
-                                 plan["cluster"], plan["slabs_per_block"],
-                                 plan["scratch_bytes"]]
-    assert lib.gcc_pe_plan(864, 32, out) != 0
-    assert lib.gcc_pe_plan(128, 833, out) != 0
+            for batch in (1, 16, 64, 128, 4096):
+                assert lib.gcc_pe_plan(n, k, batch, out) == 0
+                plan = pe.pe_launch_plan(n, k, batch, held)
+                assert list(out) == [
+                    plan["threads"], plan["smem_bytes"], plan["kp"],
+                    plan["warps"], plan["gram_split"], plan["gram_f32_split"],
+                    plan["cluster"], plan["slabs_per_block"],
+                    plan["scratch_bytes"]]
+    assert lib.gcc_pe_plan(864, 32, 1, out) != 0
+    assert lib.gcc_pe_plan(128, 833, 1, out) != 0
 
 
 @pytest.mark.parametrize("n,batch", [(118, 5), (56, 7)])
@@ -437,21 +440,67 @@ def test_pe_wide_plan_by_layout(cuda_device, n_max, k):
 
 @pytest.mark.parametrize("n_max,k,graphs", [
     (128, 96, 8),      # PE 80 with the eval profile's 16 guards
-    (256, 96, 6),      # one block per graph, four columns an item
-    (512, 128, 4),     # PE 112 with 16 guards, a cluster of two
-    (160, 240, 2),     # G in shared memory at its widest
-    (256, 256, 2),     # G in the device scratch
+    (256, 96, 6),      # six graphs: clusters of 8 blocks
+    (512, 128, 4),     # PE 112 with 16 guards
+    (160, 240, 2),     # a partial 64-column tile of Q
+    (256, 256, 2),     # the Gram on two 128-row tiles
     (100, 81, 3),      # N and k both padded
+    (256, 96, 128),    # the timed shapes' batches: clusters of 1,
+    (512, 128, 64),    # 2
+    (832, 256, 16),    # and 6 blocks a graph
+    (832, 832, 1),     # the widest shape, one graph
 ])
 def test_pe_general_plan_matches_plain(cuda_device, n_max, k, graphs):
-    """80 < k <= 832: f32 FMAs on operands rounded to bf16 where the plain
-    version rounds them, Q (and G above kp = 240) in a device scratch; the
-    limits of the other plans."""
-    assert pe.pe_launch_plan(n_max, k)["plan"] == "general"
+    """80 < k <= 832: the rounds on the tensor cores (the A operand split)
+    over bf16 copies of M and Q in a device scratch, the f32 polish and
+    finish register-tiled on the CUDA cores, a cluster of blocks per graph
+    sized by the batch; the limits of the other plans (f32 rounds within
+    1e-5; bf16 rounds mean 1e-4, max 2e-2)."""
+    assert pe.pe_launch_plan(n_max, k, graphs)["plan"] == "general"
     big = n_max > 256
     _pe_compare(*_pe_case(cuda_device, n_max, k, graphs,
                           e_tot=16384 if big else 4096,
                           id_bits=16 if big else 8))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(orth_every=1, ns_steps=1, polish=0, final_ns=0),
+    dict(orth_every=3, ns_steps=2, polish=1, final_ns=3),
+    dict(orth_every=16, ns_steps=0, polish=0, final_ns=8),
+])
+def test_pe_general_plan_schedules(cuda_device, kw):
+    """Schedules that leave parts out (no Newton-Schulz step in a round,
+    no polish, no finish), at k = 256 on a cluster of 8 blocks a graph:
+    the f32 rounds within 1e-5 and the bf16 rounds within their limits."""
+    _pe_compare(*_pe_case(cuda_device, 512, 256, 4, e_tot=16384,
+                          id_bits=16), **kw)
+
+
+@pytest.mark.parametrize("n_max,k", [(256, 96), (832, 256)])
+def test_pe_general_plan_few_live_nodes(cuda_device, n_max, k):
+    """A batch whose second graph has 5 live nodes, an empty third graph:
+    finite, zero beyond the live rows, within the limits; each graph alone
+    (a cluster of 8 blocks) equals the same graph in the batch (a smaller
+    cluster) bit for bit."""
+    big = n_max > 256
+    m_shift, q0 = _pe_case(cuda_device, n_max, k, 4,
+                           e_tot=16384 if big else 4096,
+                           id_bits=16 if big else 8)
+    m_shift[1, 5:, :] = 0
+    m_shift[1, :, 5:] = 0
+    q0[1, 5:] = 0
+    m_shift[2] = 0
+    q0[2] = 0
+    _pe_compare(m_shift, q0)
+    for lo in (False, True):
+        full = pe.pe_subspace_iterate(m_shift, q0, iters=16, power_lo=lo)
+        assert torch.isfinite(full).all()
+        assert full[1, 5:].abs().max().item() == 0
+        assert full[2].abs().max().item() == 0
+        for i in (0, 1):
+            one = pe.pe_subspace_iterate(m_shift[i:i + 1], q0[i:i + 1],
+                                         iters=16, power_lo=lo)
+            assert torch.equal(one[0], full[i])
 
 
 @pytest.mark.parametrize("n,batch", [(120, 5), (128, 3), (256, 2), (832, 1)])

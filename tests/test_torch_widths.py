@@ -157,24 +157,39 @@ def test_pe_plan_names_by_width(n, k, plan):
     assert pe.pe_launch_plan(n, k)["plan"] == plan
 
 
+@pytest.mark.parametrize("batch", [1, 16, 64, 128, 4096])
 @pytest.mark.parametrize("k", [81, 96, 128, 240, 241, 256, 832])
 @pytest.mark.parametrize("n", [32, 128, 256, 288, 512, 832])
-def test_pe_general_plan_fits_a_block(n, k):
-    """One block of 256 threads per graph up to N = 256, a cluster of two
-    blocks of 512 above; G in shared memory up to kp = 240, in the
-    scratch (one copy per block of the cluster) above; four f32 copies of
-    Q (N, kp) in the scratch."""
-    p = pe.pe_launch_plan(n, k)
-    kp = p["kp"]
+def test_pe_general_plan_fits_a_block(n, k, batch):
+    """A cluster of 1 to 8 blocks per graph (8 the portable size): the
+    most whose batch x cluster blocks fill one wave of the H100's 132 SMs
+    and whose batch of clusters the card holds at once (15 clusters of 8
+    blocks, 17 of 6): 8 at a batch of 1, 6 at 16, 2 at 64, 1 at 128.
+    Blocks of whole warps within 1024
+    threads and 232,448 B of shared memory; in the device scratch bf16 M,
+    f32 and bf16 Q (each double-buffered), f32 G (two) and bf16 G, the
+    partial sums of squares and the blocks' extents; the 128 x 64 tiles of
+    a power step dealt to the blocks round robin."""
+    p = pe.pe_launch_plan(n, k, batch)
+    kp, c = p["kp"], p["cluster"]
     assert p["plan"] == "general" and p["layout"] == "device"
     assert 0 <= kp - k < 16 and kp % 16 == 0 and p["n_pad"] == n
-    assert p["threads"] == (256 if n <= 256 else 512) == 32 * p["warps"]
-    assert p["cluster"] == (1 if n <= 256 else 2)
+    assert p["threads"] % 32 == 0 and p["threads"] <= 1024
+    assert p["threads"] == 32 * p["warps"]
     assert 0 < p["smem_bytes"] <= MAX_SMEM
-    g_smem = kp <= 240
-    assert (p["smem_bytes"] >= kp * kp * 4) == g_smem
-    assert p["scratch_bytes"] == 4 * n * kp * 4 + (
-        0 if g_smem else p["cluster"] * kp * kp * 4)
+    held = pe.H100_CLUSTERS_HELD
+    fits = lambda c: batch * c <= 132 and batch <= held[c - 1]  # noqa: E731
+    assert 1 <= c <= 8
+    assert c == 1 or fits(c)                  # one wave, held at once
+    assert c == 8 or not fits(c + 1)          # and no larger cluster is
+    assert c == {1: 8, 16: 6, 64: 2, 128: 1, 4096: 1}[batch]
+    part = -(-n // 128) * kp * 8
+    assert p["scratch_bytes"] == (2 * n * n + 12 * n * kp + 10 * kp * kp
+                                  + -(-part // 256) * 256 + 256)
+    assert p["scratch_bytes"] % 256 == 0
+    tiles = -(-n // 128) * -(-kp // 64)
+    assert sum(p["block_slabs"]) == tiles and len(p["block_slabs"]) == c
+    assert max(p["block_slabs"]) == p["slabs_per_block"] == -(-tiles // c)
 
 
 @pytest.mark.parametrize("n,k", [(864, 96), (832, 833), (896, 832),
