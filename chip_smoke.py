@@ -170,7 +170,8 @@ ODD_BATCH = 1037  # no multiple of the 132 SMs, nor of a block's 4 warps
 # round, timed without work queued ahead of it. PE 64's Jacobi widths:
 # that kernel, queued behind other work (at (1, 80, 80), 5 sweeps, timed
 # by ops/kernel_parts.py on random matrices: a fixed count of rounds, so
-# the time does not depend on the data).
+# the time does not depend on the data; so too its device-scratch variant
+# at (4, 512, 512)).
 FIRST = "the port's first kernels, H100 80GB HBM3, 700 W"
 STREAMED_V1 = ("the streamed plan's first version (one block per graph, f32 "
                "FMAs), H100 80GB HBM3, 700 W")
@@ -182,6 +183,8 @@ BLOCK_JACOBI_PE64 = ("the two-barrier block-per-matrix kernel (queued behind "
                      "other work), H100 80GB HBM3, 700 W")
 GENERAL_V1 = ("the general plan's first version (f32 FMAs on bf16-rounded "
               "operands, Q in device memory), H100 80GB HBM3, 700 W")
+DEVICE_JACOBI = ("the block-per-matrix kernel over a device scratch (queued "
+                 "behind other work), H100 80GB HBM3, 700 W")
 EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", 32): (0.951, FIRST),
               ("featurize", 128): (0.1915, FIRST),
@@ -199,7 +202,12 @@ EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", "giant80"): (1.0912, BLOCK_JACOBI_PE64),
               ("pe", "256k96"): (5.0374, GENERAL_V1),
               ("pe", "512k128"): (8.7633, GENERAL_V1),
-              ("pe", "832k256"): (44.3354, GENERAL_V1)}
+              ("pe", "832k256"): (44.3354, GENERAL_V1),
+              ("jacobi", "n96"): (1.0980, BLOCK_JACOBI_PE64),
+              ("jacobi", "n120"): (1.8889, DEVICE_JACOBI),
+              ("jacobi", "n128"): (2.0684, DEVICE_JACOBI),
+              ("jacobi", "n256"): (16.0637, DEVICE_JACOBI),
+              ("jacobi", "n512"): (125.4365, DEVICE_JACOBI)}
 MAX_ROUTED_ITEMS = 2000  # bucket-256 dispatches are ~1 in 100 here
 
 # The serve path: generate's defaults (gcc_tpu_torch/cli.py generate).
@@ -265,13 +273,18 @@ FT_BATCH, FT_EPOCHS, FT_MIN_F1 = 32, 3, 0.7
 # Kernel 3 at n = 64 and 80.
 PE64 = 64
 # Every width the reference computes: Kernel 2's general plan (k > 80) and
-# Kernel 3's device-memory variant (n > 118). (PE size, n_max, graphs, their
-# fewest nodes) of the encode calls through generate_embeddings, eval
-# profile (k = min(n_max, PE + 16)): PE 112 (k = 128, Kernel 3 at n = 128;
-# its PE held card vs CPU), PE 80 (k = 96), PE 104 (Kernel 3 at n = 120)
-# and PE 240 at n_max 832 (k = 256, Kernel 3 at n = 256).
+# Kernel 3's cluster pair kernel (every n but 32, 48, 64, 80). (PE size,
+# n_max, graphs, their fewest nodes) of the encode calls through
+# generate_embeddings, eval profile (k = min(n_max, PE + 16)): PE 112 (k =
+# 128, Kernel 3 at n = 128 on clusters of 2; its PE held card vs CPU), PE
+# 80 (k = 96, one block a matrix), PE 104 (n = 120), PE 240 at n_max 832
+# (k = 256, clusters of 6), PE 42 (n = 58: h = 29 pairs, odd) and PE 496 at
+# n_max 832 (n = 512, A and V^T in the device scratch, clusters of 8).
 WIDE_CALLS = ((112, 512, 64, 260), (80, 256, 128, 100), (104, 512, 64, 260),
-              (240, 832, 16, 520))
+              (240, 832, 16, 520), (42, 256, 64, 100), (496, 832, 4, 520))
+# Kernel 3 rows taken from the matrices an encode call hands it: PE size ->
+# the row's key.
+RECORDED_JACOBI = {42: "n58", 496: "n512"}
 # Further seeds of random_graphs at (128, 256, 256), k = 80, where the
 # wide plan's bf16 mean error sits nearest its limit: held untimed.
 PE_SPREAD_SEEDS = (1, 2, 3, 4, 5, 6)
@@ -501,7 +514,13 @@ def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
     b, n, _ = t.shape
     w, v = jacobi_eigh(t, sweeps=sweeps, descending=True)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     w0, v0 = jacobi_eigh_plain(t, sweeps=sweeps, descending=True)
+    end.record()
+    torch.cuda.synchronize()
+    check_ms = start.elapsed_time(end)
     err = max((w - w0).abs().max().item(), (v - v0).abs().max().item())
     # Same rounds, every operation correctly rounded in both versions
     # (`exact`: held to 0, the rule of the widths PE 64 adds).
@@ -514,13 +533,13 @@ def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
         return None
     ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps, descending=True),
                     20, run_ahead=True)
-    # The plain version takes seconds at (16, 256, 256): one call (warm
-    # from the check above) is then its measurement.
-    ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
-                                              descending=True), 1, warmup=0)
+    # The plain version takes seconds at (4, 512, 512): its checking call
+    # is then its measurement, and else its warm-up.
+    ms_p = check_ms
     if ms_p < SLOW_LIBRARY_MS:
         ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
-                                                  descending=True), 3)
+                                                  descending=True), 3,
+                        warmup=0)
     # torch.linalg.eigh takes seconds at (4096, 64, 64): one call is then
     # its measurement (its solver is warm from the smaller shapes before).
     ms_l = timed_ms(lambda: torch.linalg.eigh(t), 1, warmup=0)
@@ -1920,25 +1939,54 @@ def wide_widths_path(ops, cfg, check, results):
     its plain version at (128, 256, 256), k = 96 (PE 80 + 16 guards),
     (64, 512, 512), k = 128 (PE 112 + 16) and (16, 832, 832), k = 256
     (clusters of 1, 2 and 6 blocks a graph), untimed at k = 120; Kernel
-    3's two-barrier block kernel at (128, 96, 96) and its device-memory
-    variant at (64, 120, 120), (64, 128, 128) and (16, 256, 256), 3
+    3's cluster pair kernel at (128, 96, 96) (one block a matrix), (64,
+    120, 120), (64, 128, 128) (clusters of 2) and (16, 256, 256) (of 6), 3
     sweeps, on those outputs' Rayleigh-Ritz matrices, error 0, beside
-    torch.linalg.eigh. Then the WIDE_CALLS encode calls through
+    torch.linalg.eigh, each with its cluster, placement and the clusters
+    the card holds at once. Then the WIDE_CALLS encode calls through
     generate_embeddings, the launch counters zeroed before each (Kernel 2
     once, Kernel 3 twice, no plain-version call), the PE 112 call's PE row
-    cosines card vs CPU by the eval-profile rules of the PE 64 phase.
-    Adds the rows; returns {row key: launches}."""
+    cosines card vs CPU by the eval-profile rules of the PE 64 phase; the
+    matrices the PE 42 and PE 496 calls hand Kernel 3 make its rows at
+    (64, 58, 58) (h odd, one block a matrix) and (4, 512, 512) (A and V^T
+    in the device scratch). Adds the rows; returns {row key: launches}."""
     import dataclasses
 
     import torch
 
     from gcc_tpu_torch import generate
+    from gcc_tpu_torch.features import positional
     from gcc_tpu_torch.features.featurize import featurize_batch
     from gcc_tpu_torch.graph.batch import batch_subgraphs
     from gcc_tpu_torch.models import GraphEncoder
+    from gcc_tpu_torch.ops import jacobi
     from gcc_tpu_torch.ops.pe import general_clusters, pe_launch_plan
 
     dev = torch.device("cuda")
+
+    def cluster_row(t, key):
+        """Kernel 3's row at t's shape, with the plan it launched: blocks
+        a matrix, placement, the clusters of that size the card holds at
+        once; the batch's clusters fill at most one wave where the plan
+        raised them above the least that holds a matrix."""
+        b, n, _ = t.shape
+        held = jacobi.cluster_held()
+        plan = jacobi.jacobi_launch_plan(n, b, held)
+        c = plan["cluster"]
+        print(f"jacobi ({b}, {n}, {n}): {plan['variant']}, cluster of {c} "
+              f"block(s) a matrix, A and V^T in {plan['placement']} memory, "
+              f"{plan['items']} 2x2 blocks a thread, {plan['threads']} "
+              f"threads, {plan['smem_bytes']} B of shared memory a block; "
+              f"the card holds {held[c - 1]} such clusters at once",
+              flush=True)
+        check(plan["variant"] == jacobi.CLUSTER_VARIANT
+              and (c == plan["least_cluster"]
+                   or (b * c <= 132 and b <= held[c - 1])),
+              f"jacobi ({b}, {n}, {n}): {b} clusters of {c} in one wave")
+        row = check_jacobi(t, check, key=key, exact=True)
+        row.update(cluster=c, placement=plan["placement"])
+        return row
+
     # -- the kernels at the new widths -------------------------------------
     for n_b, count, lo, k in ((N_MAX, 128, 100, 96),
                               (GEN_N_MAX, GEN_BATCH, 260, 128),
@@ -1961,23 +2009,19 @@ def wide_widths_path(ops, cfg, check, results):
         if k == 96:
             s_g, t_rr = guarded_rr_matrices(m_shift, q)
             check_jacobi(s_g, check, timed=False, exact=True)
-            results[("jacobi", "n96")] = check_jacobi(
-                t_rr, check, key="n96", exact=True)
+            results[("jacobi", "n96")] = cluster_row(t_rr, "n96")
             del s_g, t_rr
         elif k == 128:
             s_g, t_rr = guarded_rr_matrices(m_shift, q)
             check_jacobi(s_g, check, timed=False, exact=True)
-            results[("jacobi", "n128")] = check_jacobi(
-                t_rr, check, key="n128", exact=True)
+            results[("jacobi", "n128")] = cluster_row(t_rr, "n128")
             _, q = check_pe(m_shift, n_nodes, 120, check, timed=False)
-            results[("jacobi", "n120")] = check_jacobi(
-                guarded_rr_matrices(m_shift, q)[1], check, key="n120",
-                exact=True)
+            results[("jacobi", "n120")] = cluster_row(
+                guarded_rr_matrices(m_shift, q)[1], "n120")
             del s_g, t_rr
         elif k == 256:
-            results[("jacobi", "n256")] = check_jacobi(
-                guarded_rr_matrices(m_shift, q)[1], check, key="n256",
-                exact=True)
+            results[("jacobi", "n256")] = cluster_row(
+                guarded_rr_matrices(m_shift, q)[1], "n256")
         del m_shift, q
         torch.cuda.empty_cache()
 
@@ -1991,9 +2035,11 @@ def wide_widths_path(ops, cfg, check, results):
         model.to(dev).eval()
         subs = generate.graph_subgraphs(random_graphs(n_b + pos, count, lo,
                                                       n_b))
-        emb, got, plain, dt = counted(ops, lambda: generate.generate_embeddings(
-            cfg_w, model, subs, n_max=n_b, e_max=GEN_E_MAX,
-            batch_size=count))
+        with jacobi_inputs(positional) as recorded:
+            emb, got, plain, dt = counted(
+                ops, lambda: generate.generate_embeddings(
+                    cfg_w, model, subs, n_max=n_b, e_max=GEN_E_MAX,
+                    batch_size=count))
         launches[pos] = got
         k = min(n_b, pos + K_EVAL - cfg.encoder.positional_embedding_size)
         print(f"PE {pos} generate_embeddings at n_max {n_b}: one encode call "
@@ -2004,6 +2050,11 @@ def wide_widths_path(ops, cfg, check, results):
                                      .all()),
               f"PE {pos} generate at {n_b}: Kernel 2 once, Kernel 3 twice, "
               "no plain-version call, finite embeddings")
+        if pos in RECORDED_JACOBI:
+            check_jacobi(recorded[0], check, timed=False, exact=True)
+            results[("jacobi", RECORDED_JACOBI[pos])] = cluster_row(
+                recorded[1], RECORDED_JACOBI[pos])
+        del recorded
         if pos != WIDE_CALLS[0][0]:
             continue
         batch = batch_subgraphs(subs, n_b, GEN_E_MAX)
@@ -2029,7 +2080,9 @@ def wide_widths_path(ops, cfg, check, results):
             ("jacobi", "n96"): launches[80]["jacobi"],
             ("jacobi", "n120"): launches[104]["jacobi"],
             ("pe", "832k256"): launches[240]["pe"],
-            ("jacobi", "n256"): launches[240]["jacobi"]}
+            ("jacobi", "n256"): launches[240]["jacobi"],
+            **{("jacobi", key): launches[pos]["jacobi"]
+               for pos, key in RECORDED_JACOBI.items()}}
 
 
 def dp_path(ops, cfg, corpus_dir, out_dir, check):
@@ -2386,6 +2439,7 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "shape": r["shape"], "path": path,
+            **{k: r[k] for k in ("cluster", "placement") if k in r},
             "pass": not any(f.startswith(name) for f in check.failed)})
     for e in kernels:
         check(e["launches"] > 0,

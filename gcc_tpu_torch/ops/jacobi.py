@@ -20,13 +20,19 @@ profile's guarded finish at PE 32), 64 and 80 (PE 64's finish on the
 train profile, and on the eval profile and the giant path) run the pair
 kernel: one block per matrix, each thread mixing 1, 4 or 5 2×2 blocks of
 A (576, 256 or 320 threads), one barrier a round, dynamic shared memory
-above 48 KB; every other even n from 4 to 118 runs one block of 256
-threads per matrix over shared memory with two barriers a round; every
-even n from 120 to 832, where A and Vᵀ pass a block's 227 KB, runs the
-same block kernel with 1024 threads and A and Vᵀ in a per-matrix device
-scratch (16 n² bytes) that the wrapper allocates. All round every
-operation as the plain version does, in its order, so all agree with it
-bit for bit.
+above 48 KB; every other even n from 4 to 832 runs the cluster pair
+kernel, the same design over a thread block cluster of C blocks per
+matrix: block b holds the pairs of :func:`pair_ranges` (both rows of
+each), the rows that cross a range's ends go to the neighbours' shared
+memory, each warp reads its pairs' pivots from the blocks holding them,
+one cluster barrier a round. C = 1 up
+to n = 118; above, the least C ≤ 8 whose share fits a block, raised
+while the batch's clusters fill one wave and the card holds them all
+(:func:`cluster_held`); above n = 328 A and Vᵀ live in a per-matrix
+device scratch that the wrapper allocates. The wrapper builds the
+kernel's tables once per width and cluster (:func:`cluster_tables`).
+All round every operation as the plain version does, in its order, so
+all agree with it bit for bit.
 """
 
 from __future__ import annotations
@@ -155,84 +161,247 @@ def jacobi_eigh_plain(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
 
 
 _JACOBI_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                + [ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _tables: dict = {}
+_held: dict = {}
 
 
 def _jacobi_lib() -> ctypes.CDLL:
     lib = _build.load("jacobi")
     lib.gcc_jacobi_launch.argtypes = _JACOBI_ARGS
     lib.gcc_jacobi_launch.restype = ctypes.c_int
+    lib.gcc_jacobi_plan.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.POINTER(ctypes.c_int)]
+    lib.gcc_jacobi_plan.restype = ctypes.c_int
+    lib.gcc_jacobi_held.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.gcc_jacobi_held.restype = ctypes.c_int
     return lib
-
-
-def _device_tables(n: int, device: torch.device) -> torch.Tensor:
-    """int32 [layout0 | repair destination] for the kernel: old position
-    x moves to pinv[x] in the re-pair."""
-    key = (n, str(device))
-    t = _tables.get(key)
-    if t is None:
-        layout0, pi = unsorted_tournament(n)
-        pinv = np.empty(n, np.int64)
-        pinv[pi] = np.arange(n)
-        t = torch.as_tensor(np.concatenate([layout0, pinv]).astype(np.int32),
-                            device=device)
-        _tables[key] = t
-    return t
 
 
 # Mirrors of the constants in csrc/jacobi.cu.
 _WARP_N = 32            # the n the warp-per-matrix kernel takes
 _WARPS_PER_BLOCK = 4
-_BLOCK_THREADS = 256
-_DEVICE_THREADS = 1024  # the device-memory variant
 # The pair kernel's widths: items (2x2 blocks) per thread.
 _PAIR_ITEMS = {48: 1, 64: 4, 80: 5}
 _MAX_SMEM = 232_448     # shared memory a Hopper block may use
 MAX_N = 832             # the widest n, the widest block of Kernel 2
+# The cluster pair kernel: the portable cluster size, the items a thread
+# its instances take in shared memory and in the device scratch, the SMs
+# whose one wave batch x cluster fills (an H100's), the ints of the pair
+# ranges.
+MAX_CLUSTER = 8
+CLUSTER_ITEMS = (6, 4, 3, 2)
+DEVICE_ITEMS = 2        # the items a thread in the device scratch
+_SMS = 132
+_PAIR_RANGE_INTS = 16
+# How many clusters of 1 to 8 blocks of the cluster pair kernel an NVIDIA
+# H100 80GB HBM3 holds at once at one block an SM (cudaOccupancyMax-
+# ActiveClusters there, by cluster_held): a GPC holds whole clusters only,
+# so 15 of 8 blocks, not 16. The wrapper asks the card it runs on; this is
+# the plan's default.
+H100_CLUSTERS_HELD = (132, 66, 39, 30, 22, 17, 15, 15)
+CLUSTER_VARIANT = "cluster pair kernel, one cluster barrier a round"
 
 
-def jacobi_launch_plan(n: int, batch: int = 1) -> dict:
+def cluster_ld(n: int, device: bool = False) -> int:
+    """Row stride of the cluster pair kernel's buffers: in shared memory
+    the least ≥ n that is 8 mod 16 floats (a warp's 4 rows × 8 columns on
+    distinct banks); in the device scratch n rounded up to 128 bytes."""
+    return -(-n // 32) * 32 if device else n + (24 - n % 16) % 16
+
+
+def cluster_pairs(n: int, cluster: int) -> int:
+    """Pairs the largest block of a cluster holds: ceil(h / cluster)."""
+    return -(-(n // 2) // cluster)
+
+
+def cluster_smem(n: int, cluster: int, device: bool) -> int:
+    """Shared memory of a block of the cluster pair kernel: A, A′, Vᵀ and
+    Vᵀ′ (2 M rows of LD floats each; when placed in the device scratch,
+    a round's rotations, n floats, instead), the eigenvalues, four n-int
+    tables, the pair ranges and the ranks."""
+    buffers = (4 * n if device
+               else 32 * cluster_pairs(n, cluster) * cluster_ld(n))
+    return buffers + 24 * n + 4 * _PAIR_RANGE_INTS
+
+
+def least_cluster(n: int) -> int:
+    """The least cluster (≤ 8 blocks) whose share of A and Vᵀ fits a
+    block's shared memory; 0 where none does (n > 328)."""
+    return next((c for c in range(1, MAX_CLUSTER + 1)
+                 if cluster_smem(n, c, False) <= _MAX_SMEM), 0)
+
+
+def _cluster_max_warps(items: int) -> int:
+    return 32 if items <= 3 else 16
+
+
+def _cluster_patches(n: int, pairs: int, items: int,
+                     device: bool = False) -> int:
+    """A block's patches: 4·items of its pairs × 8 column pairs each in
+    shared memory, items × 32 in the device scratch."""
+    rows, cols = (items, 32) if device else (4 * items, 8)
+    return -(-pairs // rows) * -(-(n // 2) // cols)
+
+
+def cluster_items(n: int, pairs: int) -> int:
+    """2×2 blocks a thread mixes per patch (6, 4, 3 or 2; a block has at
+    most 16 warps of 4 or 6 items, 32 of 2 or 3), by a rule fitted to the
+    timings of ``ops/jacobi_instances.py``: first a patch a warp and at
+    least 16 warps, then the fewest patch rows past the block's pairs,
+    then the most items; failing that, a patch a warp and the most warps;
+    failing that, the fewest 2×2 blocks a thread mixes in a round."""
+    def key(items):
+        warps = _cluster_max_warps(items)
+        patches = _cluster_patches(n, pairs, items)
+        rows = -(-pairs // (4 * items)) * 4 * items
+        if 16 <= patches <= warps:
+            return (0, rows, -items)
+        if patches <= warps:
+            return (1, -patches, -items)
+        return (2, -(-patches // warps) * items, -items)
+    return min(CLUSTER_ITEMS, key=key)
+
+
+def pair_ranges(n: int, cluster: int) -> list[tuple[int, int]]:
+    """Block b of a cluster holds the pairs [start, stop) of entry b:
+    contiguous, as even as they divide."""
+    h = n // 2
+    return [(b * h // cluster, (b + 1) * h // cluster)
+            for b in range(cluster)]
+
+
+def _cluster_plan(n: int, batch: int, held, cluster, items) -> dict:
+    """The cluster pair kernel's plan, as ``cluster_plan`` in
+    ``csrc/jacobi.cu`` computes it."""
+    least = least_cluster(n)
+    device = least == 0
+    lo, hi = (1 if device else least), min(MAX_CLUSTER, n // 2)
+    if cluster:
+        if not lo <= cluster <= hi:
+            raise ValueError(f"jacobi n={n} takes clusters of {lo} to {hi} "
+                             f"blocks, got {cluster}")
+        c = cluster
+    elif least == 1:
+        c = 1                    # a block holds the whole matrix
+    else:
+        # Raised while the batch's clusters fill at most one wave of the
+        # SMs and the card holds them all at once.
+        c = lo
+        while c < hi and batch * (c + 1) <= _SMS and batch <= held[c]:
+            c += 1
+    pairs = cluster_pairs(n, c)
+    if device:
+        if items not in (0, DEVICE_ITEMS):
+            raise ValueError(f"jacobi n={n} in the device scratch takes "
+                             f"{DEVICE_ITEMS} items a thread, got {items}")
+        items = DEVICE_ITEMS
+    elif not items:
+        items = cluster_items(n, pairs)
+    elif items not in CLUSTER_ITEMS:
+        raise ValueError(f"jacobi cluster kernel takes {CLUSTER_ITEMS} items "
+                         f"a thread, got {items}")
+    warps = min(_cluster_patches(n, pairs, items, device),
+                _cluster_max_warps(items))
+    return dict(variant=CLUSTER_VARIANT, blocks=batch * c, threads=32 * warps,
+                smem_bytes=cluster_smem(n, c, device),
+                scratch_bytes=16 * n * cluster_ld(n, True) if device else 0,
+                cluster=c, items=items,
+                placement="device" if device else "shared",
+                least_cluster=lo, pair_ranges=pair_ranges(n, c))
+
+
+def jacobi_launch_plan(n: int, batch: int = 1, held=H100_CLUSTERS_HELD,
+                       cluster: int = 0, items: int = 0) -> dict:
     """Launch plan of Kernel 3 for (batch, n, n), as ``csrc/jacobi.cu``
-    launches it: which kernel, blocks, threads per block, bytes of shared
-    memory per block and of device scratch per matrix. Raises
-    ``ValueError`` on an n the kernels do not take."""
+    launches it: which kernel (``variant``), blocks, threads per block,
+    bytes of shared memory per block and of device scratch per matrix,
+    blocks per matrix (``cluster``), 2×2 blocks a thread (``items``) and
+    where A and Vᵀ live (``placement``: "registers", "shared" or
+    "device"). ``held[c - 1]`` is how many clusters of c blocks the card
+    holds at once; ``cluster`` and ``items`` force the cluster pair
+    kernel's choices (0: the plan's). Raises ``ValueError`` on what the
+    kernels do not take."""
     if n % 2 or not 4 <= n <= MAX_N:
         raise ValueError(
             f"jacobi kernel takes even 4 <= n <= {MAX_N}, got n={n}")
+    fixed = n == _WARP_N or n in _PAIR_ITEMS
+    if fixed and (cluster or items):
+        raise ValueError(f"jacobi n={n} runs a kernel of fixed shape")
     if n == _WARP_N:
         # lay[n] + per warp: slab n(n+1), eigenvalues n, ranks n
         smem = 4 * (n + _WARPS_PER_BLOCK * (n * (n + 1) + 2 * n))
         return dict(variant="warp-per-matrix, registers",
                     blocks=-(-batch // _WARPS_PER_BLOCK),
                     threads=32 * _WARPS_PER_BLOCK, smem_bytes=smem,
-                    scratch_bytes=0)
+                    scratch_bytes=0, cluster=1, items=0,
+                    placement="registers")
     if n in _PAIR_ITEMS:
         # A and V^T double-buffered with rows padded to n + 8, the
         # eigenvalues and three index tables.
         smem = 4 * (4 * n * (n + 8) + n) + 3 * 4 * n
         return dict(variant="thread-per-2x2-block, one barrier a round",
                     blocks=batch, threads=(n // 2) ** 2 // _PAIR_ITEMS[n],
-                    smem_bytes=smem, scratch_bytes=0)
-    if _block_smem(n) > _MAX_SMEM:
-        # c/s and the eigenvalues, four index tables; A and V^T,
-        # double-buffered, in the scratch.
-        return dict(variant="block-per-matrix, device memory", blocks=batch,
-                    threads=_DEVICE_THREADS, smem_bytes=4 * 2 * n + 4 * 4 * n,
-                    scratch_bytes=4 * 4 * n * n)
-    return dict(variant="block-per-matrix, shared memory", blocks=batch,
-                threads=_BLOCK_THREADS, smem_bytes=_block_smem(n),
-                scratch_bytes=0)
+                    smem_bytes=smem, scratch_bytes=0, cluster=1,
+                    items=_PAIR_ITEMS[n], placement="shared")
+    return _cluster_plan(n, batch, held, cluster, items)
 
 
-def _block_smem(n: int) -> int:
-    """Shared memory of the block kernel: A and V^T double-buffered,
-    c/s, eigenvalues, four index tables."""
-    return 4 * (4 * n * n + 2 * n) + 4 * 4 * n
+def cluster_tables(n: int, cluster: int, placement: str) -> np.ndarray:
+    """int32 tables of Kernel 3: ``layout0 | cdst`` (old position x moves
+    to cdst[x] in the re-pair; the warp and pair kernels read these two),
+    then for the cluster pair kernel ``rdst | home | pstart``: home[x] is
+    ``block << 16 | buffer row`` of position x (placement "shared": block
+    b's top rows, then its bottom rows, ceil(h / C) each; "device": row x
+    of the matrix's scratch, block 0), rdst[x] = home[cdst[x]], and block b
+    holds the pairs [pstart[b], pstart[b + 1])."""
+    layout0, pi = unsorted_tournament(n)
+    cdst = np.empty(n, np.int64)
+    cdst[pi] = np.arange(n)
+    h = n // 2
+    ranges = pair_ranges(n, cluster)
+    pstart = np.full(_PAIR_RANGE_INTS, h, np.int64)
+    pstart[:cluster] = [start for start, _ in ranges]
+    if placement == "device":
+        home = np.arange(n, dtype=np.int64)
+    else:
+        rows = cluster_pairs(n, cluster)
+        pair = np.arange(n) % h
+        block = np.searchsorted(pstart[:cluster + 1], pair, side="right") - 1
+        row = pair - pstart[block] + np.where(np.arange(n) >= h, rows, 0)
+        home = block << 16 | row
+    return np.concatenate([layout0, cdst, home[cdst], home, pstart]
+                          ).astype(np.int32)
 
 
-def _check_input(a: torch.Tensor) -> None:
-    """Raise on what the kernels do not take."""
+def _device_tables(n: int, plan: dict, device: torch.device) -> torch.Tensor:
+    key = (n, plan["cluster"], plan["placement"], str(device))
+    t = _tables.get(key)
+    if t is None:
+        t = torch.as_tensor(cluster_tables(n, plan["cluster"],
+                                           plan["placement"]), device=device)
+        _tables[key] = t
+    return t
+
+
+def cluster_held(device=None) -> tuple:
+    """How many clusters of 1 to 8 blocks of the cluster pair kernel the
+    card holds at once (``H100_CLUSTERS_HELD`` on an H100 80GB HBM3), asked
+    once per device. Needs the card."""
+    device = torch.device("cuda" if device is None else device)
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    held = _held.get(index)
+    if held is None:
+        out = (ctypes.c_int * MAX_CLUSTER)()
+        with torch.cuda.device(index):
+            _build.check(_jacobi_lib().gcc_jacobi_held(out), "jacobi held")
+        held = _held[index] = tuple(out)
+    return held
+
+
+def _check_input(a: torch.Tensor) -> dict:
+    """Raise on what the kernels do not take; the plan else."""
     if a.dtype != torch.float32:
         raise TypeError(f"jacobi_eigh takes float32, got {a.dtype}")
     if a.dim() != 3 or a.shape[1] != a.shape[2]:
@@ -247,26 +416,38 @@ def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
     eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors
     launch ``csrc/jacobi.cu`` (one launch counted: the warp-per-matrix
     kernel at n = 32, the thread-per-2x2-block kernel at n = 48, 64 and
-    80, the block-per-matrix kernel at any other n, over device memory
-    above n = 118); CPU tensors run :func:`jacobi_eigh_plain`."""
+    80, the cluster pair kernel at any other n, on the plan's cluster and
+    items a thread); CPU tensors run :func:`jacobi_eigh_plain`."""
     if a.device.type == "cpu":
         return jacobi_eigh_plain(a, sweeps, eps, descending)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
-    plan = _check_input(a)
+    _check_input(a)
+    return _launch(a, sweeps, eps, descending)
+
+
+def _launch(a: torch.Tensor, sweeps: int, eps: float, descending: bool,
+            cluster: int = 0, items: int = 0):
+    """Launch ``csrc/jacobi.cu`` on the CUDA tensor a (B, n, n) float32,
+    counted in ``jacobi_eigh.launches``. ``cluster`` and ``items`` force
+    the cluster pair kernel's blocks per matrix and 2×2 blocks a thread
+    (0: the plan's); the card tests and ``ops/jacobi_instances.py`` sweep
+    them."""
     b, n, _ = a.shape
+    plan = jacobi_launch_plan(n, b, cluster_held(a.device), cluster, items)
     a = a.contiguous()
     w = torch.empty((b, n), dtype=torch.float32, device=a.device)
     v = torch.empty((b, n, n), dtype=torch.float32, device=a.device)
     scratch = torch.empty((b, plan["scratch_bytes"]), dtype=torch.uint8,
                           device=a.device)
-    tables = _device_tables(n, a.device)
-    lib = _jacobi_lib()
+    tables = _device_tables(n, plan, a.device)
+    fixed = plan["variant"] != CLUSTER_VARIANT
     with torch.cuda.device(a.device):
-        err = lib.gcc_jacobi_launch(
+        err = _jacobi_lib().gcc_jacobi_launch(
             a.data_ptr(), tables.data_ptr(), w.data_ptr(), v.data_ptr(),
             scratch.data_ptr() if scratch.numel() else None,
             b, n, sweeps, 1 if descending else 0, eps,
+            0 if fixed else plan["cluster"], 0 if fixed else plan["items"],
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "jacobi")
     jacobi_eigh.launches += 1

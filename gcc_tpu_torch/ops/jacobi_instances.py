@@ -1,8 +1,10 @@
-"""Kernel 3's pair kernel at other instances than the ones it ships.
+"""Kernel 3's pair kernel at other instances than the ones it ships, and
+the cluster pair kernel at every cluster and items a thread.
 
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python -m gcc_tpu_torch.ops.jacobi_instances [--reps 30]
+        [--cases all|pair|cluster]
 
 ``csrc/jacobi.cu`` builds ``jacobi_pair_kernel`` for n = 48, 64 and 80,
 each at a number of 2x2 blocks per thread ("items") and of blocks per SM
@@ -15,7 +17,14 @@ against ``jacobi_eigh_plain`` bit for bit, and times each (CUDA events,
 (the eval profile) and 4096, n = 64 at 4096 (PE 64's train profile),
 n = 80 at 64 (its eval profile, 3 sweeps) and one (its giant finish,
 5 sweeps). Libraries run in turn, then in reverse turn; both times are
-printed. Prints the card's nvidia-smi name and power limit first.
+printed. ``--cases cluster`` times the cluster pair kernel (one library:
+its items a thread are instances of the source, the cluster a launch
+argument) at (16, 256, 256) on every legal cluster (5 to 8 blocks a
+matrix) and at (128, 96, 96) on 1 to 8, each at every items a thread (6,
+4, 3, 2), and at every items on the plan's cluster at (64, 128, 128),
+(64, 120, 120) and (64, 58, 58), 3 sweeps, held bit for bit to the
+plain version, in turn then in reverse turn, the plan's choice marked.
+Prints the card's nvidia-smi name and power limit first.
 """
 
 from __future__ import annotations
@@ -69,9 +78,53 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+# The cluster pair kernel's shapes (batch, n): every cluster and items at
+# the first two, every items at the plan's cluster at the others.
+CLUSTER_SHAPES = ((16, 256), (128, 96))
+ITEMS_SHAPES = ((64, 128), (64, 120), (64, 58))
+
+
+def cluster_sweep(reps: int) -> None:
+    """Every legal (cluster, items) of the cluster pair kernel at
+    CLUSTER_SHAPES and every items at ITEMS_SHAPES' planned cluster, 3
+    sweeps: bit for bit the plain version, timed in turn and in reverse
+    turn."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(0)
+    held = jacobi.cluster_held()
+    for batch, n in CLUSTER_SHAPES + ITEMS_SHAPES:
+        t = torch.randn(batch, n, n, device=dev, generator=gen)
+        t = 0.5 * (t + t.transpose(1, 2))
+        w0, v0 = jacobi.jacobi_eigh_plain(t, sweeps=3, descending=True)
+        plan = jacobi.jacobi_launch_plan(n, batch, held)
+        clusters = (range(plan["least_cluster"], jacobi.MAX_CLUSTER + 1)
+                    if (batch, n) in CLUSTER_SHAPES else (plan["cluster"],))
+        tried = [(c, i) for c in clusters for i in jacobi.CLUSTER_ITEMS]
+        times = {}
+        for c, i in tried + tried[::-1]:
+            run = (lambda c=c, i=i: jacobi._launch(t, 3, 1e-12, True, c, i))
+            w, v = run()
+            if not (torch.equal(w, w0) and torch.equal(v, v0)):
+                raise RuntimeError(f"jacobi ({batch}, {n}, {n}) cluster={c} "
+                                   f"items={i}: not equal to the plain "
+                                   "version")
+            times.setdefault((c, i), []).append(
+                timed_ms(run, reps, run_ahead=True))
+        for (c, i), ms in times.items():
+            p = jacobi.jacobi_launch_plan(n, batch, held, cluster=c, items=i)
+            chosen = (c, i) == (plan["cluster"], plan["items"])
+            print(f"jacobi ({batch}, {n}, {n}) sweeps=3: cluster={c} "
+                  f"items={i} threads={p['threads']} smem={p['smem_bytes']} "
+                  f"held={held[c - 1]}{' plan' if chosen else ''}: "
+                  + " ".join(f"{x:.4f}" for x in ms) + " ms, equal to the "
+                  "plain version", flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--reps", type=int, default=30)
+    ap.add_argument("--cases", default="all",
+                    choices=("all", "pair", "cluster"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("jacobi_instances: needs an NVIDIA card")
@@ -79,6 +132,10 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
+    if args.cases in ("all", "cluster"):
+        cluster_sweep(args.reps)
+    if args.cases == "cluster":
+        return
     with open(_build.source_path("jacobi")) as f:
         src = f.read()
     shipped = {n: tuple(int(g) for g in re.search(

@@ -23,9 +23,14 @@ graph — with the mean live nodes of chip_smoke.py's seeded graphs there:
 174, 381 and 677), and ``jacobi_eigh`` per sweep count (0,
 1, 3, 5) on random symmetric matrices at each width's main-path batch —
 n = 32 and 48 on 4096, 48 on 128 and 64, PE 64's n = 64 on 4096 and
-n = 80 on 64 and one (its giant finish) — so that a round's cost can be
-read (the Jacobi launches are queued behind a few ms of other work, so
-the card's time is read and not the host's rate of launching). Kernel 2
+n = 80 on 64 and one (its giant finish), and the cluster pair kernel's
+main shapes, n = 96 on 128 (PE 80), 128 on 64 (PE 112) and 256 on 16 (PE
+240), and its device-scratch placement at n = 512 on 4 (PE 496), 64 and
+132 (one wave of one-block clusters; these three at 3 launches a sweep
+count, the rest at 20), its cluster printed beside them — so that a
+round's cost can be read (the Jacobi launches are queued behind a few
+ms of other work, so the card's time is read and not the host's rate of
+launching). Kernel 2
 skips the zero padding of the node axis, so its time depends on how
 many nodes are live: the operators are dense (all N live, the most work
 a shape can ask for) except one case with 56 live nodes of 128, the
@@ -41,6 +46,7 @@ import subprocess
 
 import torch
 
+from gcc_tpu_torch.ops import jacobi
 from gcc_tpu_torch.ops.jacobi import jacobi_eigh
 from gcc_tpu_torch.ops.pe import pe_launch_plan, pe_subspace_iterate
 
@@ -72,6 +78,18 @@ def _plan(n: int, k: int, graphs: int) -> dict:
         return pe_launch_plan(n, k, graphs)
     except TypeError:   # a package whose plan does not take the batch
         return pe_launch_plan(n, k)
+
+
+def _jacobi_plan(n: int, g: int) -> str:
+    """The Jacobi plan's cluster and placement, where the package has
+    them."""
+    if hasattr(jacobi, "cluster_held"):
+        plan = jacobi.jacobi_launch_plan(n, g, jacobi.cluster_held())
+    else:               # a package whose plan does not ask the card
+        plan = jacobi.jacobi_launch_plan(n, g)
+    return (f"cluster={plan.get('cluster', 1)} "
+            f"placement={plan.get('placement', '-')} "
+            f"items={plan.get('items', '-')}")
 
 
 SCHEDULES = (
@@ -136,16 +154,18 @@ def main() -> None:
                   f"{name}: {ms:.4f} ms", flush=True)
         del a, m, q0
     jacobi_cases = ((32, args.graphs), (48, args.graphs), (48, 128), (48, 64),
-                    (64, args.graphs), (80, 64), (80, 1))
+                    (64, args.graphs), (80, 64), (80, 1), (96, 128),
+                    (128, 64), (256, 16), (512, 4), (512, 64), (512, 132))
     for n, g in jacobi_cases if args.cases in ("all", "jacobi") else ():
         t = torch.randn(g, n, n, device=dev, generator=gen)
         t = 0.5 * (t + t.transpose(1, 2))
+        plan = _jacobi_plan(n, g)
         for sweeps in (0, 1, 3, 5):
             ms = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps,
-                                              descending=True), 20,
-                          run_ahead=True)
-            print(f"jacobi ({g}, {n}, {n}) sweeps={sweeps}: {ms:.4f} ms",
-                  flush=True)
+                                              descending=True),
+                          20 if n < 512 else 3, run_ahead=True)
+            print(f"jacobi ({g}, {n}, {n}) sweeps={sweeps} {plan}: "
+                  f"{ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -289,16 +289,17 @@ def test_pe_plan_mirrors_the_source(cuda_device):
 
 
 @pytest.mark.parametrize("n,batch", [(118, 5), (56, 7)])
-def test_jacobi_block_kernel_wide(cuda_device, n, batch):
-    """Even n above 48 beside PE 64's widths (118 the widest block; 56 the
-    first beyond a plain launch's 48 KB) run the block kernel with
-    dynamic shared memory, bit for bit the plain version, both orders."""
+def test_jacobi_cluster_kernel_wide(cuda_device, n, batch):
+    """Even n above 48 beside PE 64's widths (118 the widest a block holds
+    alone; 56 the first beyond a plain launch's 48 KB) run the cluster
+    pair kernel on one block a matrix with dynamic shared memory, bit for
+    bit the plain version, both orders."""
     a = torch.randn(batch, n, n, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(n))
     a = 0.5 * (a + a.transpose(1, 2))
     a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
-    assert jacobi.jacobi_launch_plan(n, batch)["variant"].startswith(
-        "block-per-matrix")
+    plan = jacobi.jacobi_launch_plan(n, batch, jacobi.cluster_held())
+    assert plan["variant"] == jacobi.CLUSTER_VARIANT and plan["cluster"] == 1
     for desc in (False, True):
         before = jacobi.jacobi_eigh.launches
         w, v = jacobi.jacobi_eigh(a, sweeps=3, descending=desc)
@@ -331,24 +332,99 @@ def test_jacobi_pair_kernel_wide(cuda_device, n, batch):
 
 
 def test_jacobi_plan_mirrors_the_source(cuda_device):
-    """jacobi_launch_plan (Python) and gcc_jacobi_plan (csrc/jacobi.cu)
-    agree at every width the wrapper takes."""
+    """jacobi_launch_plan (Python, given the clusters this card holds at
+    once) and gcc_jacobi_plan (csrc/jacobi.cu) agree at every width the
+    wrapper takes and at batches from one matrix to 4096."""
     import ctypes
 
     lib = jacobi._jacobi_lib()
+    held = jacobi.cluster_held()
     kernels = ("warp-per-matrix, registers",
                "thread-per-2x2-block, one barrier a round",
-               "block-per-matrix, shared memory",
-               "block-per-matrix, device memory")
-    out = (ctypes.c_int * 4)()
-    for n in range(4, jacobi.MAX_N + 1, 2):
-        assert lib.gcc_jacobi_plan(n, out) == 0
-        plan = jacobi.jacobi_launch_plan(n)
-        assert [kernels[out[0]], *out[1:]] == [
-            plan["variant"], plan["threads"], plan["smem_bytes"],
-            plan["scratch_bytes"]], n
+               jacobi.CLUSTER_VARIANT)
+    placements = ("shared", "device")
+    out = (ctypes.c_int * 7)()
+    for batch in (1, 3, 16, 64, 128, 4096):
+        for n in range(4, jacobi.MAX_N + 1, 2):
+            assert lib.gcc_jacobi_plan(n, batch, out) == 0
+            plan = jacobi.jacobi_launch_plan(n, batch, held)
+            placement = ("registers" if out[0] == 0
+                         else placements[out[6]])
+            assert [kernels[out[0]], *out[1:6], placement] == [
+                plan["variant"], plan["threads"], plan["smem_bytes"],
+                plan["scratch_bytes"], plan["cluster"], plan["items"],
+                plan["placement"]], (n, batch)
     for n in (3, 2, 834):
-        assert lib.gcc_jacobi_plan(n, out) != 0
+        assert lib.gcc_jacobi_plan(n, 1, out) != 0
+
+
+def test_jacobi_cluster_held_on_an_h100(cuda_device):
+    """The clusters of 1 to 8 blocks the card holds at once: on an NVIDIA
+    H100 80GB HBM3 the plan's default table (a GPC holds whole clusters
+    only: 15 of 8 blocks, not 16), never more than one wave of blocks."""
+    held = jacobi.cluster_held()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert all(0 < held[c - 1] * c <= sms for c in range(1, 9)), held
+    if torch.cuda.get_device_name(0) == "NVIDIA H100 80GB HBM3":
+        assert held == jacobi.H100_CLUSTERS_HELD
+
+
+_CLUSTER_SWEEP = [n for n in range(4, 341, 2) if n not in (32, 48, 64, 80)]
+
+
+@pytest.mark.parametrize("n", _CLUSTER_SWEEP + [400, 512, 640, 832])
+def test_jacobi_cluster_kernel_every_width(cuda_device, n):
+    """Every even n from 4 to 340 but the warp and pair kernels' widths,
+    and 400 / 512 / 640 / 832 in the device scratch: one matrix, three,
+    and the batch that fills one wave at the least cluster that holds the
+    matrix, bit for bit the plain version (2 sweeps up to n = 130, 1
+    above; a diagonal matrix of repeated eigenvalues first)."""
+    held = jacobi.cluster_held()
+    least = max(1, jacobi.least_cluster(n))
+    sweeps = 2 if n <= 130 else 1
+    gen = torch.Generator(cuda_device).manual_seed(n)
+    for batch in (1, 3, 132 // least):
+        a = torch.randn(batch, n, n, device=cuda_device, generator=gen)
+        a = 0.5 * (a + a.transpose(1, 2))
+        a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
+        plan = jacobi.jacobi_launch_plan(n, batch, held)
+        assert plan["variant"] == jacobi.CLUSTER_VARIANT
+        desc = n % 4 == 0
+        before = jacobi.jacobi_eigh.launches
+        w, v = jacobi.jacobi_eigh(a, sweeps=sweeps, descending=desc)
+        assert jacobi.jacobi_eigh.launches == before + 1
+        w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=sweeps, descending=desc)
+        assert torch.equal(w, w0) and torch.equal(v, v0), (n, batch)
+
+
+@pytest.mark.parametrize("n,batch", [(96, 128), (130, 40), (256, 16),
+                                     (512, 4)])
+def test_jacobi_cluster_kernel_one_matrix_alone(cuda_device, n, batch):
+    """One matrix alone (a cluster of up to 8 blocks) equals the same
+    matrix inside a batch (a smaller cluster), bit for bit."""
+    a = torch.randn(batch, n, n, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n))
+    a = 0.5 * (a + a.transpose(1, 2))
+    w, v = jacobi.jacobi_eigh(a, sweeps=1, descending=True)
+    for i in (0, batch - 1):
+        w1, v1 = jacobi.jacobi_eigh(a[i:i + 1], sweeps=1, descending=True)
+        assert torch.equal(w1[0], w[i]) and torch.equal(v1[0], v[i])
+
+
+def test_jacobi_cluster_kernel_forced_clusters(cuda_device):
+    """(4, 256, 256) on every legal cluster (5 to 8 blocks a matrix) and
+    every items a thread gives the same bits, equal to the plain version;
+    the launch raises on a cluster that does not hold the matrix."""
+    a = torch.randn(4, 256, 256, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(7))
+    a = 0.5 * (a + a.transpose(1, 2))
+    w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=1, descending=True)
+    for cluster in range(jacobi.least_cluster(256), 9):
+        for items in jacobi.CLUSTER_ITEMS:
+            w, v = jacobi._launch(a, 1, 1e-12, True, cluster, items)
+            assert torch.equal(w, w0) and torch.equal(v, v0), (cluster, items)
+    with pytest.raises(ValueError, match="clusters of 5 to 8"):
+        jacobi._launch(a, 1, 1e-12, True, cluster=4)
 
 
 @pytest.mark.parametrize("n", [834, 65])
@@ -504,16 +580,18 @@ def test_pe_general_plan_few_live_nodes(cuda_device, n_max, k):
 
 
 @pytest.mark.parametrize("n,batch", [(120, 5), (128, 3), (256, 2), (832, 1)])
-def test_jacobi_device_variant(cuda_device, n, batch):
-    """Even n above 118 (A and V^T pass a block's shared memory): the block
-    kernel over a device scratch, bit for bit the plain version, both
-    orders."""
+def test_jacobi_cluster_kernel_beyond_118(cuda_device, n, batch):
+    """Even n above 118 (A and V^T pass a block's shared memory): the
+    cluster pair kernel on a cluster of blocks a matrix (shared memory up
+    to n = 328, the device scratch above), bit for bit the plain version,
+    both orders."""
     a = torch.randn(batch, n, n, device=cuda_device,
                     generator=torch.Generator(cuda_device).manual_seed(n))
     a = 0.5 * (a + a.transpose(1, 2))
     a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
-    assert jacobi.jacobi_launch_plan(n, batch)["variant"] == \
-        "block-per-matrix, device memory"
+    plan = jacobi.jacobi_launch_plan(n, batch, jacobi.cluster_held())
+    assert plan["variant"] == jacobi.CLUSTER_VARIANT and plan["cluster"] > 1
+    assert plan["placement"] == ("device" if n > 328 else "shared")
     sweeps = 1 if n > 256 else 3
     for desc in (False, True):
         before = jacobi.jacobi_eigh.launches

@@ -149,8 +149,8 @@ def test_jacobi_plan_fits_a_block(n):
         if n == 48:
             assert plan["smem_bytes"] <= 48 * 1024     # a plain launch
     else:
-        assert plan["variant"].startswith("block-per-matrix")
-        assert plan["blocks"] == 4097
+        assert plan["variant"] == jacobi.CLUSTER_VARIANT
+        assert plan["cluster"] == 1 and plan["blocks"] == 4097
 
 
 @pytest.mark.parametrize("batch", [1, 3, 64, 128, 2777, 4096])
@@ -185,10 +185,22 @@ def test_jacobi_pair_plan_wide(n, batch):
 
 @pytest.mark.parametrize("n", [56, 118])
 def test_jacobi_block_plan_keeps_the_other_widths(n):
-    """Widths beside PE 64's keep the two-barrier block kernel."""
+    """Widths beside PE 64's up to n = 118 take the cluster pair kernel on
+    one block a matrix (a cluster of 1: A and V^T double-buffered in its
+    shared memory, rows padded to the least stride >= n that is 8 mod 16),
+    one barrier a round, whole warps of 2x2 blocks."""
     plan = jacobi.jacobi_launch_plan(n, 64)
-    assert plan["variant"] == "block-per-matrix, shared memory"
-    assert plan["threads"] == 256 and plan["blocks"] == 64
+    assert plan["variant"] == jacobi.CLUSTER_VARIANT
+    assert plan["cluster"] == 1 and plan["blocks"] == 64
+    assert plan["placement"] == "shared" and plan["scratch_bytes"] == 0
+    ld = jacobi.cluster_ld(n)
+    assert ld >= n and ld % 16 == 8
+    assert 4 * 4 * n * ld < plan["smem_bytes"] <= MAX_SMEM
+    assert plan["threads"] % 32 == 0 and plan["threads"] <= 1024
+    rows = 4 * plan["items"]
+    patches = -(-(n // 2) // rows) * -(-(n // 2) // 8)
+    assert plan["threads"] == 32 * min(patches, 1024 // 32 if
+                                       plan["items"] <= 3 else 16)
 
 
 @pytest.mark.parametrize("n", [3, 5, 33, 834, 65, 2, 0])

@@ -201,18 +201,26 @@ def test_pe_plan_refuses_beyond_832(n, k):
 
 @pytest.mark.parametrize("n", [120, 122, 128, 256, 500, 832])
 def test_jacobi_device_plan(n):
-    """Even n from 120 to 832: the block kernel over a device scratch of
-    16 n² bytes a matrix (A and Vᵀ double-buffered), 1024 threads, c/s,
-    the eigenvalues and the index tables in under 48 KB of shared
-    memory; 118 is the last over shared memory."""
+    """Even n from 120 to 832, where A and Vᵀ pass one block's shared
+    memory: the cluster pair kernel on a cluster of blocks a matrix, A and
+    Vᵀ in the blocks' shared memory up to n = 328 (the least cluster that
+    holds them, raised to fill one wave: 2 blocks at a batch of 64 from n =
+    120 to 164), in a device scratch of 16 n·LD bytes a matrix above;
+    118 is the last on one block."""
     plan = jacobi.jacobi_launch_plan(n, batch=64)
-    assert plan["variant"] == "block-per-matrix, device memory"
-    assert plan["blocks"] == 64 and plan["threads"] == 1024
-    assert 0 < plan["smem_bytes"] <= 48 * 1024
-    assert plan["scratch_bytes"] == 16 * n * n
-    assert jacobi._block_smem(n) > MAX_SMEM
+    assert plan["variant"] == jacobi.CLUSTER_VARIANT
+    assert plan["cluster"] >= 2 and plan["blocks"] == 64 * plan["cluster"]
+    assert 0 < plan["smem_bytes"] <= MAX_SMEM
+    assert jacobi.cluster_smem(n, 1, False) > MAX_SMEM
+    if n <= 328:
+        assert plan["placement"] == "shared" and plan["scratch_bytes"] == 0
+        assert plan["cluster"] == jacobi.least_cluster(n)
+    else:
+        assert plan["placement"] == "device"
+        assert plan["scratch_bytes"] == 16 * n * jacobi.cluster_ld(n, True)
+        assert plan["smem_bytes"] <= 48 * 1024
     last = jacobi.jacobi_launch_plan(118)
-    assert last["variant"] == "block-per-matrix, shared memory"
+    assert last["cluster"] == 1 and last["placement"] == "shared"
     assert last["smem_bytes"] <= MAX_SMEM and last["scratch_bytes"] == 0
 
 
