@@ -123,7 +123,17 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    through run_pretrain's data-parallel branch (the wire's device axis,
    the BatchNorm and gradient all-reduces, the key all-gather, rank-0
    writes); equal loss trajectories (1e-5), the collective calls
-   counted.
+   counted. In the same process group, phase 10's graphs through
+   generate_graph_embeddings(group=...): each giant graph's partition
+   axis across the ranks (the rank's shard placed alone, every row sum
+   all-reduced), launch counters zeroed before the call (Kernel 3 twice
+   per giant graph, no plain-version call); the dense-bucket rows equal
+   to phase 10's bit for bit, each giant graph's PE held to phase 10's
+   card PE by its witness rule (row cosines, mean within 3x the 1-ulp
+   witness's + 1e-4), the giant rows in order; ms and collective calls per
+   giant graph by schedule beside phase 10's, the com-DBLP-size graph's
+   PE and encode; Kernel 3 at (1, 48, 48), 5 sweeps, held on the
+   matrices of the finish across ranks.
 15. Prints one {"kernels": [...]} JSON line (one entry per kernel and
    shape, with the path that runs it), the nvidia-smi line again, and as
    the last line {"ok": true, "device": {...}}.
@@ -784,6 +794,24 @@ def jacobi_inputs(module):
         yield recorded
     finally:
         module.jacobi_eigh = real
+
+
+@contextlib.contextmanager
+def giant_pes(module):
+    """A list that gets a copy (on the device, no sync) of every PE that
+    module.giant_input_features is handed while the block runs: the
+    rows of the PE inside giant_graph_embedding."""
+    recorded, real = [], module.giant_input_features
+
+    def recording(model, g, pe, *args):
+        recorded.append(pe.clone())
+        return real(model, g, pe, *args)
+
+    module.giant_input_features = recording
+    try:
+        yield recorded
+    finally:
+        module.giant_input_features = real
 
 
 @contextlib.contextmanager
@@ -1449,8 +1477,10 @@ def giant_path(ops, cfg, ckpt, check, results):
     giant_gin_encode on identical features, the embeddings beside the
     CPU path's own change under a 1-ulp change of the edge weights; and
     the rows of the call held to these, in order. Adds Kernel 3's row at
-    (1, 48, 48), 5 sweeps (the giant PE's finish); returns its
-    launches."""
+    (1, 48, 48), 5 sweeps (the giant PE's finish); returns its launches
+    and what the run across ranks (phase 14) is held to: the graphs, the
+    call's embeddings, each giant graph's card PE with its witness limit,
+    its embedding witness and times."""
     import numpy as np
     import torch
 
@@ -1500,7 +1530,8 @@ def giant_path(ops, cfg, ckpt, check, results):
     # Each giant graph alone: timed on the card, then card against CPU.
     alone, timings = [], []
     worst = {"span": (0.0, 0.0), "pe_max": 0.0, "encode": 0.0}
-    pe_means, recorded, cpu_s = [], [], 0.0
+    pe_means, recorded, cpu_s, emb_witness = [], [], 0.0, []
+    card_pes, card_vs_cpu = [], []
     for name, g in zip(names, giant):
         schedule = ("dense" if gf.dense_schedule_wins(g.num_edges,
                                                       g.num_nodes, 1)
@@ -1547,6 +1578,9 @@ def giant_path(ops, cfg, ckpt, check, results):
         cos_w = row_cosine_errors(pe_w, pe_h, n)
         enc_err = (same_in - emb_h).abs().max().item()
         e2e, e2e_w = ((e - emb_h).abs().max().item() for e in (emb_c, emb_w))
+        emb_witness.append(e2e_w)
+        card_vs_cpu.append(e2e)
+        card_pes.append(pe_c[:n].cpu())
         cpu_s += time.time() - t_cpu
         worst["span"] = tuple(map(max, worst["span"], span))
         worst["pe_max"] = max(worst["pe_max"], cos[1])
@@ -1625,7 +1659,12 @@ def giant_path(ops, cfg, ckpt, check, results):
     check_jacobi(recorded[0], check, timed=False, sweeps=GIANT_SWEEPS)
     results[("jacobi", "giant")] = check_jacobi(
         recorded[1], check, key="giant", sweeps=GIANT_SWEEPS)
-    return {("jacobi", "giant"): launches["jacobi"] - 2}
+    info = dict(graphs=graphs, rows=rows, names=names, emb=emb,
+                card_pes=card_pes, pe_limits=[lim for _, _, lim in pe_means],
+                emb_witness=emb_witness, card_vs_cpu=card_vs_cpu,
+                timings=timings, pe_ms=pe_ms, enc_ms=enc_ms,
+                largest_reddit=reddit[-1], dblp=dblp)
+    return {("jacobi", "giant"): launches["jacobi"] - 2}, info
 
 
 def loose_ends(ops, cfg, corpus_dir, out_dir, item, check, results):
@@ -2085,7 +2124,151 @@ def wide_widths_path(ops, cfg, check, results):
                for pos, key in RECORDED_JACOBI.items()}}
 
 
-def dp_path(ops, cfg, corpus_dir, out_dir, check):
+def giant_across_ranks(ops, cfg, ckpt, info, check, results):
+    """Phase 10's generate_graph_embeddings call again, with the giant
+    graphs' partition axis across the ranks of the process group (world
+    size 1 over NCCL: the path's collectives and its shard placement run,
+    no scaling is measured), launch counters zeroed just before it: rows
+    in order, the dense-bucket rows equal to phase 10's bit for bit, each
+    giant graph's PE held to phase 10's one-process card PE by phase 10's
+    witness rule (row cosines, mean within WITNESS_FACTOR x the 1-ulp
+    witness's + PE_MEAN_LIMIT), the embeddings printed beside their
+    witness; Kernel 3 twice per giant graph, no plain-version call. Then
+    each giant graph alone (ms and
+    collective calls by schedule beside phase 10's one-process ms), the
+    com-DBLP-size graph's PE and encode, and Kernel 3 held on the
+    matrices of the largest REDDIT-shaped graph's finish across ranks.
+    Adds that row; returns its launches."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.parallel import data_parallel
+    from gcc_tpu_torch.parallel import giant_features as gf
+    from gcc_tpu_torch.parallel.giant import giant_gin_encode
+    from gcc_tpu_torch.parallel.partitioned import place_shard
+    from gcc_tpu_torch.training.checkpoint import load_encoder
+
+    group = dist.group.WORLD
+    card = load_encoder(ckpt, cfg, device="cuda").eval()
+    graphs, rows = info["graphs"], info["rows"]
+    gen = dict(n_max=GEN_N_MAX, e_max=GEN_E_MAX, batch_size=GEN_BATCH)
+    before = data_parallel.launches.count
+    with giant_pes(gf) as pes:
+        emb, launches, plain, dt = counted(
+            ops, lambda: generate.generate_graph_embeddings(
+                cfg, card, graphs, group=group, **gen))
+    collectives = data_parallel.launches.count - before
+    print(f"generate_graph_embeddings across ranks (NCCL, world size "
+          f"{dist.get_world_size()}), phase 10's {len(graphs)} graphs: "
+          f"{dt:.2f} s; kernel launches {launches}, plain-version calls "
+          f"{plain}; {collectives} collective calls "
+          f"({collectives / len(rows):.1f} a giant graph)", flush=True)
+    check(launches == {"featurize": 0, "pe": 1, "jacobi": 2 + 2 * len(rows)}
+          and not any(plain.values()),
+          f"giant across ranks: Kernel 2 once and Kernel 3 twice for the "
+          f"small graphs' encode call, Kernel 3 twice per giant graph "
+          f"{launches}, no plain-version call")
+    small_rows = [i for i in range(len(graphs)) if i not in rows]
+    check(np.array_equal(emb[small_rows], info["emb"][small_rows]),
+          "across ranks: rows of the graphs within n_max equal phase 10's "
+          "bit for bit")
+    # Phase 10's witness rule on each giant graph's PE: row cosines
+    # against phase 10's one-process card PE, mean within WITNESS_FACTOR x
+    # the CPU path's 1-ulp witness + PE_MEAN_LIMIT. The embeddings are
+    # printed beside their witness and held in order, as phase 10 holds
+    # them (card against CPU they differ by up to ~9x their witness: the
+    # finish turns last-place differences into rotations of near-degenerate
+    # Ritz pairs).
+    shares, worst_max, same = [], 0.0, 0
+    pe_of_row = dict(zip(sorted(rows), pes))   # the call's input order
+    for j, i in enumerate(rows):
+        n = graphs[i].num_nodes
+        mean, mx = row_cosine_errors(pe_of_row[i], info["card_pes"][j], n)
+        shares.append(mean / info["pe_limits"][j])
+        worst_max = max(worst_max, mx)
+        same += torch.equal(pe_of_row[i][:n].cpu(), info["card_pes"][j])
+        print(f"across ranks {info['names'][j]}: PE row cosines vs phase "
+              f"10's card PE mean {mean:.3g} max {mx:.3g} (limit "
+              f"{info['pe_limits'][j]:.3g}); embedding max abs "
+              f"{np.abs(emb[i] - info['emb'][i]).max():.4g} (phase 10's "
+              f"card vs CPU {info['card_vs_cpu'][j]:.4g}, witness "
+              f"{info['emb_witness'][j]:.4g})", flush=True)
+    check(len(pes) == len(rows) and max(shares) <= 1.0
+          and worst_max <= PE_MAX_LIMIT,
+          f"across ranks: each giant graph's PE row cosines against phase "
+          f"10's, mean <= {WITNESS_FACTOR} x its witness's + "
+          f"{PE_MEAN_LIMIT} (largest share of its limit "
+          f"{max(shares):.3f}), max <= {worst_max:.3g} <= {PE_MAX_LIMIT}; "
+          f"{same} of {len(rows)} PEs equal phase 10's bit for bit")
+    del pes, pe_of_row
+    dist_rows = np.abs(emb[rows][:, None, :]
+                       - info["emb"][rows][None, :, :]).max(axis=2)
+    check(bool((dist_rows.argmin(axis=1) == np.arange(len(rows))).all()),
+          f"across ranks: giant rows in order, each nearest phase 10's row "
+          f"of its own graph (max abs "
+          f"{np.diag(dist_rows).max():.3g})")
+
+    # Each giant graph alone across ranks, beside phase 10's times.
+    timings = []
+    for g in info["graphs"]:
+        if g.num_nodes <= GEN_N_MAX:
+            continue
+        schedule = ("dense" if gf.dense_schedule_wins(g.num_edges,
+                                                      g.num_nodes, 1)
+                    else "ring")
+        torch.cuda.synchronize()
+        c0, t0 = data_parallel.launches.count, time.time()
+        gf.giant_graph_embedding(card, g, group=group)
+        torch.cuda.synchronize()
+        timings.append((schedule, time.time() - t0,
+                        data_parallel.launches.count - c0))
+    for schedule in ("dense", "ring"):
+        ts = [t for s_, t, _ in timings if s_ == schedule]
+        calls = sorted({c for s_, _, c in timings if s_ == schedule})
+        one = [t for s_, t in info["timings"] if s_ == schedule]
+        print(f"giant graphs on the {schedule} schedule across ranks: "
+              f"{len(ts)}, {np.mean(ts) * 1e3:.1f} ms a graph on average "
+              f"(min {min(ts) * 1e3:.1f}, max {max(ts) * 1e3:.1f}; one "
+              f"process in phase 10: {np.mean(one) * 1e3:.1f}; host clock, "
+              f"synchronized), collective calls a graph {calls}", flush=True)
+    dblp = info["dblp"]
+    n, world, rank = dblp.num_nodes, dist.get_world_size(), dist.get_rank()
+    pg_pe, pg_enc = (place_shard(pg, rank, "cuda")
+                     for pg in gf.giant_partitions(dblp, world))
+    n_pad = pg_pe.num_nodes
+    lo, hi = rank * n_pad // world, (rank + 1) * n_pad // world
+    q0 = torch.as_tensor(gf.giant_pe_basis(n_pad, n, 32, 16)[lo:hi],
+                         device="cuda")
+    mask = (torch.arange(lo, hi, device="cuda") < n).to(torch.float32)
+    with torch.no_grad():
+        pe_ms = timed_ms(lambda: gf.giant_laplacian_pe(
+            pg_pe, q0, mask, n, group=group), 2)
+        feats = gf.giant_input_features(card, dblp, gf.giant_laplacian_pe(
+            pg_pe, q0, mask, n, group=group), lo)
+        enc_ms = timed_ms(lambda: giant_gin_encode(card, pg_enc, feats, mask,
+                                                   group=group), 3)
+    print(f"com-DBLP-size graph across ranks: PE {pe_ms:.2f} ms, encode "
+          f"{enc_ms:.2f} ms (CUDA events; one process in phase 10: PE "
+          f"{info['pe_ms']:.2f}, encode {info['enc_ms']:.2f})", flush=True)
+    del pg_pe, pg_enc, q0, feats
+    torch.cuda.empty_cache()
+
+    with torch.no_grad(), jacobi_inputs(gf) as recorded:
+        gf.giant_graph_embedding(card, info["largest_reddit"], group=group)
+    check(len(recorded) == 2 and all(a.shape == (1, 48, 48)
+                                     for a in recorded),
+          f"the finish across ranks hands Kernel 3 two (1, 48, 48) "
+          f"matrices {[tuple(a.shape) for a in recorded]}")
+    check_jacobi(recorded[0], check, timed=False, sweeps=GIANT_SWEEPS)
+    results[("jacobi", "giant_dist")] = check_jacobi(
+        recorded[1], check, key="giant_dist", sweeps=GIANT_SWEEPS)
+    return {("jacobi", "giant_dist"): launches["jacobi"] - 2}
+
+
+def dp_path(ops, cfg, corpus_dir, out_dir, check, results, giant_cfg,
+            ckpt, giant_info):
     """Data parallel at world size 1 over NCCL (one card: NCCL refuses two
     ranks on one device, so no scaling is measured): run_pretrain of 2
     routed dispatches at the canonical width (batch 32, queue 16384, GIN
@@ -2093,7 +2276,10 @@ def dp_path(ops, cfg, corpus_dir, out_dir, check):
     a process group through run_pretrain's data-parallel branch (the
     wire's device axis, PipelineConfig.devices = 1 explicit, the BN and
     gradient all-reduces, the key all-gather, rank-0 writes). The two
-    loss trajectories agree to 1e-5; the collective calls are counted."""
+    loss trajectories agree to 1e-5; the collective calls are counted.
+    Then, in the same group, :func:`giant_across_ranks` on phase 10's
+    graphs (``giant_info``) with the serve path's checkpoint; returns its
+    launches."""
     import dataclasses
     import socket
 
@@ -2138,6 +2324,8 @@ def dp_path(ops, cfg, corpus_dir, out_dir, check):
         before = data_parallel.launches.count
         summary, losses = run("data parallel", dp_devices=1)
         collectives = data_parallel.launches.count - before
+        giant_launches = giant_across_ranks(ops, giant_cfg, ckpt, giant_info,
+                                            check, results)
     finally:
         dist.destroy_process_group()
     steps = DP_DISPATCHES * STEPS
@@ -2155,6 +2343,7 @@ def dp_path(ops, cfg, corpus_dir, out_dir, check):
     check(collectives > 0, f"collectives ran ({collectives})")
     check(os.path.exists(os.path.join(summary["run_dir"], "current")),
           "rank 0 wrote the checkpoint")
+    return giant_launches
 
 
 def main() -> int:
@@ -2378,7 +2567,8 @@ def main() -> int:
         phase("finetune")
 
         # --- giant graphs beyond the dense bucket -------------------------
-        giant_launches = giant_path(ops, cfg2, ckpt, check, results)
+        giant_launches, giant_info = giant_path(ops, cfg2, ckpt, check,
+                                                results)
         phase("giant graphs")
 
         # --- padded pairs wire, forked samplers, no degree input ----------
@@ -2397,8 +2587,10 @@ def main() -> int:
         phase("wide widths")
 
         # --- data parallel, world size 1 over NCCL ----------------------
-        dp_path(ops, cfg, corpus_dir, os.path.join(work, "dp"), check)
-        phase("data parallel")
+        dist_launches = dp_path(ops, cfg, corpus_dir,
+                                os.path.join(work, "dp"), check, results,
+                                cfg2, ckpt, giant_info)
+        phase("data parallel, giant graphs across ranks")
 
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),
@@ -2429,6 +2621,8 @@ def main() -> int:
              for (name, key), n in pe64_launches.items()]
     rows += [(name, key, "wide", {name: n})
              for (name, key), n in wide_launches.items()]
+    rows += [(name, key, "giant across ranks", {name: n})
+             for (name, key), n in dist_launches.items()]
     kernels = []
     for name, key, path, launches in rows:
         r = results[(name, key)]

@@ -228,10 +228,18 @@ def cmd_finetune(args):
 
 
 def cmd_generate(args):
+    import torch.distributed as dist
+
     from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
     from gcc_tpu_torch.generate import generate_embeddings, node_subgraphs
+    from gcc_tpu_torch.parallel.multihost import initialize_multihost
     from gcc_tpu_torch.training.checkpoint import load_config, load_encoder
 
+    # Under torchrun: join the process group, whose ranks then share each
+    # giant graph (the reference's "part" axis over every device); every
+    # rank computes the same embeddings and rank 0 writes them.
+    initialize_multihost(device=args.device)
+    group = dist.group.WORLD if dist.is_initialized() else None
     run_dir = os.path.dirname(args.ckpt)
     cfg = load_config(run_dir)
     enc = load_encoder(args.ckpt, cfg, device=args.device)
@@ -244,7 +252,7 @@ def cmd_generate(args):
         emb = generate_graph_embeddings(cfg, enc, graphs,
                                         n_max=args.n_max, e_max=args.e_max,
                                         readout=args.graph_readout,
-                                        device=args.device)
+                                        group=group, device=args.device)
     else:
         from gcc_tpu_torch.data.formats import (
             create_node_classification_dataset,
@@ -256,6 +264,8 @@ def cmd_generate(args):
         emb = generate_embeddings(cfg, enc, subs, n_max=args.n_max,
                                   e_max=args.e_max, subgraphs_k=subs_k,
                                   device=args.device)
+    if group is not None and dist.get_rank() != 0:
+        return
     out = args.out or os.path.join(run_dir, f"{args.dataset}.npy")
     np.save(out, emb)
     print(f"saved {emb.shape} -> {out}")

@@ -135,7 +135,12 @@ def _small_eigh(a: torch.Tensor, rr: str, sweeps: int):
     return w.flip(-1), v.flip(-1)
 
 
-def guarded_whitening(q: torch.Tensor, jitter: float, eigh) -> torch.Tensor:
+def _same(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def guarded_whitening(q: torch.Tensor, jitter: float, eigh,
+                      all_sum=_same) -> torch.Tensor:
     """Generalized Rayleigh–Ritz whitening of a guarded (B, N, k) basis.
 
     A guarded basis is ill-conditioned in the guard directions (they sit
@@ -147,8 +152,12 @@ def guarded_whitening(q: torch.Tensor, jitter: float, eigh) -> torch.Tensor:
     collapsed (the graph is smaller than the block, or the iteration drove
     them dependent); whitening would amplify f32 noise into Ritz
     directions. They are dropped: their rows of T become 0 and their Ritz
-    values sink to the bottom."""
-    s_g = _gram(q)
+    values sink to the bottom.
+
+    ``all_sum`` completes the Gram of a basis whose rows are spread over
+    several ranks (the giant path's all-reduce); in one process it is the
+    identity."""
+    s_g = all_sum(_gram(q))
     s_g = 0.5 * (s_g + s_g.transpose(1, 2))
     s_g = s_g + jitter * _eye_like(q.shape[2], s_g)
     sv, v = eigh(s_g)
@@ -233,19 +242,27 @@ def laplacian_positional_embedding(node_mask: torch.Tensor,
 
 
 def canonical_pe(top: torch.Tensor, n_nodes: torch.Tensor,
-                 node_mask: torch.Tensor, pos_size: int) -> torch.Tensor:
+                 node_mask: torch.Tensor, pos_size: int, all_max=_same,
+                 all_sum=_same) -> torch.Tensor:
     """The conventions every PE ends with, on (B, N, n_vec) eigenvectors
     in descending eigenvalue order: zero-padded to pos_size columns, the
     sign canonicalized, columns beyond k_b = min(n_b - 2, pos_size)
-    zeroed, rows L2-normalized, padding rows zeroed (n_nodes: (B,))."""
+    zeroed, rows L2-normalized, padding rows zeroed (n_nodes: (B,)).
+
+    The sign rule is the only reduction over rows: ``all_max`` and
+    ``all_sum`` complete its column max and its column sum where the
+    rows are spread over several ranks (the max before the comparison,
+    so ties are those of the whole column); in one process they are the
+    identity."""
     if top.shape[2] < pos_size:
         top = torch.nn.functional.pad(top, (0, pos_size - top.shape[2]))
     # Canonical sign: the entry of max |value| positive (ties of opposite
     # sign, or an all-zero column, keep +).
     absv = top.abs()
-    mx = torch.amax(absv, dim=1, keepdim=True)
-    ref = torch.sum(torch.where(absv == mx, top, torch.zeros_like(top)),
-                    dim=1, keepdim=True)
+    mx = all_max(torch.amax(absv, dim=1, keepdim=True))
+    ref = all_sum(torch.sum(torch.where(absv == mx, top,
+                                        torch.zeros_like(top)),
+                            dim=1, keepdim=True))
     top = top * torch.sign(torch.where(ref == 0, torch.ones_like(ref), ref))
     # Zero columns >= k_b = min(n_b - 2, pos_size).
     k_b = torch.clamp(n_nodes - 2, 0, pos_size)

@@ -225,9 +225,10 @@ def generate_graph_embeddings(
     n_max: int = 512,
     e_max: int = 8192,
     batch_size: int = 64,
-    parts: int = 1,
+    parts: int | None = None,
     giant_iters: int = 64,
     readout: str = "score",
+    group=None,
     device="cuda",
 ) -> np.ndarray:
     """Entire-graph embeddings with automatic giant-graph routing, rows in
@@ -244,7 +245,14 @@ def generate_graph_embeddings(
     whole-graph PE and GIN over a partition of ``parts`` shards
     (:func:`gcc_tpu_torch.parallel.giant_features.giant_graph_embedding`,
     ``giant_iters`` power steps; GIN with BatchNorm and degree input
-    only, others raise ``ValueError``)."""
+    only, others raise ``ValueError``).
+
+    group: a ``torch.distributed`` group across whose ranks each giant
+    graph is spread, one shard a rank (``parts`` defaults to its size;
+    the reference spreads it over the "part" axis of a mesh of every
+    device). Every rank of the group makes the call, runs the dense-bucket
+    graphs itself, and returns the whole array, the same on every rank.
+    Without a group the shards run in one process (``parts`` default 1)."""
     if readout not in ("score", "composite"):
         raise ValueError(f"unknown graph readout: {readout!r}")
     small = [i for i, g in enumerate(graphs) if g.num_nodes <= n_max]
@@ -269,7 +277,8 @@ def generate_graph_embeddings(
             # Device tensors gathered once at the end: the host builds
             # the next graph's partition while the card runs this one.
             embs = [giant_graph_embedding(enc, graphs[i], parts=parts,
-                                          iters=giant_iters, device=device)
+                                          iters=giant_iters, group=group,
+                                          device=device)
                     for i in giant]
             out[giant] = torch.stack(embs).cpu().numpy()
     return out

@@ -27,9 +27,11 @@ order of its sums:
   generator and sliced, so they are the single-device draw.
 
 The collectives run while a :func:`data_parallel` context is active,
-even on one rank, and are counted in ``launches``. ``mesh.py``'s
-``make_mesh`` has no counterpart: the ranks are the mesh, and
-:func:`make_groups` splits them into (data, part) process groups.
+even on one rank, and are counted in ``launches``; so are those of the
+giant path across ranks (``all_reduce_sum``, :func:`all_reduce_max`,
+``all_gather``, ``ppermute``), which take their group as an argument.
+``mesh.py``'s ``make_mesh`` has no counterpart: the ranks are the mesh,
+and :func:`make_groups` splits them into (data, part) process groups.
 """
 
 from __future__ import annotations
@@ -167,10 +169,12 @@ def _exchange(x: torch.Tensor, shift: int, group) -> torch.Tensor:
     world, rank = dist.get_world_size(group), dist.get_rank(group)
     if world == 1:
         return x.clone()
+    # Both buffers contiguous: empty_like keeps a strided x's layout.
+    x = x.contiguous()
     out = torch.empty_like(x)
     peer = lambda r: (dist.get_global_rank(group, r)  # noqa: E731
                       if group is not None else r)
-    ops = [dist.P2POp(dist.isend, x.contiguous(),
+    ops = [dist.P2POp(dist.isend, x,
                       peer((rank + shift) % world), group),
            dist.P2POp(dist.irecv, out, peer((rank - shift) % world), group)]
     for req in dist.batch_isend_irecv(ops):
@@ -182,6 +186,16 @@ def _exchange(x: torch.Tensor, shift: int, group) -> torch.Tensor:
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks of ``group``, differentiable."""
     return _AllReduceSum.apply(x, group)
+
+
+@torch.no_grad()
+def all_reduce_max(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over the ranks of ``group``, without a
+    gradient; every rank gets the same bits."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    launches.count += 1
+    return out
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:

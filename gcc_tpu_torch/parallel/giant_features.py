@@ -18,14 +18,27 @@ normalization, zero padding rows.
 The reference's ``pg_arrays``, ``pg_rebuild``, ``_giant_pe_fn`` and
 ``_giant_enc_fn`` exist only to feed and cache ``jax.jit`` programs and
 have no counterpart: PyTorch runs eagerly. A partition count ``parts``
-takes the place of the reference's mesh (its "part" axis); the D shards
-run in one process (:mod:`gcc_tpu_torch.parallel.partitioned`).
+takes the place of the reference's mesh (its "part" axis). The D shards
+run in one process (:mod:`gcc_tpu_torch.parallel.partitioned`), or,
+given a ``torch.distributed`` group of D ranks, one shard a rank: each
+rank holds a contiguous block of N_pad / D node rows and only its shard
+of the partition (:func:`~gcc_tpu_torch.parallel.partitioned.
+place_shard`). Then every reduction over rows runs across the ranks —
+CholeskyQR's column norms (the norm of the ranks' norms) and Gram, the
+whitening Gram, the Rayleigh–Ritz matrix, the sign rule's column max and
+sum, the readout — so Cholesky, the triangular solve's factor and Kernel
+3 see the same bits on every rank, and every rank returns the same
+embedding. In one process those reductions are the identity, one code
+path for both; at world size 1 the path gives the one-process bits.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.features.positional import (
@@ -34,6 +47,7 @@ from gcc_tpu_torch.features.positional import (
     pe_guards,
 )
 from gcc_tpu_torch.ops.jacobi import jacobi_eigh
+from gcc_tpu_torch.parallel import data_parallel as dp
 from gcc_tpu_torch.parallel.giant import (
     aggregate_for,
     check_giant_encoder,
@@ -45,6 +59,7 @@ from gcc_tpu_torch.parallel.partitioned import (
     partition_dense,
     partition_edges_ring,
     place_partition,
+    place_shard,
     shard_dense_partition,
 )
 
@@ -92,21 +107,41 @@ def cholesky_or_nan(a: torch.Tensor) -> torch.Tensor:
     return torch.where(info != 0, torch.full_like(r, float("nan")).tril(), r)
 
 
-def _orth_chol(q: torch.Tensor) -> torch.Tensor:
+def _all_sum(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else dp.all_reduce_sum(x, group)
+
+
+def _all_max(x: torch.Tensor, group) -> torch.Tensor:
+    return x if group is None else dp.all_reduce_max(x, group)
+
+
+def _column_norms(q: torch.Tensor, group) -> torch.Tensor:
+    """(1, k) 2-norms of the columns of q, whose rows may be spread over
+    the ranks of ``group``: the norm of the ranks' norms (gathered), which
+    at world size 1 is the one-process norm bit for bit."""
+    norms = torch.linalg.vector_norm(q, dim=0, keepdim=True)
+    if group is None:
+        return norms
+    return torch.linalg.vector_norm(dp.all_gather(norms, group), dim=0,
+                                    keepdim=True)
+
+
+def _orth_chol(q: torch.Tensor, group=None) -> torch.Tensor:
     """CholeskyQR on the global (k, k) Gram (``giant_features.py:
     154-164``): normalize the columns, Gram + 1e-6·I, factor, solve
-    X·Rᵀ = Q; a failed factor's NaNs become zeros."""
+    X·Rᵀ = Q; a failed factor's NaNs become zeros. With ``group``, q is
+    this rank's rows, its norms are gathered and its Gram all-reduced."""
     k = q.shape[1]
-    q = q / torch.clamp_min(torch.linalg.vector_norm(q, dim=0, keepdim=True),
-                            1e-20)
-    r = cholesky_or_nan(q.T @ q + 1e-6 * torch.eye(k, dtype=q.dtype,
-                                                   device=q.device))
+    q = q / torch.clamp_min(_column_norms(q, group), 1e-20)
+    r = cholesky_or_nan(_all_sum(q.T @ q, group)
+                        + 1e-6 * torch.eye(k, dtype=q.dtype,
+                                           device=q.device))
     q = torch.linalg.solve_triangular(r.T, q, upper=True, left=False)
     return torch.nan_to_num(q, nan=0.0, posinf=0.0, neginf=0.0)
 
 
-def _shifted_matvec(pg):
-    aggregate = aggregate_for(pg)
+def _shifted_matvec(pg, group=None):
+    aggregate = aggregate_for(pg, group)
 
     def matvec(q):
         # One power step of the SHIFTED operator M + I: spec(M) ⊆ [-1, 1]
@@ -118,48 +153,56 @@ def _shifted_matvec(pg):
 
 
 def giant_pe_iterate(pg, q0: torch.Tensor, iters: int = 64,
-                     orth_every: int = 8) -> torch.Tensor:
+                     orth_every: int = 8, group=None) -> torch.Tensor:
     """The subspace iteration of :func:`giant_laplacian_pe`: CholeskyQR
     of q0, `iters` shifted power steps re-orthonormalized every
     `orth_every` (not after the last), CholeskyQR. Returns the (N_pad, k)
-    basis the Rayleigh–Ritz finish starts from."""
-    matvec = _shifted_matvec(pg)
-    q = _orth_chol(q0)
+    basis the Rayleigh–Ritz finish starts from (this rank's rows of it
+    with ``group``)."""
+    matvec = _shifted_matvec(pg, group)
+    q = _orth_chol(q0, group)
     for i in range(iters):
         q = matvec(q)
         if (i + 1) % orth_every == 0 and i != iters - 1:
-            q = _orth_chol(q)
-    return _orth_chol(q)
+            q = _orth_chol(q, group)
+    return _orth_chol(q, group)
 
 
 def giant_pe_finish(pg, q: torch.Tensor, node_mask: torch.Tensor,
-                    num_real_nodes: int, pos_size: int = 32) -> torch.Tensor:
+                    num_real_nodes: int, pos_size: int = 32,
+                    group=None) -> torch.Tensor:
     """The Rayleigh–Ritz finish of :func:`giant_laplacian_pe` on the
     iterated basis q (N_pad, k), k even: the guarded generalized whitening
     when k exceeds the kept width, Ritz vectors, then positional.py's
     conventions (:func:`~gcc_tpu_torch.features.positional.canonical_pe`).
-    Kernel 3 solves its two (1, k, k) eigenproblems (5 sweeps). The
-    reference's branch for an odd k (``jnp.linalg.eigh``) has no
-    counterpart: :func:`giant_pe_basis` always gives an even width, and
-    Kernel 3 raises on an odd one."""
-    matvec = _shifted_matvec(pg)
+    Kernel 3 solves its two (1, k, k) eigenproblems (5 sweeps), on the
+    all-reduced matrices with ``group`` (q and node_mask this rank's
+    rows). The reference's branch for an odd k (``jnp.linalg.eigh``) has
+    no counterpart: :func:`giant_pe_basis` always gives an even width,
+    and Kernel 3 raises on an odd one."""
+    matvec = _shifted_matvec(pg, group)
+    all_sum = functools.partial(_all_sum, group=group)
     k_keep = min(pos_size, max(1, num_real_nodes))
     if q.shape[1] > k_keep:
         q = guarded_whitening(q[None], 1e-6,
-                              lambda s: jacobi_eigh(s, descending=True))[0]
+                              lambda s: jacobi_eigh(s, descending=True),
+                              all_sum)[0]
     # Rayleigh–Ritz on M + I (the shift changes neither eigenvectors nor
     # their order).
-    t = q.T @ matvec(q)
+    t = all_sum(q.T @ matvec(q))
     t = 0.5 * (t + t.T)
     _, u = jacobi_eigh(t[None], descending=True)
     n_real = torch.full((1,), num_real_nodes, device=q.device)
     return canonical_pe((q @ u[0, :, :k_keep])[None], n_real,
-                        node_mask[None], pos_size)[0]
+                        node_mask[None], pos_size,
+                        all_max=functools.partial(_all_max, group=group),
+                        all_sum=all_sum)[0]
 
 
 def giant_laplacian_pe(pg, q0: torch.Tensor, node_mask: torch.Tensor,
                        num_real_nodes: int, pos_size: int = 32,
-                       iters: int = 64, orth_every: int = 8) -> torch.Tensor:
+                       iters: int = 64, orth_every: int = 8,
+                       group=None) -> torch.Tensor:
     """Top-`pos_size` eigenvectors of M for one partitioned giant graph
     (``giant_features.py:110-228``): :func:`giant_pe_iterate` then
     :func:`giant_pe_finish`.
@@ -167,10 +210,14 @@ def giant_laplacian_pe(pg, q0: torch.Tensor, node_mask: torch.Tensor,
     pg carries the NORMALIZED edge weights (:func:`normalized_edge_weights`)
     on q0's device, so one aggregation is one power step. q0: (N_pad, k)
     start basis (:func:`giant_pe_basis`; guarded whitening engages when k
-    exceeds pos_size); node_mask: (N_pad,) 1.0 on real rows. Returns
-    (N_pad, pos_size) f32."""
-    return giant_pe_finish(pg, giant_pe_iterate(pg, q0, iters, orth_every),
-                           node_mask, num_real_nodes, pos_size)
+    exceeds pos_size); node_mask: (N_pad,) 1.0 on real rows. With
+    ``group`` (the partition axis across its ranks), pg is this rank's
+    :class:`~gcc_tpu_torch.parallel.partitioned.PartitionShard` (or the
+    whole partition) and q0, node_mask are its block of N_pad / D rows.
+    Returns (N_pad, pos_size) f32 (this rank's rows with ``group``)."""
+    return giant_pe_finish(pg, giant_pe_iterate(pg, q0, iters, orth_every,
+                                                group),
+                           node_mask, num_real_nodes, pos_size, group)
 
 
 def giant_pe_basis(n_pad: int, num_real_nodes: int, pos_size: int = 32,
@@ -245,56 +292,93 @@ def _require_degree_input(model) -> None:
             "cover the graphs on the dense path")
 
 
-def giant_input_features(model, g, pe: torch.Tensor) -> torch.Tensor:
-    """(N_pad, pos + deg_size + 1) node features of graph `g` on pe's
+def giant_input_features(model, g, pe: torch.Tensor,
+                         row0: int = 0) -> torch.Tensor:
+    """(rows, pos + deg_size + 1) node features of graph `g` on pe's
     device: [PE, degree embedding of clamp(deg, 0, max_degree), seed flag
     on the max-degree node] (sampler.entire_graph_subgraph's seed), zero
-    on padding rows, as the subgraph featurizer builds them."""
+    on padding rows, as the subgraph featurizer builds them. pe holds the
+    rows from global row `row0` on (a rank's block across ranks; all
+    N_pad rows in one process); the seed flag is set where its row is
+    among them."""
     _require_degree_input(model)
-    n, (n_pad, pos) = g.num_nodes, pe.shape
+    n, (rows, pos) = g.num_nodes, pe.shape
     deg = np.diff(g.indptr).astype(np.int64)
+    lo, hi = min(row0, n), min(row0 + rows, n)
     table = model.degree_embedding.embedding.weight
-    idx = torch.as_tensor(np.clip(deg, 0, table.shape[0] - 1),
+    idx = torch.as_tensor(np.clip(deg[lo:hi], 0, table.shape[0] - 1),
                           device=pe.device)
-    feats = torch.zeros(n_pad, pos + table.shape[1] + 1, dtype=pe.dtype,
+    feats = torch.zeros(rows, pos + table.shape[1] + 1, dtype=pe.dtype,
                         device=pe.device)
-    feats[:n, :pos] = pe[:n]
-    feats[:n, pos:-1] = table[idx]
-    feats[int(np.argmax(deg)) if n else 0, -1] = 1.0
+    feats[:hi - lo, :pos] = pe[:hi - lo]
+    feats[:hi - lo, pos:-1] = table[idx]
+    seed = int(np.argmax(deg)) if n else 0
+    if row0 <= seed < row0 + rows:
+        feats[seed - row0, -1] = 1.0
     return feats
 
 
-def giant_graph_embedding(model, g, parts: int = 1, iters: int = 64,
-                          guards: int | None = None,
+def _group_rank(group) -> tuple[int, int]:
+    """(size, rank) of ``group``; (1, 0) in one process (None)."""
+    if group is None:
+        return 1, 0
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "the giant path across ranks needs an initialized process "
+            "group (parallel.multihost.initialize_multihost)")
+    return dist.get_world_size(group), dist.get_rank(group)
+
+
+def giant_graph_embedding(model, g, parts: int | None = None,
+                          iters: int = 64, guards: int | None = None,
                           dense_budget_bytes: int = 512 << 20,
-                          device="cuda") -> torch.Tensor:
+                          group=None, device="cuda") -> torch.Tensor:
     """End-to-end entire-graph embedding of one graph beyond the dense
     bucket (``giant_features.py:243-337``): partition → whole-graph PE
     → degree embedding + seed flag → :func:`giant_gin_encode`.
 
     model: the port's ``GraphEncoder`` (GIN with BatchNorm and degree
     input; others raise ``ValueError``), on `device`. parts: the
-    partition count (the reference's mesh "part" axis). guards: PE guard
-    columns (default: the eval profile's 16). Returns the (output_dim,)
-    L2-normalized embedding on `device`, without a host sync."""
+    partition count (the reference's mesh "part" axis; default 1, or the
+    group's size). group: a ``torch.distributed`` group whose ranks take
+    one shard each (``parts`` must equal its size): every rank builds the
+    host partitions, as the reference's single controller does, places
+    only its own shard, and computes its block of rows; every rank
+    returns the same embedding. guards: PE guard columns (default: the
+    eval profile's 16). Returns the (output_dim,) L2-normalized embedding
+    on `device`, without a host sync."""
     device = resolve_device(device)
     check_giant_encoder(model)
     _require_degree_input(model)
+    world, rank = _group_rank(group)
+    if parts is None:
+        parts = world
+    if group is not None and parts != world:
+        raise ValueError(f"{parts} partitions across a group of {world} "
+                         "ranks: the partition axis takes one shard a rank")
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the encoder lives on "
                          f"{next(model.parameters()).device}, not {device}")
     if guards is None:
         guards = pe_guards("eval")
     n = g.num_nodes
-    pg_pe, pg_enc = (place_giant_partition(pg, parts, device)
-                     for pg in giant_partitions(g, parts, dense_budget_bytes))
+    pg_pe, pg_enc = giant_partitions(g, parts, dense_budget_bytes)
     n_pad = pg_pe.num_nodes
+    if group is None:
+        pg_pe, pg_enc = (place_giant_partition(pg, parts, device)
+                         for pg in (pg_pe, pg_enc))
+        lo, hi = 0, n_pad
+    else:
+        pg_pe, pg_enc = (place_shard(pg, rank, device)
+                         for pg in (pg_pe, pg_enc))
+        lo, hi = rank * n_pad // parts, (rank + 1) * n_pad // parts
     pos_size = model.cfg.positional_embedding_size
-    q0 = torch.as_tensor(giant_pe_basis(n_pad, n, pos_size, guards),
+    q0 = torch.as_tensor(giant_pe_basis(n_pad, n, pos_size, guards)[lo:hi],
                          device=device)
-    mask = (torch.arange(n_pad, device=device) < n).to(torch.float32)
+    mask = (torch.arange(lo, hi, device=device) < n).to(torch.float32)
     with torch.no_grad():
         pe = giant_laplacian_pe(pg_pe, q0, mask, num_real_nodes=n,
-                                pos_size=pos_size, iters=iters)
+                                pos_size=pos_size, iters=iters, group=group)
         return giant_gin_encode(model, pg_enc,
-                                giant_input_features(model, g, pe), mask)
+                                giant_input_features(model, g, pe, lo), mask,
+                                group=group)

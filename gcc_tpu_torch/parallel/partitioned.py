@@ -35,7 +35,8 @@ zero-weight 0→0 loops, keeping every shard shape static.
 
 :func:`partitioned_aggregate_dist` runs the same three schedules with
 the partition axis across ``torch.distributed`` ranks, one shard a rank,
-as the reference runs them across its mesh axis.
+as the reference runs them across its mesh axis; :func:`place_shard`
+puts only a rank's shard on its device.
 """
 
 from __future__ import annotations
@@ -286,14 +287,50 @@ def _ring_bucket(pg: RingPartitionedGraph, d: int, o: int,
         axis=0, unsafe=True)
 
 
+class PartitionShard(NamedTuple):
+    """Shard ``rank`` of a partition of ``parts`` shards, placed on a
+    device (:func:`place_shard`): ``shard`` is the partition's own type
+    with its shard axis cut to that one shard (length 1), so a rank's
+    device memory holds 1/D of the partition."""
+
+    shard: object
+    rank: int
+    parts: int
+
+    @property
+    def num_nodes(self) -> int:
+        return self.shard.num_nodes
+
+
+def _shard_count(pg) -> int:
+    return (pg.adj if isinstance(pg, DensePartitionedGraph)
+            else pg.src_local if isinstance(pg, RingPartitionedGraph)
+            else pg.src).shape[0]
+
+
+def place_shard(pg, rank: int, device="cuda") -> PartitionShard:
+    """Shard ``rank`` of a host partition on ``device``, the rest left on
+    the host: the dense schedule's row block ``adj[rank]``, the ring
+    schedule's buckets of destination shard ``rank`` (trimmed and sorted
+    as :func:`place_partition` does), the segment schedule's edges of
+    shard ``rank``. :func:`partitioned_aggregate_dist` takes it as is."""
+    parts = _shard_count(pg)
+    if not 0 <= rank < parts:
+        raise ValueError(f"no shard {rank} in a partition of {parts}")
+    shard = pg._replace(**{f: getattr(pg, f)[rank:rank + 1]
+                           for f in pg._fields if f != "num_nodes"})
+    return PartitionShard(place_partition(shard, device), rank, parts)
+
+
 def partitioned_aggregate_dist(pg, h: torch.Tensor,
                                group=None) -> torch.Tensor:
     """out[v] = Σ_{(u→v)} w · h[u] with the partition axis across the
     ranks of ``group`` (``torch.distributed``): rank p holds node rows
     [p·N/D, (p+1)·N/D) of ``h`` and runs shard p of ``pg`` (a partition
-    built for D = the group's size, host arrays or placed), and gets its
-    rows of the result. Differentiable. By schedule, as the reference
-    runs them over its mesh axis:
+    built for D = the group's size: host arrays, placed, or this rank's
+    :func:`place_shard`), and gets its rows of the result.
+    Differentiable. By schedule, as the reference runs them over its
+    mesh axis:
 
     - :class:`PartitionedGraph`: all-gather of h, the shard's segment sum
       into a full-size partial, reduce-scatter of the partials
@@ -302,36 +339,50 @@ def partitioned_aggregate_dist(pg, h: torch.Tensor,
       of rows times it, no reduction;
     - :class:`RingPartitionedGraph`: D hops, each summing the bucket of
       the block in hand and passing the block to the next rank (NCCL or
-      gloo send/recv in place of ``ppermute``)."""
+      gloo send/recv in place of ``ppermute``). A host partition places
+      only this rank's buckets."""
     from gcc_tpu_torch.parallel import data_parallel as dp
 
     d_cnt, p = dist.get_world_size(group), dist.get_rank(group)
-    shards = (pg.adj if isinstance(pg, DensePartitionedGraph)
-              else pg.src_local if isinstance(pg, RingPartitionedGraph)
-              else pg.src).shape[0]
+    if isinstance(pg, PartitionShard):
+        if (pg.parts, pg.rank) != (d_cnt, p):
+            raise ValueError(
+                f"shard {pg.rank} of {pg.parts} placed for rank {p} of "
+                f"{d_cnt}")
+        shards, local, row = pg.parts, pg.shard, 0
+    else:
+        shards, local, row = _shard_count(pg), pg, p
     if shards != d_cnt or h.shape[0] * d_cnt != pg.num_nodes:
         raise ValueError(
             f"partition of {shards} shards over {pg.num_nodes} nodes does "
             f"not match {d_cnt} ranks holding {h.shape[0]} rows each")
-    if isinstance(pg, DensePartitionedGraph):
-        adj = _tensor(pg.adj[p], h.device, h.dtype)
-        return torch.matmul(adj, dp.all_gather(h, group))
-    if isinstance(pg, RingPartitionedGraph):
-        if not torch.is_tensor(pg.src_local):
-            pg = place_partition(pg, h.device)
-        w = pg.weight.to(h.dtype)
+    if isinstance(local, DensePartitionedGraph):
+        # A (1, rows, N) block times the gathered rows in h's own layout
+        # (CholeskyQR returns a column-major basis, and cuBLAS rounds the
+        # two layouts differently): at world size 1 the one-process
+        # product, bit for bit.
+        adj = _tensor(local.adj[row:row + 1], h.device, h.dtype)
+        hg = dp.all_gather(h, group)
+        if h.T.is_contiguous() and not h.is_contiguous():
+            hg = hg.T.contiguous().T
+        return torch.matmul(adj, hg).reshape(h.shape)
+    if isinstance(local, RingPartitionedGraph):
+        if not torch.is_tensor(local.src_local):
+            local, row = place_shard(local, p, h.device).shard, 0
+        w = local.weight.to(h.dtype)
         row_ids = torch.arange(h.shape[0] + 1, device=h.device)
         acc, block = None, h
         for t in range(d_cnt):
-            part = _ring_bucket(pg, p, (p - t) % d_cnt, block, w, row_ids)
+            part = _ring_bucket(local, row, (p - t) % d_cnt, block, w,
+                                row_ids)
             acc = part if acc is None else acc + part
             if t + 1 < d_cnt:
                 block = dp.ppermute(block, 1, group)
         return acc
     hg = dp.all_gather(h, group)
-    src = _tensor(pg.src[p], h.device, torch.int64)
-    dst = _tensor(pg.dst[p], h.device, torch.int64)
-    w = _tensor(pg.weight[p], h.device, h.dtype)
+    src = _tensor(local.src[row], h.device, torch.int64)
+    dst = _tensor(local.dst[row], h.device, torch.int64)
+    w = _tensor(local.weight[row], h.device, h.dtype)
     partial = torch.zeros(pg.num_nodes, h.shape[1], dtype=h.dtype,
                           device=h.device).index_add(
         0, dst, hg[src] * w[:, None])
