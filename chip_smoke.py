@@ -70,6 +70,19 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    held-out graphs above 0.7), Kernels 2 and 3 held at that shape; then
    1 epoch on the community graph's nodes through the finetune command
    (`gcc_tpu_torch.cli finetune`, the graph written as a dataset).
+9b. Runs the downstream instruments (`gcc_tpu_torch.instruments`) on the
+   serve path's checkpoint, which is depth-cut, so their accuracies are
+   printed and not held: the role v2 (blocks 120 and 60), graph-family
+   and sim-pair fixtures held to the hashes the tests pin; `embed` of all
+   three with the launch counters zeroed (Kernel 2 once and Kernel 3
+   twice per encode call, no plain-version call), the embeddings finite,
+   one-view rows unit; 128 role-v2 node embeddings card vs CPU by step
+   6's rule beside the CPU path's own 1-ulp change; the finetune
+   instrument at blocks=60, 1 epoch, fold 0, both arms (F1 finite; Kernel
+   2 once, Kernel 3 twice per call); Kernels 2 and 3 held against their
+   plain versions at the instruments' shapes: (64, 256, 256) and (32,
+   256, 256) at k = 48 on RWR views of role v2, (64, 48, 48) and (32, 48,
+   48) on their Rayleigh-Ritz matrices, and untimed on 64 family graphs.
 10. Runs entire graphs beyond the dense bucket through
    generate_graph_embeddings (from the serve path's checkpoint, n_max
    512): 3 graphs within n_max, 16 REDDIT-shaped graphs of 1,000-3,782
@@ -1427,6 +1440,168 @@ def finetune_path(ops, cfg, ckpt, check, results):
     return ft_launches
 
 
+def instruments_path(ops, ckpt, out_dir, check, results):
+    """The downstream instruments (``python -m gcc_tpu_torch.instruments``)
+    on the serve path's checkpoint, which is depth-cut: its accuracies are
+    printed, never held. The four fixtures are built and held to the
+    hashes the tests pin; ``embed`` writes role v2, the graph families and
+    the sim pair with the launch counters zeroed (Kernel 2 once and
+    Kernel 3 twice per encode call, no plain-version call); every
+    embedding is finite, the one-view rows unit, the two-view means of
+    norm <= 1; 128 role-v2 nodes are held card vs CPU by the serve path's
+    rule, printed beside the CPU path's own change under a 1-ulp change of
+    every nonzero m_shift entry (its witness); the finetune instrument
+    runs both arms at blocks=60, 1 epoch, fold 0. Adds the rows of
+    Kernels 2 and 3 at the instruments' shapes; returns their launches."""
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.features import positional
+    from gcc_tpu_torch.instruments import __main__ as instr
+    from gcc_tpu_torch.instruments import finetune as ft_instr
+    from gcc_tpu_torch.instruments import graph_families, role, similarity
+    from gcc_tpu_torch.training import checkpoint, finetune
+
+    t0 = time.time()
+    g, _ = role.build_role_graph_v2()
+    g60, y60 = role.build_role_graph_v2(blocks=60)
+    graphs, _ = graph_families.build_graph_benchmark(60)
+    g1, g2, d1, d2 = similarity.build_sim_pair(1000, rewire=similarity.REWIRE)
+    hashes = {
+        "role v2": (role.role_hash(g), role.ROLE_V2_HASH),
+        "role v2 blocks=60": (role.role_hash(g60), role.ROLE_V2_60_HASH),
+        "graph families": (graph_families.families_hash(graphs),
+                           graph_families.FAMILIES_HASH),
+        "sim pair": (similarity.sim_hash(g1, g2, similarity.correspondence(
+            d1, d2, g1.num_nodes)[1]), similarity.SIM_HASH)}
+    print(f"instrument fixtures built in {time.time() - t0:.1f} s: role v2 "
+          f"{g.num_nodes} nodes, blocks=60 {g60.num_nodes}, {len(graphs)} "
+          f"family graphs, sim pair 2 x {g1.num_nodes}", flush=True)
+    for name, (got, pin) in hashes.items():
+        check(got == pin, f"{name} fixture hashes to its pin {pin} ({got})")
+
+    # -- embed: the three frozen-embedding instruments -------------------
+    bucket, bsz = instr.ROLE_BUCKET, 64        # generate's batch
+    emb_dir = os.path.join(out_dir, "emb")
+    done, launches, plain, dt = counted(ops, lambda: instr.embed(
+        ckpt, emb_dir, log_fn=lambda s: print(f"  {s}", flush=True)))
+    calls = (2 * -(-g.num_nodes // bsz) + -(-len(graphs) // bsz)
+             + 2 * 4 * -(-g1.num_nodes // bsz))
+    print(f"instruments embed: {calls} encode calls in {dt:.1f} s; kernel "
+          f"launches {launches}, plain-version calls {plain}", flush=True)
+    check(launches == {"featurize": 0, "pe": calls, "jacobi": 2 * calls}
+          and not any(plain.values()),
+          f"embed: Kernel 2 once and Kernel 3 twice per encode call "
+          f"{launches}, no plain-version call")
+    z = {name: np.load(v["path"]) for name, v in done.items()}
+
+    def norms(e):
+        return np.linalg.norm(e, axis=1)
+
+    two_view = [z["role"]["emb"], z["sim"]["emb_1"], z["sim"]["emb_2"]]
+    one_view = [z["graph"]["score"]]
+    others = [z["graph"]["composite"], z["sim"]["comp_1"],
+              z["sim"]["comp_2"]]
+    check(all(np.isfinite(e).all() for e in two_view + one_view + others),
+          "instrument embeddings and readouts finite")
+    check(all(float(np.abs(norms(e) - 1).max()) <= 1e-5 for e in one_view)
+          and all(0 < norms(e).min() and norms(e).max() <= 1 + 1e-5
+                  for e in two_view),
+          "one-view rows unit, two-view means of norm in (0, 1]")
+
+    # -- 128 role-v2 nodes on the card against the CPU -------------------
+    cfg = checkpoint.load_config(os.path.dirname(ckpt))
+    enc = checkpoint.load_encoder(ckpt, cfg, device="cpu")
+    subs_q, subs_k = generate.node_subgraphs(g, cfg, *bucket, two_views=True)
+    kw = dict(n_max=bucket[0], e_max=bucket[1], device="cpu",
+              subgraphs_k=subs_k[:2 * bsz])
+    t0 = time.time()
+    ref = generate.generate_embeddings(cfg, enc, subs_q[:2 * bsz], **kw)
+    real = positional.shifted_operator
+
+    def nudged(*a, **k):
+        m = real(*a, **k)
+        return torch.where(m != 0, torch.nextafter(
+            m, torch.full_like(m, math.inf)), m)
+
+    positional.shifted_operator = nudged
+    try:
+        witness = generate.generate_embeddings(cfg, enc, subs_q[:2 * bsz],
+                                               **kw)
+    finally:
+        positional.shifted_operator = real
+
+    def versus_ref(e):
+        cos = (e * ref).sum(-1) / (norms(e) * norms(ref))
+        return float(np.abs(e - ref).max()), float(cos.mean())
+
+    card = z["role"]["emb"][:2 * bsz]
+    (max_abs, cos), (w_abs, w_cos) = versus_ref(card), versus_ref(witness)
+    print(f"card vs CPU, first {2 * bsz} role-v2 node embeddings: max abs "
+          f"{max_abs:.4g}, cosine mean {cos:.6f} (the CPU path's 1-ulp "
+          f"witness: max abs {w_abs:.4g}, cosine mean {w_cos:.6f}; "
+          f"{time.time() - t0:.1f} s on the CPU)", flush=True)
+    check(cos >= CPU_MIN_MEAN_COS and max_abs <= CPU_MAX_ABS,
+          f"role v2 card vs CPU: mean cosine {cos:.4f} >= "
+          f"{CPU_MIN_MEAN_COS}, max abs {max_abs:.3g} <= {CPU_MAX_ABS}")
+    out_launches = {("pe", "instr_embed"): launches["pe"],
+                    ("jacobi", "instr_embed"): launches["jacobi"]}
+
+    # -- the finetune instrument, both arms, 1 epoch ---------------------
+    train_idx, test_idx = finetune.stratified_kfold(y60.argmax(1), 10,
+                                                    cfg.seed)[0]
+    per_arm = (-(-len(train_idx) // cfg.batch_size)
+               + -(-len(test_idx) // cfg.batch_size))
+    rec, launches, plain, dt = counted(
+        ops, lambda: ft_instr.run_finetune_instrument(
+            ckpt, blocks=60, epochs=1, folds=[0],
+            out=os.path.join(out_dir, "finetune.json"),
+            log_fn=lambda s: print(f"  {s}", flush=True)))
+    f1 = {arm: r["mean"] for arm, r in rec["results"].items()}
+    print(f"finetune instrument (role v2 blocks=60, 1 epoch, fold 0; a "
+          f"depth-cut checkpoint, so the F1 is printed only): {f1}, "
+          f"{2 * per_arm} calls in {dt:.1f} s; kernel launches {launches}, "
+          f"plain-version calls {plain}", flush=True)
+    check(set(f1) == {"pretrained", "scratch"}
+          and all(math.isfinite(v) for v in f1.values()),
+          "finetune instrument: both arms' micro-F1 finite")
+    check(launches == {"featurize": 0, "pe": 2 * per_arm,
+                       "jacobi": 4 * per_arm} and not any(plain.values()),
+          f"finetune instrument: Kernel 2 once, Kernel 3 twice per call "
+          f"{launches}, no plain-version call")
+    out_launches.update({("pe", "instr_ft"): launches["pe"],
+                         ("jacobi", "instr_ft"): launches["jacobi"]})
+
+    # -- Kernels 2 and 3 at the instruments' shapes ----------------------
+    m_shift, n_nodes = subgraph_operator(subs_q[:bsz], *bucket, "cuda")
+    results[("pe", "instr_embed")], q = check_pe(
+        m_shift, n_nodes, K_EVAL, check, key="instr_embed", small=True)
+    s_g, t_rr = guarded_rr_matrices(m_shift, q)
+    check_jacobi(s_g, check, timed=False)
+    results[("jacobi", "instr_embed")] = check_jacobi(t_rr, check,
+                                                      key="instr_embed")
+    m_shift, n_nodes = entire_graph_operator(graphs[:bsz], 256,
+                                             instr.GRAPH_BUCKET[1], "cuda")
+    _, q = check_pe(m_shift, n_nodes, K_EVAL, check, timed=False)
+    s_g, t_rr = guarded_rr_matrices(m_shift, q)
+    check_jacobi(s_g, check, timed=False)
+    check_jacobi(t_rr, check, timed=False)
+    data = finetune.NodeLabeledData(g60, y60, cfg, *bucket)
+    m_shift, n_nodes = subgraph_operator(
+        data.subgraphs_for(train_idx[:cfg.batch_size], epoch_seed=1000),
+        *bucket, "cuda")
+    results[("pe", "instr_ft")], q = check_pe(
+        m_shift, n_nodes, K_EVAL, check, key="instr_ft", small=True)
+    s_g, t_rr = guarded_rr_matrices(m_shift, q)
+    check_jacobi(s_g, check, timed=False)
+    results[("jacobi", "instr_ft")] = check_jacobi(t_rr, check,
+                                                   key="instr_ft")
+    del m_shift, q, s_g, t_rr
+    torch.cuda.empty_cache()
+    return out_launches
+
+
 def row_cosine_errors(a, b, n, seed=0):
     """Mean and max |a·aᵀ - b·bᵀ| over the first n rows (pairs of rows of
     two (N, k) blocks, on the card), or over a seeded sample of
@@ -2566,6 +2741,11 @@ def main() -> int:
         ft_launches = finetune_path(ops, cfg2, ckpt, check, results)
         phase("finetune")
 
+        # --- the downstream instruments, on the serve path's checkpoint --
+        instr_launches = instruments_path(
+            ops, ckpt, os.path.join(work, "instruments"), check, results)
+        phase("downstream instruments")
+
         # --- giant graphs beyond the dense bucket -------------------------
         giant_launches, giant_info = giant_path(ops, cfg2, ckpt, check,
                                                 results)
@@ -2613,6 +2793,8 @@ def main() -> int:
              for n_b in (N_SMALL, N_MAX) for name in ("pe", "jacobi")]
     rows += [(name, key, "finetune", {name: n})
              for (name, key), n in ft_launches.items()]
+    rows += [(name, key, "instruments", {name: n})
+             for (name, key), n in instr_launches.items()]
     rows += [(name, key, "giant", {name: n})
              for (name, key), n in giant_launches.items()]
     rows += [(name, key, "padded", {name: n})
