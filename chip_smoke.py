@@ -147,6 +147,28 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    giant graph by schedule beside phase 10's, the com-DBLP-size graph's
    PE and encode; Kernel 3 at (1, 48, 48), 5 sweeps, held on the
    matrices of the finish across ranks.
+14b. The reference's two bf16 storage levers (EncoderConfig.adj_dtype
+   and jacobi_v_dtype; GCC_TPU_ADJ_DTYPE / GCC_TPU_JACOBI_V_DTYPE there):
+   Kernel 1's bf16 variant at (4096, 128, 128) and (4096, 256, 256), bit
+   for bit its plain version, adj equal to the f32 kernel's; Kernel 2 on
+   a bf16 operator, one shape per plan — shared (4096, 128, 128) k = 32,
+   wide (4096, 128, 128) k = 64, streamed (64, 512, 512) k = 48, general
+   (128, 256, 256) k = 96 — against its plain version at the plans'
+   limits and bit for bit the f32 kernel on the widened operator; Kernel
+   3's bf16-V variant, one shape per kernel — warp (4096, 32, 32), pair
+   (64, 48, 48) and (4096, 64, 64), cluster (128, 96, 96) in shared
+   memory and (4, 512, 512) in the device scratch — bit for bit its plain
+   version, eigenvalues equal to the f32-V launch's; each variant timed
+   beside its f32 counterpart on the same inputs (CUDA events). Then
+   through the entry points with both levers on, launch counters zeroed
+   before each: one routed MoCo dispatch per bucket at the canonical
+   width (bucket 128's losses printed beside an f32 dispatch's from the
+   same weights on the same wire; the PE's median per-column |cos|
+   against f32 >= 0.97 over the first 8 steps' well-defined columns,
+   those whose eigenvalue is 0.02 from its neighbours, the median over
+   every column printed beside it), one routed dispatch at PE 64, and
+   encode calls at PE 32 (n_max 512), PE 80 (n_max 256) and PE 496
+   (n_max 832).
 15. Prints one {"kernels": [...]} JSON line (one entry per kernel and
    shape, with the path that runs it), the nvidia-smi line again, and as
    the last line {"ok": true, "device": {...}}.
@@ -379,7 +401,12 @@ def wire_segments(item, device):
             torch.stack([mq, mk], 1).reshape(2 * k, 3, -1))
 
 
-def check_featurize(edges, meta, n_max, check):
+def check_featurize(edges, meta, n_max, check, dtype=None):
+    """Kernel 1 against its plain version, timed. f32: adjacency and
+    degrees equal, m_shift within 1e-6 (rsqrt may differ by an ulp).
+    ``dtype`` bfloat16 (the adjacency lever): all three bit for bit, the
+    adjacency equal to the f32 kernel's (counts below 256 are exact in
+    bf16), and the f32 kernel timed beside it on the same wire."""
     import torch
 
     from gcc_tpu_torch.ops.aggregate import (
@@ -387,30 +414,45 @@ def check_featurize(edges, meta, n_max, check):
         fused_adjacency_featurize_plain,
     )
 
-    adj, ms, deg = fused_adjacency_featurize(edges, meta, n_max, 8)
+    dtype = dtype or torch.float32
+    lo = dtype == torch.bfloat16
+    tag = " bf16" if lo else ""
+    adj, ms, deg = fused_adjacency_featurize(edges, meta, n_max, 8, dtype)
     torch.cuda.synchronize()
-    adj0, ms0, deg0 = fused_adjacency_featurize_plain(edges, meta, n_max, 8)
-    err = (ms - ms0).abs().max().item()
+    adj0, ms0, deg0 = fused_adjacency_featurize_plain(edges, meta, n_max, 8,
+                                                      dtype)
+    err = (ms.float() - ms0.float()).abs().max().item()
     check(torch.equal(adj, adj0) and torch.equal(deg, deg0),
-          f"featurize N={n_max}: adjacency and degrees equal the plain version")
-    check(err <= 1e-6, f"featurize N={n_max}: m_shift max abs err {err:.3g}"
-          " <= 1e-6")
+          f"featurize{tag} N={n_max}: adjacency and degrees equal the plain "
+          "version")
+    limit = 0.0 if lo else 1e-6
+    check(err <= limit, f"featurize{tag} N={n_max}: m_shift max abs err "
+          f"{err:.3g} <= {limit:g}")
     g = adj.shape[0]
-    ms_k = timed_ms(lambda: fused_adjacency_featurize(edges, meta, n_max, 8),
-                    20)
+    ms_k = timed_ms(lambda: fused_adjacency_featurize(edges, meta, n_max, 8,
+                                                      dtype), 20)
     ms_p = timed_ms(lambda: fused_adjacency_featurize_plain(
-        edges, meta, n_max, 8), 5)
+        edges, meta, n_max, 8, dtype), 5)
     nbytes = edges.numel() * edges.element_size() + meta.numel() * 4 \
-        + g * n_max * n_max * 8 + g * n_max * 4
+        + g * n_max * n_max * 2 * adj.element_size() + g * n_max * 4
     ops = 3 * g * n_max * n_max
     bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
-    print(f"featurize N={n_max} graphs={g}: kernel {ms_k:.4f} ms, plain "
+    f32_ms = None
+    if lo:
+        adj32 = fused_adjacency_featurize(edges, meta, n_max, 8)[0]
+        check(torch.equal(adj.float(), adj32),
+              f"featurize bf16 N={n_max}: adjacency equals the f32 kernel's")
+        del adj32
+        f32_ms = timed_ms(lambda: fused_adjacency_featurize(edges, meta,
+                                                            n_max, 8), 20)
+    print(f"featurize{tag} N={n_max} graphs={g}: kernel {ms_k:.4f} ms, plain "
           f"{ms_p:.4f} ms, bound {bound:.4f} ms (bytes)"
-          + versus("featurize", n_max, ms_k, bound), flush=True)
+          + (f"; the f32 kernel {f32_ms:.4f} ms on the same wire" if lo
+             else versus("featurize", n_max, ms_k, bound)), flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, max_abs_err=err,
                 bound_by="bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32
-                else "operations", shape=f"({g}, {n_max}, {n_max})"), \
-        (adj, ms, deg)
+                else "operations", shape=f"({g}, {n_max}, {n_max}){tag}",
+                **({"f32_ms": f32_ms} if lo else {})), (adj, ms, deg)
 
 
 def pe_flops(n: int, k: int, iters=16, orth_every=4, ns_steps=4, polish=2,
@@ -458,7 +500,10 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
     Orthonormality is a property of the algorithm on each graph, the
     same in both versions: reported, not checked. `require_well` False:
     a batch may hold no graph of 2k nodes (k = 64 in the 128 bucket);
-    the projector is then compared on none."""
+    the projector is then compared on none. A bf16 m_shift (the adjacency
+    lever) is held to the same limits, and besides bit for bit to the f32
+    kernel on the same values widened, which is timed beside it; its
+    bytes count 2 a value of M."""
     import torch
 
     from gcc_tpu_torch.features.positional import subspace_start
@@ -468,6 +513,7 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
     )
 
     g, n, _ = m_shift.shape
+    m_bf16 = m_shift.dtype == torch.bfloat16
     mask = (torch.arange(n, device=n_nodes.device)[None, :]
             < n_nodes[:, None]).float()
     q0 = subspace_start(n, k, mask)
@@ -490,7 +536,8 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
         orth = (torch.bmm(q.transpose(1, 2), q) - eye).abs().amax((1, 2))
         orth_ref = (torch.bmm(q_ref.transpose(1, 2), q_ref) - eye
                     ).abs().amax((1, 2))
-        tag = ("bf16" if lo else "f32") + ("" if timed else f" k={k} g={g}")
+        tag = ("bf16" if lo else "f32") + ("" if timed else f" k={k} g={g}") \
+            + (", M bf16" if m_bf16 else "")
         print(f"pe N={n} {tag} rounds, {g} graphs ({int(well.sum())} of >= "
               f"2k nodes): max abs err {err:.3g}, mean {mean:.3g}"
               f"{' (live rows)' if small else ''}, "
@@ -498,6 +545,11 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
               f"kernel {int((orth <= 1e-3).sum())}, plain "
               f"{int((orth_ref <= 1e-3).sum())} graphs", flush=True)
         check(bool(torch.isfinite(q).all()), f"pe N={n} {tag}: finite")
+        if m_bf16:
+            check(torch.equal(q, pe_subspace_iterate(
+                m_shift.float(), q0, iters=16, power_lo=lo)),
+                  f"pe N={n} {tag}: equal to the f32 kernel on the widened "
+                  "operator")
         if lo:
             check(mean <= PE_MEAN_LIMIT and err <= PE_MAX_LIMIT
                   and proj <= PROJECTOR_LIMIT,
@@ -516,31 +568,49 @@ def check_pe(m_shift, n_nodes, k, check, timed=True, key=None, small=False,
     live = [min(n, -(-int(v) // 32) * 32) for v in n_nodes.tolist()]
     t_ops = sum(lo_ops / PEAK_BF16 + f32_ops / PEAK_F32
                 for lo_ops, f32_ops in (pe_flops(v, k) for v in live))
-    t_bytes = sum(v * v + v * k + n * k for v in live) * 4 / PEAK_BYTES
+    t_bytes = sum(v * v * m_shift.element_size() + (v * k + n * k) * 4
+                  for v in live) / PEAK_BYTES
     bound = max(t_ops, t_bytes) * 1e3
-    print(f"pe N={n}: kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, bound "
-          f"{bound:.4f} ms ({'operations' if t_ops >= t_bytes else 'bytes'})"
-          + versus("pe", key if key is not None else n if k == 32 else None,
-                   ms_k, bound), flush=True)
+    f32_ms = None
+    if m_bf16:
+        m32 = m_shift.float()
+        f32_ms = timed_ms(lambda: pe_subspace_iterate(m32, q0, iters=16), 3)
+        del m32
+    print(f"pe N={n}{' M bf16' if m_bf16 else ''}: kernel {ms_k:.4f} ms, "
+          f"plain {ms_p:.4f} ms, bound {bound:.4f} ms "
+          f"({'operations' if t_ops >= t_bytes else 'bytes'})"
+          + (f"; the f32 kernel {f32_ms:.4f} ms on the widened operator"
+             if m_bf16 else versus("pe", key if key is not None
+                                   else n if k == 32 else None, ms_k, bound)),
+          flush=True)
     out.update(ms=ms_k, plain_ms=ms_p, bound_ms=bound,
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               shape=f"({g}, {n}, {n}), k={k}")
+               shape=f"({g}, {n}, {n}), k={k}" + (", M bf16" if m_bf16
+                                                   else ""),
+               **({"f32_ms": f32_ms} if m_bf16 else {}))
     return out, q
 
 
 def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
-                 exact=False):
+                 exact=False, v_dtype=None):
+    """Kernel 3 against its plain version, timed beside the plain version
+    and torch.linalg.eigh. ``v_dtype`` bfloat16 (the V lever): error 0,
+    eigenvalues equal to the f32-V launch's, which is timed beside it."""
     import torch
 
     from gcc_tpu_torch.ops.jacobi import jacobi_eigh, jacobi_eigh_plain
 
+    v_dtype = v_dtype or torch.float32
+    v_lo = v_dtype == torch.bfloat16
+    exact = exact or v_lo
     b, n, _ = t.shape
-    w, v = jacobi_eigh(t, sweeps=sweeps, descending=True)
+    w, v = jacobi_eigh(t, sweeps=sweeps, descending=True, v_dtype=v_dtype)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    w0, v0 = jacobi_eigh_plain(t, sweeps=sweeps, descending=True)
+    w0, v0 = jacobi_eigh_plain(t, sweeps=sweeps, descending=True,
+                               v_dtype=v_dtype)
     end.record()
     torch.cuda.synchronize()
     check_ms = start.elapsed_time(end)
@@ -548,20 +618,33 @@ def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
     # Same rounds, every operation correctly rounded in both versions
     # (`exact`: held to 0, the rule of the widths PE 64 adds).
     limit = 0.0 if exact else 1e-6
-    check(err <= limit, f"jacobi ({b}, {n}, {n}): max abs err {err:.3g} "
-          f"<= {limit:g}")
+    tag = " V bf16" if v_lo else ""
+    check(err <= limit, f"jacobi{tag} ({b}, {n}, {n}): max abs err "
+          f"{err:.3g} <= {limit:g}")
     check(bool(torch.isfinite(w).all() and torch.isfinite(v).all()),
-          f"jacobi ({b}, {n}, {n}): finite")
+          f"jacobi{tag} ({b}, {n}, {n}): finite")
+    f32_ms = None
+    if v_lo:
+        check(torch.equal(w, jacobi_eigh(t, sweeps=sweeps,
+                                         descending=True)[0]),
+              f"jacobi V bf16 ({b}, {n}, {n}): eigenvalues equal the f32-V "
+              "launch's")
+        if timed:
+            f32_ms = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps,
+                                                  descending=True),
+                              20, run_ahead=True)
     if not timed:
         return None
-    ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps, descending=True),
+    ms_k = timed_ms(lambda: jacobi_eigh(t, sweeps=sweeps, descending=True,
+                                        v_dtype=v_dtype),
                     20, run_ahead=True)
     # The plain version takes seconds at (4, 512, 512): its checking call
     # is then its measurement, and else its warm-up.
     ms_p = check_ms
     if ms_p < SLOW_LIBRARY_MS:
         ms_p = timed_ms(lambda: jacobi_eigh_plain(t, sweeps=sweeps,
-                                                  descending=True), 3,
+                                                  descending=True,
+                                                  v_dtype=v_dtype), 3,
                         warmup=0)
     # torch.linalg.eigh takes seconds at (4096, 64, 64): one call is then
     # its measurement (its solver is warm from the smaller shapes before).
@@ -574,16 +657,19 @@ def check_jacobi(t, check, timed=True, key=None, sweeps=RR_SWEEPS,
     ops = b * sweeps * (n - 1) * (9 * n * n + 10 * n)
     nbytes = b * (2 * n * n + n) * 4
     bound = max(ops / PEAK_F32, nbytes / PEAK_BYTES) * 1e3
-    print(f"jacobi ({b}, {n}, {n}) sweeps={sweeps}: kernel {ms_k:.4f} ms, "
-          f"plain {ms_p:.4f} ms, torch.linalg.eigh {ms_l:.4f} ms, bound "
-          f"{bound:.4f} ms (operations)"
-          + versus("jacobi", key if key is not None else n, ms_k, bound),
-          flush=True)
+    print(f"jacobi{tag} ({b}, {n}, {n}) sweeps={sweeps}: kernel "
+          f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, torch.linalg.eigh "
+          f"{ms_l:.4f} ms, bound {bound:.4f} ms (operations)"
+          + (f"; the f32-V kernel {f32_ms:.4f} ms on the same matrices"
+             if v_lo else versus("jacobi", key if key is not None else n,
+                                 ms_k, bound)), flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, library_ms=ms_l, bound_ms=bound,
                 bound_by="operations" if ops / PEAK_F32 >= nbytes / PEAK_BYTES
                 else "bytes", max_abs_err=err,
                 shape=f"({b}, {n}, {n})"
-                + ("" if sweeps == RR_SWEEPS else f", {sweeps} sweeps"))
+                + ("" if sweeps == RR_SWEEPS else f", {sweeps} sweeps")
+                + (", V bf16" if v_lo else ""),
+                **({"f32_ms": f32_ms} if v_lo else {}))
 
 
 def rr_matrices(m_shift, q):
@@ -592,7 +678,7 @@ def rr_matrices(m_shift, q):
     import torch
 
     q = torch.nan_to_num(q, nan=0.0, posinf=0.0, neginf=0.0)
-    t = torch.bmm(q.transpose(1, 2), torch.bmm(m_shift, q))
+    t = torch.bmm(q.transpose(1, 2), torch.bmm(m_shift.float(), q))
     return 0.5 * (t + t.transpose(1, 2))
 
 
@@ -748,9 +834,10 @@ def community_graph(seed: int, n_comm: int, size: int):
                                symmetrize=True)
 
 
-def subgraph_operator(subgraphs, n_max, e_max, device):
+def subgraph_operator(subgraphs, n_max, e_max, device, dtype=None):
     """(m_shift (B, N, N), n_nodes (B,)) of a batch of subgraphs, as
-    featurize_batch derives them on the generate path."""
+    featurize_batch derives them on the generate path (``dtype``: the
+    adjacency's, float32 by default)."""
     import torch
 
     from gcc_tpu_torch.graph.batch import batch_subgraphs
@@ -764,22 +851,25 @@ def subgraph_operator(subgraphs, n_max, e_max, device):
     up = lambda x: torch.as_tensor(x).to(device)  # noqa: E731
     mask = up(batch.node_mask)
     adj = build_dense_adjacency(up(batch.edges_src), up(batch.edges_dst),
-                                up(batch.edge_weight), len(subgraphs), n_max)
+                                up(batch.edge_weight), len(subgraphs), n_max,
+                                dtype or torch.float32)
     return (shifted_operator(normalized_adjacency(adj, mask), mask),
             up(batch.n_nodes))
 
 
-def entire_graph_operator(graphs, n_max, e_max, device):
+def entire_graph_operator(graphs, n_max, e_max, device, dtype=None):
     from gcc_tpu_torch.generate import graph_subgraphs
 
-    return subgraph_operator(graph_subgraphs(graphs), n_max, e_max, device)
+    return subgraph_operator(graph_subgraphs(graphs), n_max, e_max, device,
+                             dtype)
 
 
-def guarded_rr_matrices(m_shift, q):
+def guarded_rr_matrices(m_shift, q, v_dtype=None):
     """The two matrices the eval profile hands to the Jacobi kernel per
     encode call (features/positional.py subspace_topk): the regularized
     Gram S of the guarded basis, and T = (QW)ᵀ M (QW) of the basis
-    whitened by S's eigenpairs."""
+    whitened by S's eigenpairs (``v_dtype``: Kernel 3's V storage, as the
+    encode call runs it)."""
     import torch
 
     from gcc_tpu_torch.ops.jacobi import jacobi_eigh
@@ -788,7 +878,8 @@ def guarded_rr_matrices(m_shift, q):
     s_g = torch.bmm(q.transpose(1, 2), q)
     s_g = 0.5 * (s_g + s_g.transpose(1, 2))
     s_g = s_g + 1e-5 * torch.eye(q.shape[2], device=q.device)
-    sv, v = jacobi_eigh(s_g, sweeps=RR_SWEEPS, descending=True)
+    sv, v = jacobi_eigh(s_g, sweeps=RR_SWEEPS, descending=True,
+                        v_dtype=v_dtype or torch.float32)
     floor = 0.1 * sv[:, :1]
     w = v * (torch.rsqrt(torch.maximum(sv, floor))
              * (sv > floor).float())[:, None, :]
@@ -1070,13 +1161,17 @@ def pe_errors(a, b, mask):
     return d.sum((1, 2)), live.sum((1, 2)), d.amax((1, 2))
 
 
-def separated_spectra(adj, mask, pos, gap=0.02) -> int:
-    """How many graphs have their top k_b + 1 eigenvalues of D^-1/2 A
-    D^-1/2 (float64, live block) at least `gap` apart, k_b > 0."""
+def separated_columns(adj, mask, pos, gap=0.02):
+    """(G, pos) bool: column j < k_b of view g is well defined, its
+    eigenvalue of D^-1/2 A D^-1/2 (float64, live block) at least `gap`
+    from both neighbours. Within a cluster any rotation is an equally
+    valid PE, and the train profile's unguarded Ritz vectors rotate there
+    under any change of the operator (pe_card_vs_cpu's 1-ulp witness), so
+    only these columns compare one by one."""
     import numpy as np
 
-    count = 0
-    for a, m in zip(adj.double().numpy(), mask.numpy()):
+    out = np.zeros((adj.shape[0], pos), bool)
+    for g, (a, m) in enumerate(zip(adj.double().numpy(), mask.numpy())):
         n = int(m.sum())
         k_b = min(max(n - 2, 0), pos)
         if k_b == 0:
@@ -1084,8 +1179,19 @@ def separated_spectra(adj, mask, pos, gap=0.02) -> int:
         a = a[:n, :n]
         d = np.sqrt(np.maximum(a.sum(1), 1.0))
         lam = np.linalg.eigvalsh(a / d[:, None] / d[None, :])[::-1][:k_b + 1]
-        count += bool(np.min(-np.diff(lam)) >= gap)
-    return count
+        for j in range(k_b):
+            out[g, j] = min(abs(lam[j] - lam[i]) for i in (j - 1, j + 1)
+                            if 0 <= i < len(lam)) >= gap
+    return out
+
+
+def separated_spectra(adj, mask, pos, gap=0.02) -> int:
+    """How many graphs have their top k_b + 1 eigenvalues of D^-1/2 A
+    D^-1/2 (float64, live block) at least `gap` apart, k_b > 0: those
+    whose k_b columns are all well defined (separated_columns)."""
+    cols = separated_columns(adj, mask, pos, gap)
+    k_b = (mask.sum(1) - 2).clamp(0, pos).to(int).tolist()
+    return sum(k > 0 and bool(cols[g, :k].all()) for g, k in enumerate(k_b))
 
 
 def pe_card_vs_cpu(got, ref, classes, pos, profile="train",
@@ -2521,6 +2627,175 @@ def dp_path(ops, cfg, corpus_dir, out_dir, check, results, giant_cfg,
     return giant_launches
 
 
+def pe_column_cosines(a, b):
+    """(G, pos) |cos| of two (G, N, pos) PEs column by column, and which
+    columns are live in b (norm above 1e-6)."""
+    import torch
+
+    na = torch.linalg.vector_norm(a, dim=1)
+    nb = torch.linalg.vector_norm(b, dim=1)
+    return (a * b).sum(dim=1).abs() / torch.clamp_min(na * nb, 1e-30), \
+        nb > 1e-6
+
+
+def bf16_levers_path(ops, cfg, small_items, large_items, check, results):
+    """The reference's two bf16 storage levers (EncoderConfig.adj_dtype and
+    jacobi_v_dtype): each kernel's bf16 variant against its plain version,
+    one shape per plan and kernel, timed beside its f32 counterpart on the
+    same inputs; then the entry points with both levers on, launch counters
+    zeroed before each (module docstring, 14b). Adds the rows; returns
+    {row key: launches}."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch import generate
+    from gcc_tpu_torch.config import with_levers
+    from gcc_tpu_torch.models import GraphEncoder
+    from gcc_tpu_torch.training import (
+        create_pretrain_state,
+        featurize_stacked,
+        train_dispatch,
+    )
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    k_pos = cfg.encoder.positional_embedding_size
+    # -- the variants against their plain versions ----------------------
+    for n_b, item in ((N_SMALL, small_items[0]), (N_MAX, large_items[0])):
+        edges, meta = wire_segments(item, dev)
+        results[("featurize", f"{n_b}bf16")], (_, m16, _) = check_featurize(
+            edges, meta, n_b, check, dtype=bf)
+        if n_b == N_SMALL:
+            n_nodes = meta[:, 0, :].reshape(-1)
+            results[("pe", "128bf16")], q = check_pe(m16, n_nodes, k_pos,
+                                                     check, key="128bf16")
+            results[("jacobi", "32bf16")] = check_jacobi(
+                rr_matrices(m16, q), check, v_dtype=bf)
+            results[("pe", "128k64bf16")], q = check_pe(
+                m16, n_nodes, PE64, check, key="128k64bf16",
+                require_well=False)
+            results[("jacobi", "n64bf16")] = check_jacobi(
+                rr_matrices(m16, q), check, v_dtype=bf)
+        del edges, meta, m16
+        torch.cuda.empty_cache()
+    for key, n_b, count, lo, k, jkey in (
+            ("512bf16", GEN_N_MAX, GEN_BATCH, 260, K_EVAL, "48bf16"),
+            ("256k96bf16", N_MAX, 128, 100, 96, "n96bf16")):
+        m16, n_nodes = entire_graph_operator(
+            random_graphs(n_b + k, count, lo, n_b), n_b, GEN_E_MAX, dev,
+            dtype=bf)
+        results[("pe", key)], q = check_pe(m16, n_nodes, k, check, key=key)
+        s_g, t_rr = guarded_rr_matrices(m16, q, v_dtype=bf)
+        check_jacobi(s_g, check, timed=False, v_dtype=bf)
+        results[("jacobi", jkey)] = check_jacobi(t_rr, check, v_dtype=bf)
+        del m16, q, s_g, t_rr
+        torch.cuda.empty_cache()
+    gen = torch.Generator(dev).manual_seed(512)
+    t = torch.randn(4, 512, 512, device=dev, generator=gen)
+    results[("jacobi", "n512bf16")] = check_jacobi(0.5 * (t + t.transpose(
+        1, 2)), check, v_dtype=bf)
+    del t, gen
+
+    # -- the entry points with both levers on ---------------------------
+    cfg_b = with_levers(cfg, "bfloat16", "bfloat16")
+    launches = {}
+    losses = {}
+    for name, c, n_b, item in (("f32", cfg, N_SMALL, small_items[1]),
+                               ("bf16", cfg_b, N_SMALL, small_items[1]),
+                               ("bf16", cfg_b, N_MAX, large_items[1])):
+        state = create_pretrain_state(c, total_steps=100_000, seed=0,
+                                      device="cuda")
+        metrics, got, plain, dt = counted(
+            ops, lambda: train_dispatch(state, *item, n_max=N_MAX))
+        loss = metrics["loss"].cpu()
+        losses[(name, n_b)] = loss
+        print(f"levers {name}: routed dispatch {n_b}, {STEPS} steps in "
+              f"{dt * 1e3:.1f} ms, loss first {loss[0].item():.6f} last "
+              f"{loss[-1].item():.6f}; kernel launches {got}", flush=True)
+        check(bool(torch.isfinite(loss).all()) and all(
+            v == 1 for v in got.values()) and not any(plain.values()),
+              f"levers {name} routed {n_b}: loss finite, every kernel "
+              "launched once, no plain-version call")
+        if name == "bf16":
+            launches[n_b] = got
+        del state
+    print("levers: bucket-128 losses step by step, f32 | both levers: "
+          + ", ".join(f"{a:.5f}|{b:.5f}" for a, b in zip(
+              losses[("f32", N_SMALL)].tolist()[:8],
+              losses[("bf16", N_SMALL)].tolist()[:8]))
+          + f" ...; last {losses[('f32', N_SMALL)][-1].item():.5f}|"
+          f"{losses[('bf16', N_SMALL)][-1].item():.5f}", flush=True)
+    f32 = featurize_stacked(*small_items[1], k_pos, n_max=N_MAX)
+    pe_b = featurize_stacked(*small_items[1], k_pos, n_max=N_MAX,
+                             adj_dtype=bf, v_dtype=bf).pos[:PROFILED_STEPS]
+    cos, live = pe_column_cosines(pe_b.flatten(0, 1).cpu(),
+                                  f32.pos[:PROFILED_STEPS].flatten(0, 1).cpu())
+    sep = torch.as_tensor(separated_columns(
+        f32.adj[:PROFILED_STEPS].flatten(0, 1).cpu(),
+        f32.node_mask[:PROFILED_STEPS].flatten(0, 1).cpu(), k_pos))
+    med = cos[sep].median().item()
+    print(f"levers: PE per-column |cos| both levers vs f32, first "
+          f"{PROFILED_STEPS} steps: median {med:.6f} (mean "
+          f"{cos[sep].mean().item():.6f}) over the {int(sep.sum())} "
+          f"well-defined columns; median {cos[live].median().item():.6f} "
+          f"(mean {cos[live].mean().item():.6f}) over all {int(live.sum())} "
+          "live columns", flush=True)
+    check(int(sep.sum()) >= 100 and med >= 0.97,
+          f"levers: PE median per-column |cos| vs f32 {med:.4f} >= 0.97 "
+          f"over {int(sep.sum())} well-defined columns")
+    del f32, pe_b
+
+    cfg64 = dataclasses.replace(cfg_b, encoder=dataclasses.replace(
+        cfg_b.encoder, positional_embedding_size=PE64))
+    state = create_pretrain_state(cfg64, total_steps=100_000, seed=0,
+                                  device="cuda")
+    metrics, got64, plain, _ = counted(
+        ops, lambda: train_dispatch(state, *small_items[1], n_max=N_MAX))
+    check(bool(torch.isfinite(metrics["loss"]).all()) and all(
+        v == 1 for v in got64.values()) and not any(plain.values()),
+          f"levers PE 64 routed {N_SMALL}: loss finite, every kernel "
+          f"launched once {got64}, no plain-version call")
+    del state
+    enc_launches = {}
+    for pos, n_b, count, lo in ((k_pos, GEN_N_MAX, GEN_BATCH, 260),
+                                (80, N_MAX, 128, 100),
+                                (496, 832, 4, 520)):
+        c = dataclasses.replace(cfg_b, encoder=dataclasses.replace(
+            cfg_b.encoder, positional_embedding_size=pos))
+        model = GraphEncoder(c.encoder)
+        model.reset_parameters(torch.Generator().manual_seed(0))
+        model.to(dev).eval()
+        subs = generate.graph_subgraphs(random_graphs(n_b + pos, count, lo,
+                                                      n_b))
+        emb, got, plain, dt = counted(
+            ops, lambda: generate.generate_embeddings(
+                c, model, subs, n_max=n_b, e_max=GEN_E_MAX,
+                batch_size=count))
+        enc_launches[pos] = got
+        print(f"levers: PE {pos} generate_embeddings at n_max {n_b}, one "
+              f"encode call of {count} graphs in {dt * 1e3:.1f} ms; kernel "
+              f"launches {got}", flush=True)
+        check(got["pe"] == 1 and got["jacobi"] == 2 and not any(
+            plain.values()) and bool(np.isfinite(emb).all()),
+              f"levers PE {pos} generate at {n_b}: Kernel 2 once, Kernel 3 "
+              "twice, no plain-version call, finite embeddings")
+        del model
+    return {("featurize", "128bf16"): launches[N_SMALL]["featurize"],
+            ("featurize", "256bf16"): launches[N_MAX]["featurize"],
+            ("pe", "128bf16"): launches[N_SMALL]["pe"],
+            ("jacobi", "32bf16"): launches[N_SMALL]["jacobi"]
+            + launches[N_MAX]["jacobi"],
+            ("pe", "128k64bf16"): got64["pe"],
+            ("jacobi", "n64bf16"): got64["jacobi"],
+            ("pe", "512bf16"): enc_launches[k_pos]["pe"],
+            ("jacobi", "48bf16"): enc_launches[k_pos]["jacobi"],
+            ("pe", "256k96bf16"): enc_launches[80]["pe"],
+            ("jacobi", "n96bf16"): enc_launches[80]["jacobi"],
+            ("jacobi", "n512bf16"): enc_launches[496]["jacobi"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -2772,6 +3047,11 @@ def main() -> int:
                                 cfg2, ckpt, giant_info)
         phase("data parallel, giant graphs across ranks")
 
+        # --- the bf16 storage levers --------------------------------------
+        lever_launches = bf16_levers_path(ops, cfg, small_items, large_items,
+                                          check, results)
+        phase("bf16 storage levers")
+
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),
                "pe": ("gcc_tpu_torch/csrc/pe.cu",
@@ -2805,6 +3085,8 @@ def main() -> int:
              for (name, key), n in wide_launches.items()]
     rows += [(name, key, "giant across ranks", {name: n})
              for (name, key), n in dist_launches.items()]
+    rows += [(name, key, "bf16 levers", {name: n})
+             for (name, key), n in lever_launches.items()]
     kernels = []
     for name, key, path, launches in rows:
         r = results[(name, key)]
@@ -2815,7 +3097,8 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "shape": r["shape"], "path": path,
-            **{k: r[k] for k in ("cluster", "placement") if k in r},
+            **{k: r[k] for k in ("cluster", "placement", "f32_ms")
+               if k in r},
             "pass": not any(f.startswith(name) for f in check.failed)})
     for e in kernels:
         check(e["launches"] > 0,

@@ -78,6 +78,21 @@ def _add_train_flags(p):
                         "device")
     p.add_argument("--exp", default="")
     p.add_argument("--dataset", default="corpus")
+    add_lever_flags(p)
+
+
+def add_lever_flags(p):
+    """The reference's two bf16 storage levers (GCC_TPU_ADJ_DTYPE,
+    GCC_TPU_JACOBI_V_DTYPE) as options; omitted, a checkpoint's own
+    setting holds (float32 for a new run)."""
+    from gcc_tpu_torch.config import STORAGE_DTYPES
+
+    p.add_argument("--adj-dtype", default=None, choices=STORAGE_DTYPES,
+                   help="storage of the adjacency and PE operator "
+                        "(default float32)")
+    p.add_argument("--jacobi-v-dtype", default=None, choices=STORAGE_DTYPES,
+                   help="storage of the Jacobi finishes' eigenvectors "
+                        "(default float32)")
 
 
 def _add_device_flag(p):
@@ -112,6 +127,8 @@ def _cfg_from_args(args):
             max_degree=args.max_degree, pe_method=args.pe_method,
             norm=not args.no_norm, set2set_iter=args.set2set_iter,
             set2set_lstm_layer=args.set2set_lstm_layer,
+            adj_dtype=args.adj_dtype or "float32",
+            jacobi_v_dtype=args.jacobi_v_dtype or "float32",
         ),
         contrast=ContrastConfig(
             moco=args.moco, nce_k=args.nce_k, nce_t=args.nce_t,
@@ -144,13 +161,18 @@ def cmd_ingest(args):
 
 
 def cmd_pretrain(args):
-    from gcc_tpu_torch.parallel.multihost import initialize_multihost
-    from gcc_tpu_torch.sampling.pipeline import PipelineConfig
-    from gcc_tpu_torch.training.loop import run_pretrain
+    from gcc_tpu_torch.parallel.multihost import multihost_session
 
     # Under torchrun: join the process group (env://) before anything
-    # touches the device; a no-op for a single process.
-    initialize_multihost(device=args.device)
+    # touches the device, and leave it on the way out; a no-op for a
+    # single process.
+    with multihost_session(args.device):
+        _pretrain(args)
+
+
+def _pretrain(args):
+    from gcc_tpu_torch.sampling.pipeline import PipelineConfig
+    from gcc_tpu_torch.training.loop import run_pretrain
 
     cfg = _cfg_from_args(args)
     if cfg.dataset != "corpus":
@@ -191,6 +213,7 @@ def cmd_pretrain(args):
 
 
 def cmd_finetune(args):
+    from gcc_tpu_torch.config import with_levers
     from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
     from gcc_tpu_torch.training.checkpoint import load_checkpoint, load_config
     from gcc_tpu_torch.training.finetune import (
@@ -207,6 +230,7 @@ def cmd_finetune(args):
         cfg = _cfg_from_args(args)
     cfg = dataclasses.replace(cfg, epochs=args.epochs, seed=args.seed,
                               batch_size=args.batch_size)
+    cfg = with_levers(cfg, args.adj_dtype, args.jacobi_v_dtype)
 
     if args.dataset in GRAPH_CLASSIFICATION_DSETS:
         from gcc_tpu_torch.data.tu import load_tu_dataset
@@ -228,20 +252,27 @@ def cmd_finetune(args):
 
 
 def cmd_generate(args):
-    import torch.distributed as dist
-
-    from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
-    from gcc_tpu_torch.generate import generate_embeddings, node_subgraphs
-    from gcc_tpu_torch.parallel.multihost import initialize_multihost
-    from gcc_tpu_torch.training.checkpoint import load_config, load_encoder
+    from gcc_tpu_torch.parallel.multihost import multihost_session
 
     # Under torchrun: join the process group, whose ranks then share each
     # giant graph (the reference's "part" axis over every device); every
-    # rank computes the same embeddings and rank 0 writes them.
-    initialize_multihost(device=args.device)
-    group = dist.group.WORLD if dist.is_initialized() else None
+    # rank computes the same embeddings and rank 0 writes them. Each rank
+    # leaves the group before it exits.
+    with multihost_session(args.device) as group:
+        _generate(args, group)
+
+
+def _generate(args, group):
+    import torch.distributed as dist
+
+    from gcc_tpu_torch.config import with_levers
+    from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
+    from gcc_tpu_torch.generate import generate_embeddings, node_subgraphs
+    from gcc_tpu_torch.training.checkpoint import load_config, load_encoder
+
     run_dir = os.path.dirname(args.ckpt)
-    cfg = load_config(run_dir)
+    cfg = with_levers(load_config(run_dir), args.adj_dtype,
+                      args.jacobi_v_dtype)
     enc = load_encoder(args.ckpt, cfg, device=args.device)
 
     if args.dataset in GRAPH_CLASSIFICATION_DSETS:
@@ -364,6 +395,7 @@ def main(argv=None):
                         "the reference's 64-d summed-head embedding; "
                         "'composite' = mean-pooled input + per-layer "
                         "L2'd conv sums (generate.composite_graph_readout)")
+    add_lever_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_generate)
 

@@ -13,6 +13,9 @@ import dataclasses
 import json
 from typing import Any
 
+# EncoderConfig.adj_dtype and jacobi_v_dtype take these names.
+STORAGE_DTYPES = ("float32", "bfloat16")
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplerConfig:
@@ -51,6 +54,21 @@ class EncoderConfig:
     num_heads: int = 4  # gat
     set2set_iter: int = 6
     set2set_lstm_layer: int = 3
+    # Storage of the dense adjacency chain (adjacency, PE operator) and of
+    # the Jacobi finishes' eigenvector accumulator: "float32" or
+    # "bfloat16" — the reference's GCC_TPU_ADJ_DTYPE=bf16 and
+    # GCC_TPU_JACOBI_V_DTYPE=bf16 (gcc_tpu/ops/aggregate.py:30-45,
+    # ops/jacobi.py:151-168), where they are read from the environment. A
+    # sidecar written before these fields loads as float32.
+    adj_dtype: str = "float32"
+    jacobi_v_dtype: str = "float32"
+
+    def __post_init__(self):
+        for name in ("adj_dtype", "jacobi_v_dtype"):
+            if getattr(self, name) not in STORAGE_DTYPES:
+                raise ValueError(f"EncoderConfig.{name} is one of "
+                                 f"{STORAGE_DTYPES}, got "
+                                 f"{getattr(self, name)!r}")
 
     @property
     def node_input_dim(self) -> int:
@@ -159,6 +177,19 @@ class TrainConfig:
     @staticmethod
     def from_json(s: str) -> "TrainConfig":
         return _from_dict(TrainConfig, json.loads(s))
+
+
+def with_levers(cfg: TrainConfig, adj_dtype: str | None = None,
+                jacobi_v_dtype: str | None = None) -> TrainConfig:
+    """``cfg`` with the encoder's storage levers replaced where given
+    (None keeps the configuration's, e.g. a checkpoint's)."""
+    changes = {k: v for k, v in (("adj_dtype", adj_dtype),
+                                 ("jacobi_v_dtype", jacobi_v_dtype))
+               if v is not None}
+    if not changes:
+        return cfg
+    return dataclasses.replace(
+        cfg, encoder=dataclasses.replace(cfg.encoder, **changes))
 
 
 def _from_dict(cls: Any, d: dict) -> Any:

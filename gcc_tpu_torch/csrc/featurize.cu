@@ -25,7 +25,24 @@
 // once as m_shift, row-contiguous, so both output streams are coalesced.
 // Every tile block recounts the whole histogram from the same edges —
 // cheaper than a second launch — and the first tile writes deg.
+//
+// Storage dtype T (the reference's GCC_TPU_ADJ_DTYPE=bf16,
+// gcc_tpu/ops/aggregate.py:30-45, as EncoderConfig.adj_dtype): float, or
+// __nv_bfloat16 for adj and m_shift, which halves the bytes written. The
+// bf16 variant rounds where the reference's default chain rounds
+// (ops/aggregate.py in the port states each): adj = min(count, 256), what
+// bf16 +1 increments leave; M = D^-1/2 A D^-1/2 in f32 from that adj,
+// rounded once; m_shift's real diagonal rounded again after the +1, so
+// bf16(bf16(a_vv s_v^2) + 1); deg, f32, the f32 row sum rounded to bf16
+// (the train route's adj.sum(axis=2) in the adjacency dtype). Rounding is
+// __float2bfloat16_rn, to nearest even, as XLA's convert and torch's
+// .to(torch.bfloat16). The in-degrees the normalization uses are counted
+// from the edges, so they equal the sums of the stored entries where no
+// (dst, src) pair repeats more than 256 times in a graph (an RWR
+// subgraph of the wire repeats none); past that the bf16 adj saturates
+// and the degrees still count every edge.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -33,13 +50,24 @@ namespace {
 
 constexpr int kThreads = 256;
 
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 featurize_kernel(const int32_t* __restrict__ edges,  // (S, E_tot) packed
                  const int32_t* __restrict__ meta,   // (S, 3, B)
-                 float* __restrict__ adj,            // (S*B, N, N)
-                 float* __restrict__ m_shift,        // (S*B, N, N)
+                 T* __restrict__ adj,                // (S*B, N, N)
+                 T* __restrict__ m_shift,            // (S*B, N, N)
                  float* __restrict__ deg,            // (S*B, N)
                  int e_tot, int b, int n, int rows_per_tile, int id_bits) {
+  constexpr bool kLo = sizeof(T) == 2;
   extern __shared__ float smem[];
   float* tile = smem;                       // rows_per_tile * n
   float* hist = smem + rows_per_tile * n;   // n
@@ -89,33 +117,48 @@ featurize_kernel(const int32_t* __restrict__ edges,  // (S, E_tot) packed
     const int r = i / n;
     const int c = i - r * n;
     const int row = r0 + r;
-    const float a = tile[i];
+    // The stored count: in bf16, +1 increments stop at 256.
+    const float a = kLo ? fminf(tile[i], 256.f) : tile[i];
     // Separately rounded products, in the chain's order (adj * inv_row)
     // * inv_col: no contraction into an FMA.
     const float inv_r = rsqrtf(fmaxf(hist[row], 1.f));
     const float inv_c = rsqrtf(fmaxf(hist[c], 1.f));
     float m = __fmul_rn(__fmul_rn(a, inv_r), inv_c);
+    // bf16: M is stored rounded, and the shift adds to the stored value.
+    if (kLo) m = bf16_round(m);
     if (row == c && row < n_nodes) m = __fadd_rn(m, 1.f);
-    adj[base + i] = a;
-    m_shift[base + i] = m;
+    put(adj + base + i, a);
+    put(m_shift + base + i, m);
   }
   if (blockIdx.y == 0)
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      deg[(size_t)g * n + i] = hist[i];
+      deg[(size_t)g * n + i] = kLo ? bf16_round(hist[i]) : hist[i];
+}
+
+template <class T>
+int launch(const void* edges, const void* meta, void* adj, void* m_shift,
+           void* deg, int s, int e_tot, int b, int n, int id_bits,
+           cudaStream_t stream) {
+  const int rows_per_tile = n >= 8192 ? 1 : 8192 / n;
+  const size_t smem = (size_t)(rows_per_tile * n + n) * sizeof(float);
+  dim3 grid(s * b, (n + rows_per_tile - 1) / rows_per_tile);
+  featurize_kernel<T><<<grid, kThreads, smem, stream>>>(
+      (const int32_t*)edges, (const int32_t*)meta, (T*)adj, (T*)m_shift,
+      (float*)deg, e_tot, b, n, rows_per_tile, id_bits);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// lo: adj and m_shift are bf16 (else f32); deg is f32 either way.
 extern "C" int gcc_featurize_launch(const void* edges, const void* meta,
                                     void* adj, void* m_shift, void* deg,
                                     int s, int e_tot, int b, int n,
-                                    int id_bits, void* stream) {
+                                    int id_bits, int lo, void* stream) {
   if (s <= 0 || b <= 0 || n <= 0) return 0;
-  const int rows_per_tile = n >= 8192 ? 1 : 8192 / n;
-  const size_t smem = (size_t)(rows_per_tile * n + n) * sizeof(float);
-  dim3 grid(s * b, (n + rows_per_tile - 1) / rows_per_tile);
-  featurize_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)edges, (const int32_t*)meta, (float*)adj,
-      (float*)m_shift, (float*)deg, e_tot, b, n, rows_per_tile, id_bits);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  return lo ? launch<__nv_bfloat16>(edges, meta, adj, m_shift, deg, s, e_tot,
+                                    b, n, id_bits, st)
+            : launch<float>(edges, meta, adj, m_shift, deg, s, e_tot, b, n,
+                            id_bits, st);
 }

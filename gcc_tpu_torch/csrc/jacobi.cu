@@ -73,6 +73,7 @@
 // reduction, and all three kernels are bit-identical to the plain version.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -86,6 +87,16 @@ constexpr int kMaxN = 832;                // the widest n the kernels take
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// V^T's storage (the reference's GCC_TPU_JACOBI_V_DTYPE=bf16,
+// gcc_tpu/ops/jacobi.py:151-168): each round rotates V^T in f32 and, with
+// RV, rounds the result to bf16 (to nearest even) before it is stored; A
+// and the eigenvalues never read V^T and stay as in f32.
+template <bool RV>
+__device__ __forceinline__ float vround(float x) {
+  if constexpr (RV) return __bfloat162float(__float2bfloat16_rn(x));
+  else return x;
+}
 
 __device__ __forceinline__ void rotation_cs(float app, float aqq, float apq,
                                             float eps, float* c, float* s) {
@@ -216,7 +227,7 @@ __device__ __forceinline__ void round_barrier(int csize) {
     __syncthreads();
 }
 
-template <int ITEMS, bool DEVICE>
+template <int ITEMS, bool DEVICE, bool RV>
 __global__ void __launch_bounds__(32 * cluster_max_warps(ITEMS))
 jacobi_cluster_kernel(const float* __restrict__ t,     // (B, n, n) symmetric
                       const int* __restrict__ tables,  // cluster_tables
@@ -400,10 +411,10 @@ jacobi_cluster_kernel(const float* __restrict__ t,     // (B, n, n) symmetric
       const float o10 = sub(mul(cb, r10), mul(sb, r11));
       const float o11 = add(mul(sb, r10), mul(cb, r11));
       // V^T <- R V^T on columns pb and pb + h.
-      const float w00 = sub(mul(cp, x[it][4]), mul(sp, x[it][6]));
-      const float w10 = add(mul(sp, x[it][4]), mul(cp, x[it][6]));
-      const float w01 = sub(mul(cp, x[it][5]), mul(sp, x[it][7]));
-      const float w11 = add(mul(sp, x[it][5]), mul(cp, x[it][7]));
+      const float w00 = vround<RV>(sub(mul(cp, x[it][4]), mul(sp, x[it][6])));
+      const float w10 = vround<RV>(add(mul(sp, x[it][4]), mul(cp, x[it][6])));
+      const float w01 = vround<RV>(sub(mul(cp, x[it][5]), mul(sp, x[it][7])));
+      const float w11 = vround<RV>(add(mul(sp, x[it][5]), mul(cp, x[it][7])));
       if (!(P.ok >> it & 1u)) continue;
       // The re-paired slots: rows to their blocks, columns in the row.
       const int e0 = P.d0[it] - po, e1 = P.d1[it] - po;
@@ -522,6 +533,7 @@ __host__ __device__ constexpr int kPi(int i) {
        : kH - 1;
 }
 
+template <bool RV>
 __global__ void __launch_bounds__(kWarps * 32, 4)
 jacobi_warp_kernel(const float* __restrict__ t,      // (B, 32, 32) symmetric
                    const int* __restrict__ tables,   // layout0[32] | unused
@@ -582,8 +594,8 @@ jacobi_warp_kernel(const float* __restrict__ t,      // (B, 32, 32) symmetric
       a[j] = sub(mul(cj, a0), mul(sj, a1));
       a[j + kH] = add(mul(sj, a0), mul(cj, a1));
       const float v0 = v[j], v1 = v[j + kH];
-      v[j] = sub(mul(cj, v0), mul(sj, v1));
-      v[j + kH] = add(mul(sj, v0), mul(cj, v1));
+      v[j] = vround<RV>(sub(mul(cj, v0), mul(sj, v1)));
+      v[j + kH] = vround<RV>(add(mul(sj, v0), mul(cj, v1)));
     }
     // Column mix of A: columns (lane % 16, lane % 16 + 16) with this
     // lane's own (c, s): left <- c*left - s*right, right <- s*left +
@@ -648,7 +660,7 @@ __host__ __device__ constexpr size_t pair_smem(int n) {
 // ITEMS: 2x2 blocks a thread mixes, one above the other 4 pair rows apart,
 // so a warp owns a (4 ITEMS) x 8 patch of blocks and needs 8 + 4 ITEMS
 // rotations. MIN_BLOCKS: blocks an SM is to hold (caps the registers).
-template <int N, int ITEMS, int MIN_BLOCKS>
+template <int N, int ITEMS, int MIN_BLOCKS, bool RV>
 __global__ void __launch_bounds__((N / 2) * (N / 2) / ITEMS, MIN_BLOCKS)
 jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
                    const int* __restrict__ tables,   // layout0[N] | repair_dst[N]
@@ -727,10 +739,12 @@ jacobi_pair_kernel(const float* __restrict__ t,      // (B, N, N) symmetric
       an[i1[it] * LD + k0] = sub(mul(cb, r10), mul(sb, r11));
       an[i1[it] * LD + k1] = add(mul(sb, r10), mul(cb, r11));
       // V^T <- R V^T on columns pb and pb + H, rows re-paired.
-      vn[i0[it] * LD + pb] = sub(mul(ca, v00), mul(sa, v10));
-      vn[i1[it] * LD + pb] = add(mul(sa, v00), mul(ca, v10));
-      vn[i0[it] * LD + pb + H] = sub(mul(ca, v01), mul(sa, v11));
-      vn[i1[it] * LD + pb + H] = add(mul(sa, v01), mul(ca, v11));
+      vn[i0[it] * LD + pb] = vround<RV>(sub(mul(ca, v00), mul(sa, v10)));
+      vn[i1[it] * LD + pb] = vround<RV>(add(mul(sa, v00), mul(ca, v10)));
+      vn[i0[it] * LD + pb + H] =
+          vround<RV>(sub(mul(ca, v01), mul(sa, v11)));
+      vn[i1[it] * LD + pb + H] =
+          vround<RV>(add(mul(sa, v01), mul(ca, v11)));
     }
     __syncthreads();
   };
@@ -782,12 +796,12 @@ constexpr int kPair48Items = 1, kPair48Blocks = 3;
 constexpr int kPair64Items = 4, kPair64Blocks = 3;
 constexpr int kPair80Items = 5, kPair80Blocks = 1;
 
-template <int N, int ITEMS, int MIN_BLOCKS>
+template <int N, int ITEMS, int MIN_BLOCKS, bool RV>
 int launch_pair(const void* t, const void* tables, void* w, void* v,
                 int batch, int sweeps, int descending, float eps,
                 void* stream) {
   constexpr size_t smem = pair_smem(N);
-  const auto kernel = jacobi_pair_kernel<N, ITEMS, MIN_BLOCKS>;
+  const auto kernel = jacobi_pair_kernel<N, ITEMS, MIN_BLOCKS, RV>;
   if (smem > kPlainSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -899,7 +913,7 @@ int cluster_held(int* held) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  const auto kern = jacobi_cluster_kernel<6, false>;
+  const auto kern = jacobi_cluster_kernel<6, false, false>;
   for (int c = 1; c <= kMaxCluster; ++c) {
     int v = dev < kHeldDevices
                 ? g_held[dev][c - 1].load(std::memory_order_relaxed) : 0;
@@ -928,12 +942,12 @@ int cluster_held(int* held) {
   return 0;
 }
 
-template <int ITEMS, bool DEVICE>
+template <int ITEMS, bool DEVICE, bool RV>
 int launch_cluster(const ClusterPlan& p, const void* t, const void* tables,
                    void* w, void* v, void* scratch, int batch, int n,
                    int rounds, int descending, float eps,
                    cudaStream_t stream) {
-  const auto kern = jacobi_cluster_kernel<ITEMS, DEVICE>;
+  const auto kern = jacobi_cluster_kernel<ITEMS, DEVICE, RV>;
   if (p.smem > kPlainSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
@@ -958,22 +972,23 @@ int launch_cluster(const ClusterPlan& p, const void* t, const void* tables,
   return (int)cudaGetLastError();
 }
 
+template <bool RV>
 int launch_cluster_shared(const ClusterPlan& p, const void* t,
                           const void* tables, void* w, void* v, int batch,
                           int n, int rounds, int descending, float eps,
                           cudaStream_t stream) {
   switch (p.items) {
     case 2:
-      return launch_cluster<2, false>(p, t, tables, w, v, nullptr, batch, n,
+      return launch_cluster<2, false, RV>(p, t, tables, w, v, nullptr, batch, n,
                                       rounds, descending, eps, stream);
     case 3:
-      return launch_cluster<3, false>(p, t, tables, w, v, nullptr, batch, n,
+      return launch_cluster<3, false, RV>(p, t, tables, w, v, nullptr, batch, n,
                                       rounds, descending, eps, stream);
     case 4:
-      return launch_cluster<4, false>(p, t, tables, w, v, nullptr, batch, n,
+      return launch_cluster<4, false, RV>(p, t, tables, w, v, nullptr, batch, n,
                                       rounds, descending, eps, stream);
     default:
-      return launch_cluster<6, false>(p, t, tables, w, v, nullptr, batch, n,
+      return launch_cluster<6, false, RV>(p, t, tables, w, v, nullptr, batch, n,
                                       rounds, descending, eps, stream);
   }
 }
@@ -1033,17 +1048,13 @@ extern "C" int gcc_jacobi_plan(int n, int batch, int* out) {
   return 0;
 }
 
-// tables: layout0[n] | repair destination[n] (the warp and pair kernels
-// read these), then for the cluster pair kernel the destination's and the
-// position's block and buffer row[n each] and the pair ranges[16]
-// (ops/jacobi.py cluster_tables, built for `cluster` blocks a matrix).
-// scratch: (batch, 4, n, LD) f32 where A and V^T are placed in the device
-// scratch, unused and may be null else. cluster, items: the cluster pair
-// kernel's blocks per matrix and 2x2 blocks per thread, 0 for the plan's.
-extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
-                                 void* v, void* scratch, int batch, int n,
-                                 int sweeps, int descending, float eps,
-                                 int cluster, int items, void* stream) {
+namespace {
+
+// gcc_jacobi_launch's body for one storage of V^T (RV: bf16-rounded).
+template <bool RV>
+int launch_jacobi(const void* t, const void* tables, void* w, void* v,
+                  void* scratch, int batch, int n, int sweeps, int descending,
+                  float eps, int cluster, int items, void* stream) {
   if (batch <= 0) return 0;
   if (sweeps < 0 || n % 2 != 0 || n < 4 || n > kMaxN)
     return (int)cudaErrorInvalidValue;
@@ -1052,19 +1063,20 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
   const bool fixed = n == kN || n == 48 || n == 64 || n == 80;
   if (fixed && (cluster != 0 || items != 0)) return (int)cudaErrorInvalidValue;
   if (n == kN) {
-    jacobi_warp_kernel<<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
+    jacobi_warp_kernel<RV>
+        <<<(batch + kWarps - 1) / kWarps, kWarps * 32, 0, st>>>(
         (const float*)t, (const int*)tables, (float*)w, (float*)v, batch,
         rounds, descending, eps);
     return (int)cudaGetLastError();
   }
   if (n == 48)
-    return launch_pair<48, kPair48Items, kPair48Blocks>(
+    return launch_pair<48, kPair48Items, kPair48Blocks, RV>(
         t, tables, w, v, batch, sweeps, descending, eps, stream);
   if (n == 64)
-    return launch_pair<64, kPair64Items, kPair64Blocks>(
+    return launch_pair<64, kPair64Items, kPair64Blocks, RV>(
         t, tables, w, v, batch, sweeps, descending, eps, stream);
   if (n == 80)
-    return launch_pair<80, kPair80Items, kPair80Blocks>(
+    return launch_pair<80, kPair80Items, kPair80Blocks, RV>(
         t, tables, w, v, batch, sweeps, descending, eps, stream);
   int held[kMaxCluster];
   int err = cluster_held(held);
@@ -1077,9 +1089,32 @@ extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
   // (held counts clusters at a block's most shared memory and threads).
   if (held[p.cluster - 1] == 0) return (int)cudaErrorLaunchOutOfResources;
   return p.device
-             ? launch_cluster<kDeviceItems, true>(p, t, tables, w, v, scratch,
-                                                  batch, n, rounds, descending,
-                                                  eps, st)
-             : launch_cluster_shared(p, t, tables, w, v, batch, n, rounds,
-                                     descending, eps, st);
+             ? launch_cluster<kDeviceItems, true, RV>(
+                   p, t, tables, w, v, scratch, batch, n, rounds, descending,
+                   eps, st)
+             : launch_cluster_shared<RV>(p, t, tables, w, v, batch, n, rounds,
+                                         descending, eps, st);
+}
+
+}  // namespace
+
+// tables: layout0[n] | repair destination[n] (the warp and pair kernels
+// read these), then for the cluster pair kernel the destination's and the
+// position's block and buffer row[n each] and the pair ranges[16]
+// (ops/jacobi.py cluster_tables, built for `cluster` blocks a matrix).
+// scratch: (batch, 4, n, LD) f32 where A and V^T are placed in the device
+// scratch, unused and may be null else. cluster, items: the cluster pair
+// kernel's blocks per matrix and 2x2 blocks per thread, 0 for the plan's.
+// v_bf16: round V^T to bf16 after each round's rotation (else f32).
+extern "C" int gcc_jacobi_launch(const void* t, const void* tables, void* w,
+                                 void* v, void* scratch, int batch, int n,
+                                 int sweeps, int descending, float eps,
+                                 int cluster, int items, int v_bf16,
+                                 void* stream) {
+  return v_bf16 ? launch_jacobi<true>(t, tables, w, v, scratch, batch, n,
+                                      sweeps, descending, eps, cluster, items,
+                                      stream)
+                : launch_jacobi<false>(t, tables, w, v, scratch, batch, n,
+                                       sweeps, descending, eps, cluster,
+                                       items, stream);
 }

@@ -13,6 +13,10 @@
 //   * polish f32 power steps, each followed by column-unit rows;
 //   * a final_ns-step Newton-Schulz finish in f32;
 //   * the 1e-20 floors of colunit and of the Gershgorin scale.
+// M comes in f32 or in bf16 (the reference's GCC_TPU_ADJ_DTYPE=bf16
+// operator, pe_pallas.py:49): a bf16 M is its own lo(M), and the f32 steps
+// widen it as they read it (m_at, ld_m4, stage_m4 below). The choice is a
+// flag the launch passes, read at M's loads only.
 //
 // Bound on Hopper: operations — about 28.4 MFLOP per graph at N = 128,
 // k = 32, 23.1 M of them bf16-input products and 5.3 M f32, against 64 KB
@@ -275,7 +279,8 @@ struct Ctx {
   float* red;       // (kp)
   float* scal;      // (1)
   float* stage;     // (kStages, kPanel, n) panels of f32 M; shares qlo0's bytes
-  const float* mg;  // device memory (n, n), f32
+  const float* mg;  // device memory (n, n): f32, or bf16 where mbf
+  bool mbf;         // M is stored in bf16 (read through ld_m4 / stage_m4)
   int tid, nthreads, warp, lane, nwarps;
   int cur;          // which bf16 copy holds lo(Q^T)
   __device__ __forceinline__ bf16* qlo(int which) const {
@@ -561,6 +566,43 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                :: "r"(d), "l"(src) : "memory");
 }
 
+// M's storage. The kernels take M in f32 or in bf16 (the reference's
+// GCC_TPU_ADJ_DTYPE=bf16 operator): `m` points at a graph's first element
+// either way, and `bf` says which. A bf16 M is its own bf16 copy (its
+// values convert to bf16 unchanged), and the f32 steps widen it as they
+// read it, so a bf16 M gives the result of the f32 M that holds the same
+// values, at half the bytes read.
+__device__ __forceinline__ const float* m_at(const float* m, bool bf,
+                                             size_t i) {
+  return bf ? reinterpret_cast<const float*>(
+                  reinterpret_cast<const bf16*>(m) + i)
+            : m + i;
+}
+
+// Four consecutive values of M from element i, as f32.
+__device__ __forceinline__ float4 ld_m4(const float* m, bool bf, size_t i) {
+  if (bf) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(
+        reinterpret_cast<const bf16*>(m) + i));
+    const float2 a = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(
+        *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    return make_float4(a.x, a.y, b.x, b.y);
+  }
+  return __ldg(reinterpret_cast<const float4*>(m + i));
+}
+
+// Four values of M from element i into shared memory at dst, as f32: an
+// f32 M by a 16-byte cp.async (the caller commits the group); a bf16 M by
+// a load widened as it lands and a plain store, done before the caller's
+// next barrier, as the cp.async it stands for is.
+__device__ __forceinline__ void stage_m4(float* dst, const float* m, bool bf,
+                                         size_t i) {
+  if (bf) *reinterpret_cast<float4*>(dst) = ld_m4(m, true, i);
+  else cp_async16(dst, m + i);
+}
+
 // Q^T <- Q^T M in f32. M streams from device memory through shared memory
 // in panels of kPanel rows (cp.async): the copy of panel p + 1 runs under
 // the FMAs on panel p, and no register waits on device memory.
@@ -581,9 +623,9 @@ __device__ void power_f32(Ctx<KT>& x) {
   auto copy_panel = [&](int p) {   // rows tr and tr + 8 of panel p
     if (live && p < panels) {
       float* dst = x.stage + (p % kStages) * kPanel * n + 4 * tc;
-      const float* src = x.mg + (size_t)p * kPanel * n + 4 * tc;
-      cp_async16(dst + tr * n, src + tr * n);
-      cp_async16(dst + (tr + 8) * n, src + (tr + 8) * n);
+      const size_t src = (size_t)p * kPanel * n + 4 * tc;
+      stage_m4(dst + tr * n, x.mg, x.mbf, src + tr * n);
+      stage_m4(dst + (tr + 8) * n, x.mg, x.mbf, src + (tr + 8) * n);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
@@ -798,6 +840,9 @@ pe_kernel(const float* __restrict__ m,    // (B, n, n)
           float* __restrict__ out,        // (B, n, k)
           Plan p, int rounds, int orth_every, int ns_steps, int polish,
           int final_ns, int lo) {
+  // lo: bit 0 the rounds in bf16, bit 1 M stored in bf16.
+  const bool mbf = lo & 2;
+  lo &= 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = p.n, k = p.k;
   constexpr int kp = 16 * KT;
@@ -820,7 +865,8 @@ pe_kernel(const float* __restrict__ m,    // (B, n, n)
   x.nwarps = blockDim.x >> 5;
   x.cur = 0;
   x.ne = n;
-  x.mg = m + (size_t)blockIdx.x * n * n;
+  x.mbf = mbf;
+  x.mg = m_at(m, mbf, (size_t)blockIdx.x * n * n);
   const float* qb = q0 + (size_t)blockIdx.x * n * k;
 
   if (lo) {
@@ -834,7 +880,7 @@ pe_kernel(const float* __restrict__ m,    // (B, n, n)
 #pragma unroll 4
     for (int idx = x.tid; idx < n * nq; idx += x.nthreads) {
       const int j = idx / nq, c4 = idx - j * nq;
-      const float4 v = __ldg(reinterpret_cast<const float4*>(x.mg) + idx);
+      const float4 v = ld_m4(x.mg, mbf, (size_t)4 * idx);
       if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
         ext = max(ext, max(j + 1, 4 * c4 + 4));
       __nv_bfloat162* d =
@@ -1092,7 +1138,8 @@ struct Big {
   bool one_buf;     // KT >= 4: one bf16 copy of Q^T (written behind a
                     // barrier) and the f32 Q^T in device memory, one copy
                     // for the cluster
-  const float* mg;  // device memory (n, n), f32
+  const float* mg;  // device memory (n, n): f32, or bf16 where mbf
+  bool mbf;         // M is stored in bf16 (read through ld_m4 / stage_m4)
   const unsigned char* mlo;   // device scratch: lo(M) in 512-byte tiles
   bf16* qlo0;       // two (kp, ldq) bf16 copies of Q^T, back to back, or one
   float* qf;        // (kp, ldf) f32 copy of Q^T; qlo0's bytes, or the scratch
@@ -1417,9 +1464,9 @@ __device__ void big_power_f32(Big<KT>& x, float (&acc)[2 * KT][4]) {
   auto copy_panel = [&](int p) {   // rows tr and tr + 8 of panel p
     if (live && p < panels) {
       float* dst = stage + (p % kStages) * kPanel * ldp + 4 * tc;
-      const float* src = x.mg + (size_t)p * kPanel * n + c0 + 4 * tc;
-      cp_async16(dst + tr * ldp, src + tr * n);
-      cp_async16(dst + (tr + 8) * ldp, src + (tr + 8) * n);
+      const size_t src = (size_t)p * kPanel * n + c0 + 4 * tc;
+      stage_m4(dst + tr * ldp, x.mg, x.mbf, src + tr * n);
+      stage_m4(dst + (tr + 8) * ldp, x.mg, x.mbf, src + (tr + 8) * n);
     }
     asm volatile("cp.async.commit_group;" ::: "memory");
   };
@@ -1691,6 +1738,9 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
                   unsigned char* scratch,         // (B, p.scratch)
                   BigPlan p, int rounds, int orth_every, int ns_steps,
                   int polish, int final_ns, int lo) {
+  // lo: bit 0 the rounds in bf16, bit 1 M stored in bf16.
+  const bool mbf = lo & 2;
+  lo &= 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cl = cg::this_cluster();
   constexpr int kp = 16 * KT;
@@ -1703,7 +1753,8 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
   x.one_buf = p.nbuf == 1;
   unsigned char* mlo = scratch + (size_t)graph * p.scratch;
   x.mlo = mlo;
-  x.mg = m + (size_t)graph * n * n;
+  x.mbf = mbf;
+  x.mg = m_at(m, mbf, (size_t)graph * n * n);
   x.qlo0 = reinterpret_cast<bf16*>(smem_raw);
   x.qf = x.single() ? reinterpret_cast<float*>(mlo + (size_t)n * n * 2)
                      : reinterpret_cast<float*>(smem_raw);
@@ -1732,7 +1783,7 @@ pe_cluster_kernel(const float* __restrict__ m,    // (B, n, n)
   for (int idx = x.rank * share + x.tid; idx < (x.rank + 1) * share;
        idx += kBigThreads) {
     const int j = idx / nq, c = 4 * (idx - j * nq);
-    const float4 v = __ldg(reinterpret_cast<const float4*>(x.mg) + idx);
+    const float4 v = ld_m4(x.mg, mbf, (size_t)4 * idx);
     if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
       ext = max(ext, max(j + 1, c + 4));
     if (lo) {
@@ -2012,7 +2063,8 @@ inline bool pe_general_plan(int n, int k, int batch, const int* held,
 struct Gx {
   int n, kp, ne;         // ne: live nodes, a multiple of 32
   int tid, rank, csize;  // this thread, this block in its cluster, blocks
-  const float* m;        // this graph's M (n, n), f32, as stored
+  const float* m;        // this graph's M (n, n) as stored: f32, or bf16
+  bool mbf;              //   where mbf (read through ld_m4 / stage_m4)
   bf16* mlo;             // (n, n) bf16 copy of M
   float* qf[2];          // (n, kp) f32 Q, double-buffered
   bf16* ql[2];           // (n, kp) bf16 Q, double-buffered
@@ -2198,10 +2250,12 @@ __device__ void gemm_lo(const Gx& x, const bf16* A, int lda, const bf16* B,
 
 // The same product in f32 on the CUDA cores (32-deep slices): A and B
 // f32, a thread owns rows 4 ty .. 4 ty + 3 by columns 4 tx .. 4 tx + 3 of
-// the tile; a warp's lanes take 4 rows of threads by 8 columns.
+// the tile; a warp's lanes take 4 rows of threads by 8 columns. a_bf: A is
+// stored in bf16 (a bf16 M), widened as its slices land.
 template <bool AK, class Epi>
 __device__ void gemm_f32(const Gx& x, const float* A, int lda, const float* B,
-                         int ldb, int M, int N, int K, bool upper, Epi epi) {
+                         int ldb, int M, int N, int K, bool upper, Epi epi,
+                         bool a_bf = false) {
   constexpr int bk = kGenBkF;
   const Tiles tl{(M + kGenBm - 1) / kGenBm, (N + kGenBn - 1) / kGenBn, upper};
   const int ntiles = tl.count();
@@ -2223,17 +2277,18 @@ __device__ void gemm_f32(const Gx& x, const float* A, int lda, const float* B,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int idx = tid + h * kGenThreads;
-        if (AK) {
-          const int kk = idx >> 5, mm = (idx & 31) * 4;
-          const bool ok = k0 + kk < K && m0 + mm < M;
-          cp_async16z(as + kk * kLdFk + mm,
-                      ok ? A + (size_t)(k0 + kk) * lda + m0 + mm : A, ok);
-        } else {
-          const int mm = idx >> 3, kk = (idx & 7) * 4;
-          const bool ok = m0 + mm < M && k0 + kk < K;
-          cp_async16z(as + mm * kLdFm + kk,
-                      ok ? A + (size_t)(m0 + mm) * lda + k0 + kk : A, ok);
-        }
+        // The slice's offset in A and in the stage, zeros where !ok.
+        const int kk = AK ? idx >> 5 : (idx & 7) * 4;
+        const int mm = AK ? (idx & 31) * 4 : idx >> 3;
+        const bool ok = k0 + kk < K && m0 + mm < M;
+        const size_t at = AK ? (size_t)(k0 + kk) * lda + m0 + mm
+                             : (size_t)(m0 + mm) * lda + k0 + kk;
+        float* dst = as + (AK ? kk * kLdFk + mm : mm * kLdFm + kk);
+        if (a_bf)
+          *reinterpret_cast<float4*>(dst) =
+              ok ? ld_m4(A, true, at) : make_float4(0.f, 0.f, 0.f, 0.f);
+        else
+          cp_async16z(dst, ok ? A + at : A, ok);
       }
       const int kk = tid >> 4, nn = (tid & 15) * 4;
       const bool ok = k0 + kk < K && n0 + nn < N;
@@ -2486,7 +2541,7 @@ __device__ void gen_power_f32(Gx& x) {
                  [&](int c, int r, float v0, float v1) {
                    *reinterpret_cast<float2*>(nxt + c * kp + r) =
                        make_float2(v0, v1);
-                 });
+                 }, x.mbf);
   gsync(x);
   x.f ^= 1;
 }
@@ -2536,12 +2591,16 @@ pe_general_kernel(const float* __restrict__ m,    // (B, n, n)
                   unsigned char* scratch,         // (B, p.scratch)
                   GenPlan p, int rounds, int orth_every, int ns_steps,
                   int polish, int final_ns, int lo) {
+  // lo: bit 0 the rounds in bf16, bit 1 M stored in bf16.
+  const bool mbf = lo & 2;
+  lo &= 1;
   const int n = p.n, k = p.k, kp = p.kp, csize = p.cluster;
   const int graph = blockIdx.x / csize;
   Gx x;
   x.n = n; x.kp = kp;
   x.tid = threadIdx.x; x.rank = blockIdx.x - graph * csize; x.csize = csize;
-  x.m = m + (size_t)graph * n * n;
+  x.mbf = mbf;
+  x.m = m_at(m, mbf, (size_t)graph * n * n);
   unsigned char* sb = scratch + (size_t)graph * p.scratch;
   const size_t nn = (size_t)n * n, nkp = (size_t)n * kp, kk = (size_t)kp * kp;
   x.mlo = reinterpret_cast<bf16*>(sb);
@@ -2572,7 +2631,7 @@ pe_general_kernel(const float* __restrict__ m,    // (B, n, n)
   const int j0 = x.rank * n / csize, j1 = (x.rank + 1) * n / csize;
   for (int idx = j0 * nq + x.tid; idx < j1 * nq; idx += kGenThreads) {
     const int j = idx / nq, c = 4 * (idx - j * nq);
-    const float4 v = __ldg(reinterpret_cast<const float4*>(x.m) + idx);
+    const float4 v = ld_m4(x.m, mbf, (size_t)4 * idx);
     if (v.x != 0.f || v.y != 0.f || v.z != 0.f || v.w != 0.f)
       ext = max(ext, max(j + 1, c + 4));
     if (lo) {
@@ -2757,16 +2816,19 @@ extern "C" int gcc_pe_general_clusters(int cluster, int* count) {
 // scratch: (batch, plan[8]) bytes for the cluster layout (the bf16 copy of
 // M per graph, and with one bf16 copy of Q^T a block the f32 Q^T) and for
 // the general plan (bf16 M, f32 and bf16 Q and G); unused and may be null
-// else.
+// else. m_bf16: M is stored in bf16 (else f32); see m_at.
 extern "C" int gcc_pe_launch(const void* m, const void* q0, void* out,
                              void* scratch, int batch, int n, int k,
                              int iters, int orth_every, int ns_steps,
-                             int polish, int final_ns, int lo, void* stream) {
+                             int polish, int final_ns, int lo, int m_bf16,
+                             void* stream) {
   if (batch <= 0) return 0;
   if (orth_every <= 0 || ns_steps < 0 || polish < 0 || final_ns < 0)
     return (int)cudaErrorInvalidValue;
   const int rounds = max(1, iters / orth_every);
   cudaStream_t s = (cudaStream_t)stream;
+  // The kernels' flags word: bit 0 the rounds in bf16, bit 1 M in bf16.
+  lo = (lo ? 1 : 0) | (m_bf16 ? 2 : 0);
   Plan p;
   BigPlan g;
   GenPlan w;

@@ -10,6 +10,14 @@ degrees and the PE operator for every bucket. :func:`featurize_batch`
 subgraphs and builds the adjacency with one ``index_add_``, as the
 reference builds it outside any kernel on that path. Kernels 2 and 3
 compute the PE on both.
+
+``adj_dtype`` and ``v_dtype`` (``EncoderConfig.adj_dtype`` and
+``jacobi_v_dtype``; the reference's ``GCC_TPU_ADJ_DTYPE`` and
+``GCC_TPU_JACOBI_V_DTYPE``) store the adjacency chain and Kernel 3's Vᵀ
+in bf16. The degree feature follows each route as the reference's does:
+:func:`featurize_compact` takes the row sum in the adjacency's dtype
+(``featurize.py:128``: rounded to bf16, so an in-degree of 257 reads
+256), :func:`featurize_batch` in f32 (``featurize.py:41``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,7 @@ class BatchFeatures(NamedTuple):
     degrees: torch.Tensor    # (B, N) int32 in-degree (multiplicity counted)
     seed_flag: torch.Tensor  # (B, N) float32
     node_mask: torch.Tensor  # (B, N) float32
-    adj: torch.Tensor        # (B, N, N) float32 adjacency A[g, dst, src]
+    adj: torch.Tensor        # (B, N, N) adjacency A[g, dst, src], f32 or bf16
 
     def map(self, fn) -> "BatchFeatures":
         """Apply ``fn`` to every field (slicing, reshaping, moving)."""
@@ -45,7 +53,8 @@ class BatchFeatures(NamedTuple):
 
 def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
                     pe_method: str = "eigh", profile: str = "train",
-                    device="cuda") -> BatchFeatures:
+                    device="cuda", adj_dtype=torch.float32,
+                    v_dtype=torch.float32) -> BatchFeatures:
     """Upload a padded host batch and featurize it
     (``featurize.py:32-48``). ``profile`` selects the subspace PE's guard
     columns ("train" → 0, "eval" → 16); the eigh method ignores it."""
@@ -57,10 +66,10 @@ def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
     node_mask = up(batch.node_mask)
     adj = build_dense_adjacency(up(batch.edges_src), up(batch.edges_dst),
                                 up(batch.edge_weight), batch.batch_size,
-                                batch.n_max)
+                                batch.n_max, adj_dtype)
     pos = laplacian_positional_embedding(
         node_mask, up(batch.n_nodes), pos_size, adj=adj, method=pe_method,
-        profile=profile)
+        profile=profile, v_dtype=v_dtype)
     return BatchFeatures(pos=pos, degrees=node_degrees(adj).to(torch.int32),
                          seed_flag=up(batch.seed_flag), node_mask=node_mask,
                          adj=adj)
@@ -69,7 +78,8 @@ def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
 def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
                       id_bits: int, pos_size: int,
                       pe_method: str = "subspace",
-                      profile: str = "train") -> BatchFeatures:
+                      profile: str = "train", adj_dtype=torch.float32,
+                      v_dtype=torch.float32) -> BatchFeatures:
     """Featurize stacked compact wire segments (``featurize.py:76-134``).
 
     Args:
@@ -83,9 +93,10 @@ def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
     iota = torch.arange(n_max, device=meta.device, dtype=meta.dtype)
     seed_flag = (iota[None, :] == seed_pos[:, None]).to(torch.float32) \
         * node_mask
-    adj, m_shift, deg = fused_adjacency_featurize(edges, meta, n_max, id_bits)
+    adj, m_shift, deg = fused_adjacency_featurize(edges, meta, n_max, id_bits,
+                                                  adj_dtype)
     pos = laplacian_positional_embedding(node_mask, n_nodes, pos_size,
                                          m_shift, adj=adj, method=pe_method,
-                                         profile=profile)
+                                         profile=profile, v_dtype=v_dtype)
     return BatchFeatures(pos=pos, degrees=deg.to(torch.int32),
                          seed_flag=seed_flag, node_mask=node_mask, adj=adj)

@@ -25,6 +25,16 @@ port's Jacobi has one layout and no such argument.)
 ``normalized_adjacency`` and the shift that makes m_shift live in
 ``ops/aggregate.py``, beside Kernel 1's plain version, which composes
 them.
+
+The two storage levers of the reference (``GCC_TPU_ADJ_DTYPE``,
+``GCC_TPU_JACOBI_V_DTYPE``) are the adjacency's own dtype and the
+argument ``v_dtype``. With a bf16 adjacency M and m_shift are bf16:
+Kernel 2 takes m_shift as it is, and the f32 products of the finish
+widen it (``positional.py:280-290, 325-330``). ``v_dtype`` reaches both
+Jacobi finishes, the guarded whitening's and the Rayleigh–Ritz
+(``positional.py:313, 359``); an odd width's ``torch.linalg.eigh`` takes
+no lever, as in the reference. The eigh method decomposes a bf16 M
+widened to f32, where the reference's ``jnp.linalg.eigh`` refuses bf16.
 """
 
 from __future__ import annotations
@@ -112,6 +122,7 @@ def _dense_iterate(m_shift: torch.Tensor, q: torch.Tensor, iters: int,
         return _finite(torch.linalg.solve_triangular(
             low.transpose(1, 2), q, upper=True, left=False))
 
+    m_shift = m_shift.to(torch.float32)   # a bf16 operator widens in-read
     m_lo = _bf16_round(m_shift)
     q = orth_chol(q)
     for i in range(iters):
@@ -123,14 +134,17 @@ def _dense_iterate(m_shift: torch.Tensor, q: torch.Tensor, iters: int,
     return orth_chol(q)
 
 
-def _small_eigh(a: torch.Tensor, rr: str, sweeps: int):
+def _small_eigh(a: torch.Tensor, rr: str, sweeps: int,
+                v_dtype=torch.float32):
     """Eigenpairs of a batch of small symmetric matrices, descending: the
-    Jacobi kernel for an even width, ``torch.linalg.eigh`` for an odd one
-    or on request (the reference's ``GCC_TPU_PE_RR=eigh`` oracle)."""
+    Jacobi kernel for an even width (its Vᵀ stored in ``v_dtype``),
+    ``torch.linalg.eigh`` for an odd one or on request (the reference's
+    ``GCC_TPU_PE_RR=eigh`` oracle)."""
     if rr not in ("jacobi", "eigh"):
         raise ValueError(f"unknown Rayleigh-Ritz method: {rr!r}")
     if rr == "jacobi" and a.shape[-1] % 2 == 0:
-        return jacobi_eigh(a, sweeps=sweeps, descending=True)
+        return jacobi_eigh(a, sweeps=sweeps, descending=True,
+                           v_dtype=v_dtype)
     w, v = torch.linalg.eigh(a)
     return w.flip(-1), v.flip(-1)
 
@@ -170,12 +184,14 @@ def guarded_whitening(q: torch.Tensor, jitter: float, eigh,
 def subspace_topk(m_shift: torch.Tensor, node_mask: torch.Tensor, k: int,
                   guards: int = 0, iters: int = PE_ITERS,
                   orth_every: int = PE_ORTH_EVERY, rr: str = "jacobi",
-                  rr_sweeps: int = RR_SWEEPS) -> torch.Tensor:
+                  rr_sweeps: int = RR_SWEEPS,
+                  v_dtype=torch.float32) -> torch.Tensor:
     """Top-k (algebraic) eigenvectors of M from m_shift = M + I off the
-    padding (spectrum shifted to [0, 2], padding at shifted 0), by
-    subspace iteration and a Rayleigh–Ritz finish
+    padding (spectrum shifted to [0, 2], padding at shifted 0; f32 or
+    bf16), by subspace iteration and a Rayleigh–Ritz finish
     (positional.py:169-370). ``guards`` extra columns are iterated and
-    dropped after the rotation."""
+    dropped after the rotation; ``v_dtype`` is the Jacobi finishes' Vᵀ
+    storage."""
     n = node_mask.shape[1]
     k_keep = k
     # Guarded block width: even (the Jacobi pairs columns), ≤ n.
@@ -191,15 +207,15 @@ def subspace_topk(m_shift: torch.Tensor, node_mask: torch.Tensor, k: int,
         q = _dense_iterate(m_shift, q, iters, orth_every)
 
     if k > k_keep:
-        q = guarded_whitening(q, 1e-5,
-                              lambda s: _small_eigh(s, rr, rr_sweeps))
+        q = guarded_whitening(
+            q, 1e-5, lambda s: _small_eigh(s, rr, rr_sweeps, v_dtype))
 
     # Rayleigh–Ritz on m_shift: the +I shift changes neither eigenvectors
     # nor order, and q is zero on padding rows.
-    mq = torch.bmm(m_shift, q)
+    mq = torch.bmm(m_shift.to(torch.float32), q)
     t = torch.bmm(q.transpose(1, 2), mq)
     t = 0.5 * (t + t.transpose(1, 2))
-    _, u = _small_eigh(t, rr, rr_sweeps)
+    _, u = _small_eigh(t, rr, rr_sweeps, v_dtype)
     return torch.bmm(q, u[:, :, :k_keep])
 
 
@@ -211,19 +227,23 @@ def laplacian_positional_embedding(node_mask: torch.Tensor,
                                    profile: str = "train",
                                    guards: int | None = None,
                                    rr: str = "jacobi",
-                                   rr_sweeps: int = RR_SWEEPS
+                                   rr_sweeps: int = RR_SWEEPS,
+                                   v_dtype=torch.float32
                                    ) -> torch.Tensor:
     """(B, N, pos_size) positional embeddings (see module docstring;
     positional.py:76-166). The subspace method works on ``m_shift``
     (Kernel 1's output) or derives it from ``adj``; the eigh method needs
-    ``adj``. ``guards`` overrides the profile's guard count."""
+    ``adj``. ``guards`` overrides the profile's guard count; ``v_dtype``
+    is the Jacobi finishes' Vᵀ storage."""
     n_max = node_mask.shape[1]
     n_vec = min(pos_size, n_max)
     if method == "eigh":
         if adj is None:
             raise ValueError("the eigh PE method needs the adjacency")
-        # Ascending eigenvalues: the last n_vec columns, largest first.
-        _, vecs = torch.linalg.eigh(normalized_adjacency(adj, node_mask))
+        # Ascending eigenvalues: the last n_vec columns, largest first. A
+        # bf16 M is decomposed widened (the reference's eigh refuses bf16).
+        _, vecs = torch.linalg.eigh(
+            normalized_adjacency(adj, node_mask).to(torch.float32))
         top = vecs[:, :, n_max - n_vec:].flip(-1)
     elif method == "subspace":
         if m_shift is None:
@@ -235,7 +255,7 @@ def laplacian_positional_embedding(node_mask: torch.Tensor,
         top = subspace_topk(
             m_shift, node_mask, n_vec,
             guards=pe_guards(profile) if guards is None else guards,
-            rr=rr, rr_sweeps=rr_sweeps)
+            rr=rr, rr_sweeps=rr_sweeps, v_dtype=v_dtype)
     else:
         raise ValueError(f"unknown PE method: {method}")
     return canonical_pe(top, n_nodes, node_mask, pos_size)

@@ -78,7 +78,9 @@ def _encode_chunks(cfg: TrainConfig, enc: GraphEncoder, subgraphs, n_max,
         feats = featurize_batch(
             batch_subgraphs(chunk, n_max=n_max, e_max=e_max),
             cfg.encoder.positional_embedding_size,
-            pe_method=cfg.encoder.pe_method, profile="eval", device=device)
+            pe_method=cfg.encoder.pe_method, profile="eval", device=device,
+            adj_dtype=cfg.encoder.adj_dtype,
+            v_dtype=cfg.encoder.jacobi_v_dtype)
         yield enc(feats, return_all_outputs=return_all_outputs), keep
 
 

@@ -5,7 +5,10 @@
   python -m gcc_tpu_torch.instruments embed --ckpt DIR/<run>/current --out EMB
   python -m gcc_tpu_torch.instruments score --in EMB
 
-``pretrain``, ``finetune`` and ``embed`` run the encoder (``--device``,
+``pretrain``, ``finetune`` and ``embed`` take the storage levers
+``--adj-dtype`` and ``--jacobi-v-dtype`` (float32 or bfloat16; omitted,
+``finetune`` and ``embed`` keep the checkpoint's) and run the encoder
+(``--device``,
 default ``cuda``). ``embed`` writes one ``.npz`` per frozen-embedding
 instrument (role, graph, sim): its embeddings or readouts, its labels or
 correspondence arrays, the fixture's parameters and hash and the host
@@ -25,6 +28,7 @@ import sys
 
 import numpy as np
 
+from gcc_tpu_torch.cli import add_lever_flags
 from gcc_tpu_torch.instruments import graph_families, role, similarity
 
 INSTRUMENTS = ("role", "graph", "sim")
@@ -35,16 +39,20 @@ ROLE_BUCKET, GRAPH_BUCKET, SIM_BUCKET = (256, 2048), (256, 8192), (256, 2048)
 
 def embed(ckpt: str, out_dir: str, which=INSTRUMENTS, blocks: int = 120,
           graphs_per_class: int = 60, sim_n: int = 1000, log_fn=print,
-          device="cuda") -> dict:
+          device="cuda", adj_dtype: str | None = None,
+          jacobi_v_dtype: str | None = None) -> dict:
     """Write ``out_dir/<instrument>.npz`` for each of ``which``; returns
-    {instrument: {"path", "sample_s"?, "encode_s"}}."""
+    {instrument: {"path", "sample_s"?, "encode_s"}}. The storage levers,
+    where given, replace the checkpoint's."""
+    from gcc_tpu_torch.config import with_levers
     from gcc_tpu_torch.training.checkpoint import load_config, load_encoder
 
     unknown = set(which) - set(INSTRUMENTS)
     if unknown:
         raise ValueError(f"unknown instruments {sorted(unknown)}; known: "
                          f"{INSTRUMENTS}")
-    cfg = load_config(os.path.dirname(ckpt))
+    cfg = with_levers(load_config(os.path.dirname(ckpt)), adj_dtype,
+                      jacobi_v_dtype)
     enc = load_encoder(ckpt, cfg, device=device)
     os.makedirs(out_dir, exist_ok=True)
     done = {}
@@ -164,6 +172,7 @@ def main(argv=None) -> None:
     p.add_argument("--corpus", default=None,
                    help="corpus directory (made there unless present; "
                         "default OUT/corpus)")
+    add_lever_flags(p)
     p.add_argument("--diverse", action="store_true",
                    help="the family-diverse corpus (the reference's -div arm)")
     p.add_argument("--device", default="cuda")
@@ -178,6 +187,7 @@ def main(argv=None) -> None:
     p.add_argument("--arms", nargs="+", default=["pretrained", "scratch"])
     p.add_argument("--out", default=None, help="JSON file to write")
     p.add_argument("--device", default="cuda")
+    add_lever_flags(p)
 
     p = sub.add_parser("embed", help="frozen embeddings of the instruments")
     p.add_argument("--ckpt", required=True)
@@ -187,6 +197,7 @@ def main(argv=None) -> None:
     p.add_argument("--graphs-per-class", type=int, default=60)
     p.add_argument("--sim-n", type=int, default=1000)
     p.add_argument("--device", default="cuda")
+    add_lever_flags(p)
 
     p = sub.add_parser("score", help="score embed's files (scikit-learn)")
     p.add_argument("--in", dest="in_dir", required=True)
@@ -197,7 +208,9 @@ def main(argv=None) -> None:
         from gcc_tpu_torch.instruments.pretrain import pretrain
 
         summary = pretrain(args.out, args.epochs, args.seed, args.corpus,
-                           args.diverse, log_fn=log, device=args.device)
+                           args.diverse, log_fn=log, device=args.device,
+                           adj_dtype=args.adj_dtype or "float32",
+                           jacobi_v_dtype=args.jacobi_v_dtype or "float32")
         with open(os.path.join(summary["run_dir"], "metrics.jsonl")) as f:
             last = json.loads(f.readlines()[-1])
         summary["last_step_loss"] = last["loss"]
@@ -208,11 +221,13 @@ def main(argv=None) -> None:
         run_finetune_instrument(args.ckpt, args.blocks, args.epochs,
                                 args.folds, args.n_max, args.e_max,
                                 args.arms, args.out, log_fn=log,
-                                device=args.device)
+                                device=args.device, adj_dtype=args.adj_dtype,
+                                jacobi_v_dtype=args.jacobi_v_dtype)
     elif args.cmd == "embed":
         embed(args.ckpt, args.out, args.which.split(","), args.blocks,
               graphs_per_class=args.graphs_per_class, sim_n=args.sim_n,
-              log_fn=log, device=args.device)
+              log_fn=log, device=args.device, adj_dtype=args.adj_dtype,
+              jacobi_v_dtype=args.jacobi_v_dtype)
     else:
         results = score(args.in_dir, log_fn=log)
         out = os.path.join(args.in_dir, "scores.json")

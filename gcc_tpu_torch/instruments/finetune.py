@@ -30,11 +30,15 @@ ARMS = ("pretrained", "scratch")
 def run_finetune_instrument(ckpt: str, blocks: int = 60, epochs: int = 10,
                             folds=(0,), n_max: int = 256, e_max: int = 2048,
                             arms=ARMS, out: str | None = None,
-                            log_fn=print, device="cuda") -> dict:
+                            log_fn=print, device="cuda",
+                            adj_dtype: str | None = None,
+                            jacobi_v_dtype: str | None = None) -> dict:
     """Finetune each arm on role v2 at ``blocks`` for ``epochs`` on
     ``folds``; returns, and writes to ``out`` if given, the reference's
     JSON: {ckpt, blocks, epochs, folds, results: {arm: {mean, std,
-    folds}}}, plus each arm's wall seconds under ``wall``."""
+    folds}}}, plus each arm's wall seconds under ``wall``. The storage
+    levers, where given, replace the checkpoint's."""
+    from gcc_tpu_torch.config import with_levers
     from gcc_tpu_torch.device import resolve_device
     from gcc_tpu_torch.training.checkpoint import load_checkpoint, load_config
     from gcc_tpu_torch.training.finetune import (
@@ -54,8 +58,9 @@ def run_finetune_instrument(ckpt: str, blocks: int = 60, epochs: int = 10,
     folds = list(folds)
     log_fn(f"role-v2 finetune: {g.num_nodes} nodes, {y.shape[1]} classes, "
            f"{epochs} epochs, folds {folds}")
-    cfg = dataclasses.replace(load_config(os.path.dirname(ckpt)),
-                              epochs=epochs)
+    cfg = with_levers(dataclasses.replace(load_config(os.path.dirname(ckpt)),
+                                          epochs=epochs),
+                      adj_dtype, jacobi_v_dtype)
     data = NodeLabeledData(g, y, cfg, n_max=n_max, e_max=e_max)
     results, wall = {}, {}
     for arm in arms:

@@ -17,8 +17,11 @@ CORPUS_NODES, CORPUS_DEGREE = 100_000, 12
 STEPS_PER_CALL = 62
 
 
-def recipe(epochs: int = 100, seed: int = 0):
-    """(TrainConfig, PipelineConfig) of the recipe (``pe_ab.py:66-81``)."""
+def recipe(epochs: int = 100, seed: int = 0, adj_dtype: str = "float32",
+           jacobi_v_dtype: str = "float32"):
+    """(TrainConfig, PipelineConfig) of the recipe (``pe_ab.py:66-81``);
+    the storage levers are ``pe_ab.py``'s bf16 arm (its environment
+    variables, ``pe_ab.py:213-215``)."""
     from gcc_tpu_torch.config import (
         ContrastConfig,
         EncoderConfig,
@@ -35,7 +38,8 @@ def recipe(epochs: int = 100, seed: int = 0):
         num_workers=1,
         sampler=SamplerConfig(rw_hops=256),
         contrast=ContrastConfig(moco=True, nce_k=16384),
-        encoder=EncoderConfig(pe_method="subspace"),
+        encoder=EncoderConfig(pe_method="subspace", adj_dtype=adj_dtype,
+                              jacobi_v_dtype=jacobi_v_dtype),
     )
     pcfg = PipelineConfig(
         batch_size=32, n_max=256, e_max=2048, num_samples=2000,
@@ -64,7 +68,8 @@ def make_corpus(path: str, diverse: bool = False):
 
 def pretrain(out_dir: str, epochs: int = 100, seed: int = 0,
              corpus: str | None = None, diverse: bool = False,
-             log_fn=print, device="cuda") -> dict:
+             log_fn=print, device="cuda", adj_dtype: str = "float32",
+             jacobi_v_dtype: str = "float32") -> dict:
     """Run the recipe for ``epochs``; returns run_pretrain's summary
     (its ``run_dir`` holds ``current`` and ``metrics.jsonl``). The corpus
     defaults to ``out_dir/corpus`` (``corpus_diverse`` with ``diverse``)."""
@@ -75,6 +80,6 @@ def pretrain(out_dir: str, epochs: int = 100, seed: int = 0,
     corpus = corpus or os.path.join(
         out_dir, "corpus_diverse" if diverse else "corpus")
     make_corpus(corpus, diverse)
-    cfg, pcfg = recipe(epochs, seed)
+    cfg, pcfg = recipe(epochs, seed, adj_dtype, jacobi_v_dtype)
     return run_pretrain(cfg, corpus, out_dir, pcfg=pcfg, log_fn=log_fn,
                         steps_per_call=STEPS_PER_CALL, device=device)

@@ -11,6 +11,25 @@ tensor it launches ``csrc/featurize.cu``; on a CPU tensor it runs
 :func:`fused_adjacency_featurize_plain`, the same function as plain
 PyTorch (``build_dense_adjacency_compact`` → ``normalized_adjacency`` →
 the +I shift of the PE operator). There is no other route.
+
+Storage dtype. The reference's ``GCC_TPU_ADJ_DTYPE=bf16`` stores the
+adjacency chain — the adjacency and the PE operator built from it — in
+bf16 (``gcc_tpu/ops/aggregate.py:30-45``); here every builder takes it as
+``dtype`` (``EncoderConfig.adj_dtype``; float32 by default). The
+reference rounds in these places, and so does the port:
+
+* the compact builder scatters +1 increments straight into bf16, which
+  counts exactly up to 256 and stays at 256 past it (256 + 1 rounds back
+  to 256): an entry is min(count, 256);
+* the padded builder counts in integers and casts once;
+* the normalized operator is computed in f32 from the stored adjacency
+  and rounded once; the shift of m_shift adds the pin and +I to the
+  rounded operator in f32 and rounds again, so a real row's diagonal is
+  bf16(bf16(a_vv·s_v²) + 1);
+* degrees used for the normalization are f32 sums of the stored entries,
+  and the train route's degree feature is that sum rounded to bf16
+  (``adj.sum(axis=2)`` in the adjacency dtype, ``featurize.py:128``);
+* ``aggregate_sum_dense`` rounds h to bf16 and sums in f32.
 """
 
 from __future__ import annotations
@@ -19,21 +38,43 @@ import ctypes
 
 import torch
 
+from gcc_tpu_torch.config import STORAGE_DTYPES as _STORAGE_NAMES
 from gcc_tpu_torch.ops import build as _build
 
 # Padding nodes get this on the diagonal of M so their eigenvalues sit
 # strictly below spec(M) ⊆ [-1, 1] and never enter the top-k.
 PAD_EIGENVALUE = -2.0
+# The storage dtypes of the adjacency chain and of Kernel 3's V, by the
+# names the configuration and the command line use.
+STORAGE_DTYPES = dict(zip(_STORAGE_NAMES, (torch.float32, torch.bfloat16)))
+# A bf16 count past this no longer moves under a +1 increment.
+BF16_COUNT_LIMIT = 256.0
+
+
+def storage_dtype(dtype) -> torch.dtype:
+    """torch.float32 or torch.bfloat16, from a dtype or its name
+    ("float32", "bfloat16"); raises on anything else."""
+    if isinstance(dtype, torch.dtype):
+        if dtype in STORAGE_DTYPES.values():
+            return dtype
+    elif dtype in STORAGE_DTYPES:
+        return STORAGE_DTYPES[dtype]
+    raise ValueError(f"storage dtype is one of {sorted(STORAGE_DTYPES)}, "
+                     f"got {dtype!r}")
 
 
 def build_dense_adjacency_compact(edges: torch.Tensor, n_edges: torch.Tensor,
-                                  n_max: int, id_bits: int) -> torch.Tensor:
-    """(S·B, N, N) float32 adjacency A[g, dst, src] straight from compact
-    wire edges (``gcc_tpu/ops/aggregate.py:102-156``).
+                                  n_max: int, id_bits: int,
+                                  dtype=torch.float32) -> torch.Tensor:
+    """(S·B, N, N) adjacency A[g, dst, src] in ``dtype`` straight from
+    compact wire edges (``gcc_tpu/ops/aggregate.py:102-156``).
 
     edges: (S, E_tot) packed ``src | dst << id_bits`` (int32); graph j of
     segment s owns slots [cumsum - count, cumsum) of its row, and slots
-    past the segment's edge total are ignored. n_edges: (S, B)."""
+    past the segment's edge total are ignored. n_edges: (S, B). In bf16
+    an entry is min(count, 256), as the reference's bf16 scatter of +1
+    increments leaves it."""
+    dtype = storage_dtype(dtype)
     s, e_tot = edges.shape
     b = n_edges.shape[1]
     cum = torch.cumsum(n_edges.to(torch.int64), dim=1)               # (S, B)
@@ -52,51 +93,66 @@ def build_dense_adjacency_compact(edges: torch.Tensor, n_edges: torch.Tensor,
     tgt = flat[live]
     adj.index_add_(0, tgt, torch.ones(tgt.shape, dtype=torch.float32,
                                       device=edges.device))
-    return adj.view(s * b, n_max, n_max)
+    adj = adj.view(s * b, n_max, n_max)
+    if dtype == torch.bfloat16:
+        adj = torch.clamp_max(adj, BF16_COUNT_LIMIT).to(dtype)
+    return adj
 
 
 def build_dense_adjacency(edges_src: torch.Tensor, edges_dst: torch.Tensor,
                           edge_weight: torch.Tensor, batch_size: int,
-                          n_max: int) -> torch.Tensor:
-    """(B, N, N) float32 adjacency A[b, v, u] = Σ weight of edges u→v
+                          n_max: int, dtype=torch.float32) -> torch.Tensor:
+    """(B, N, N) adjacency A[b, v, u] = Σ weight of edges u→v in ``dtype``
     from the flat padded edge list of a ``PaddedSubgraphBatch``
     (``gcc_tpu/ops/aggregate.py:66-99``; flat node index b·N + i, padding
-    edges carry weight 0). One ``index_add_``: this path has no kernel in
-    the reference either."""
+    edges carry weight 0): summed in f32, cast once, as the reference
+    casts its integer counts. One ``index_add_``: this path has no kernel
+    in the reference either."""
     flat = edges_dst.to(torch.int64) * n_max + edges_src.to(torch.int64) % n_max
     adj = torch.zeros(batch_size * n_max * n_max, dtype=torch.float32,
                       device=edges_src.device)
     adj.index_add_(0, flat, edge_weight.to(torch.float32))
-    return adj.view(batch_size, n_max, n_max)
+    return adj.view(batch_size, n_max, n_max).to(storage_dtype(dtype))
 
 
 def node_degrees(adj: torch.Tensor) -> torch.Tensor:
-    """(B, N) in-degree (multiplicity counted) as adjacency row sums —
-    the reference's ``subg.in_degrees()``."""
+    """(B, N) in-degree (multiplicity counted) as adjacency row sums in
+    f32, whatever the adjacency's dtype — the reference's
+    ``subg.in_degrees()`` (``aggregate.py:226-229``)."""
     return adj.sum(dim=2, dtype=torch.float32)
+
+
+def compact_degrees(adj: torch.Tensor) -> torch.Tensor:
+    """The train route's degree feature: the f32 row sum rounded to the
+    adjacency's dtype, as ``adj.sum(axis=2)`` in that dtype gives it
+    (``featurize.py:128``: JAX sums bf16 in f32 and rounds once). Returned
+    in f32: a bf16 in-degree of 257 reads 256, 259 reads 260."""
+    return node_degrees(adj).to(adj.dtype).to(torch.float32)
 
 
 def normalized_adjacency(adj: torch.Tensor,
                          node_mask: torch.Tensor) -> torch.Tensor:
     """M = D^-1/2 A D^-1/2 with degree clipped at 1, padding diagonal
-    pinned at -2 (``gcc_tpu/features/positional.py:55-73``)."""
+    pinned at -2 (``gcc_tpu/features/positional.py:55-73``): computed in
+    f32 and stored in the adjacency's dtype."""
     deg = node_degrees(adj)
     inv_sqrt = torch.rsqrt(torch.clamp_min(deg, 1.0))
-    m = adj * inv_sqrt[:, :, None] * inv_sqrt[:, None, :]
+    m = adj.to(torch.float32) * inv_sqrt[:, :, None] * inv_sqrt[:, None, :]
     n = node_mask.shape[1]
     eye = torch.eye(n, dtype=m.dtype, device=m.device)
     pad_diag = (1.0 - node_mask) * PAD_EIGENVALUE
-    return m + pad_diag[:, :, None] * eye
+    return (m + pad_diag[:, :, None] * eye).to(adj.dtype)
 
 
 def shifted_operator(m: torch.Tensor, node_mask: torch.Tensor) -> torch.Tensor:
     """m_shift = M + I on real rows, 0 on the padding diagonal: the -2
     pin moves to -1, then the +I shift sends it to 0 (``_subspace_topk``,
-    ``gcc_tpu/features/positional.py:199-206``)."""
+    ``gcc_tpu/features/positional.py:199-206``): added in f32 to the
+    stored M and stored in its dtype."""
     n = node_mask.shape[1]
-    eye = torch.eye(n, dtype=m.dtype, device=m.device)
+    eye = torch.eye(n, dtype=torch.float32, device=m.device)
     pad = 1.0 - node_mask
-    return m + pad[:, :, None] * eye + eye
+    return (m.to(torch.float32) + pad[:, :, None] * eye + eye).to(m.dtype)
 
 
 def node_mask_from_meta(meta: torch.Tensor, n_max: int) -> torch.Tensor:
@@ -107,17 +163,21 @@ def node_mask_from_meta(meta: torch.Tensor, n_max: int) -> torch.Tensor:
 
 
 def fused_adjacency_featurize_plain(edges: torch.Tensor, meta: torch.Tensor,
-                                    n_max: int, id_bits: int):
-    """Plain PyTorch version of Kernel 1: (adj, m_shift, deg) with
-    adj, m_shift (S·B, N, N) float32 and deg (S·B, N) float32."""
-    adj = build_dense_adjacency_compact(edges, meta[:, 1, :], n_max, id_bits)
+                                    n_max: int, id_bits: int,
+                                    dtype=torch.float32):
+    """Plain PyTorch version of Kernel 1: (adj, m_shift, deg) with adj,
+    m_shift (S·B, N, N) in ``dtype`` and deg (S·B, N) float32, the train
+    route's degree feature (:func:`compact_degrees`: exact in f32, rounded
+    to bf16 in bf16)."""
+    adj = build_dense_adjacency_compact(edges, meta[:, 1, :], n_max, id_bits,
+                                        dtype)
     node_mask = node_mask_from_meta(meta, n_max)
     m_shift = shifted_operator(normalized_adjacency(adj, node_mask),
                                node_mask)
-    return adj, m_shift, node_degrees(adj)
+    return adj, m_shift, compact_degrees(adj)
 
 
-_FEATURIZE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_FEATURIZE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def _featurize_lib() -> ctypes.CDLL:
@@ -128,13 +188,16 @@ def _featurize_lib() -> ctypes.CDLL:
 
 
 def fused_adjacency_featurize(edges: torch.Tensor, meta: torch.Tensor,
-                              n_max: int, id_bits: int):
+                              n_max: int, id_bits: int, dtype=torch.float32):
     """Kernel 1 wrapper. edges (S, E_tot) int32 packed, meta (S, 3, B)
-    int32 → (adj, m_shift, deg). CUDA tensors launch
-    ``csrc/featurize.cu`` (and count one launch); CPU tensors run
+    int32 → (adj, m_shift, deg), adj and m_shift in ``dtype`` (float32 or
+    bfloat16), deg float32. CUDA tensors launch ``csrc/featurize.cu`` (and
+    count one launch); CPU tensors run
     :func:`fused_adjacency_featurize_plain`."""
+    dtype = storage_dtype(dtype)
     if edges.device.type == "cpu":
-        return fused_adjacency_featurize_plain(edges, meta, n_max, id_bits)
+        return fused_adjacency_featurize_plain(edges, meta, n_max, id_bits,
+                                               dtype)
     if edges.device.type != "cuda":
         raise ValueError(f"unsupported device {edges.device}")
     if edges.dtype != torch.int32 or meta.dtype != torch.int32:
@@ -151,7 +214,7 @@ def fused_adjacency_featurize(edges: torch.Tensor, meta: torch.Tensor,
     s, e_tot = edges.shape
     b = meta.shape[2]
     dev = edges.device
-    adj = torch.empty((s * b, n_max, n_max), dtype=torch.float32, device=dev)
+    adj = torch.empty((s * b, n_max, n_max), dtype=dtype, device=dev)
     m_shift = torch.empty_like(adj)
     deg = torch.empty((s * b, n_max), dtype=torch.float32, device=dev)
     lib = _featurize_lib()
@@ -159,6 +222,7 @@ def fused_adjacency_featurize(edges: torch.Tensor, meta: torch.Tensor,
         err = lib.gcc_featurize_launch(
             edges.data_ptr(), meta.data_ptr(), adj.data_ptr(),
             m_shift.data_ptr(), deg.data_ptr(), s, e_tot, b, n_max, id_bits,
+            1 if dtype == torch.bfloat16 else 0,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "featurize")
     fused_adjacency_featurize.launches += 1
@@ -169,7 +233,16 @@ fused_adjacency_featurize.launches = 0
 
 
 def aggregate_sum_dense(h: torch.Tensor, adj: torch.Tensor) -> torch.Tensor:
-    """Batched A @ h: out[g, v] = Σ_u A[g, v, u] h[g, u]."""
+    """Batched A @ h: out[g, v] = Σ_u A[g, v, u] h[g, u], float32.
+
+    With a bf16 adjacency h is rounded to bf16 too and the products are
+    summed in f32 (``aggregate.py:171-184``): both operands are widened
+    first, so the product runs in f32 (a bf16 ``bmm`` would round its
+    output). Autograd rounds the gradient of h to bf16 on its way back
+    through the cast, as JAX's VJP of the convert does."""
+    if adj.dtype == torch.bfloat16:
+        return torch.bmm(adj.to(torch.float32),
+                         h.to(torch.bfloat16).to(torch.float32))
     return torch.bmm(adj, h)
 
 

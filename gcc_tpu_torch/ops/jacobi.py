@@ -33,6 +33,14 @@ device scratch that the wrapper allocates. The wrapper builds the
 kernel's tables once per width and cluster (:func:`cluster_tables`).
 All round every operation as the plain version does, in its order, so
 all agree with it bit for bit.
+
+``v_dtype`` (``EncoderConfig.jacobi_v_dtype``; the reference's
+``GCC_TPU_JACOBI_V_DTYPE=bf16``, ``gcc_tpu/ops/jacobi.py:151-168``):
+with bfloat16, each round rotates Vᵀ in f32 and rounds the result to
+bf16 before it is stored; the output v is f32. A and the eigenvalues
+never read Vᵀ, so they are bit for bit those of the f32 run. The three
+kernels take it as a template flag and keep Vᵀ in f32 storage holding
+the rounded values.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import numpy as np
 import torch
 
 from gcc_tpu_torch.ops import build as _build
+from gcc_tpu_torch.ops.aggregate import storage_dtype
 
 
 def unsorted_tournament(n: int) -> tuple[np.ndarray, np.ndarray]:
@@ -120,11 +129,13 @@ def sort_eig(w: torch.Tensor, v: torch.Tensor, descending: bool):
 
 
 def jacobi_eigh_plain(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
-                      descending: bool = False):
+                      descending: bool = False, v_dtype=torch.float32):
     """Plain PyTorch version of Kernel 3 (the "lane" layout of
     ``gcc_tpu.ops.jacobi.jacobi_eigh``). a: (..., n, n) symmetric float32,
     n even. Returns (w, v): w (..., n) ascending (descending=True flips),
-    v (..., n, n) with eigenvectors in columns."""
+    v (..., n, n) with eigenvectors in columns. ``v_dtype`` bfloat16
+    rounds Vᵀ to bf16 after every round's f32 rotation."""
+    round_v = storage_dtype(v_dtype) == torch.bfloat16
     n = a.shape[-1]
     h = n // 2
     layout0, pi = unsorted_tournament(n)
@@ -149,6 +160,8 @@ def jacobi_eigh_plain(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
         a = torch.cat([cc * al - sc * ar, sc * al + cc * ar], dim=-1)
         ve, vo = vt[..., :h, :], vt[..., h:, :]
         vt = torch.cat([ce * ve - se * vo, se * ve + ce * vo], dim=-2)
+        if round_v:
+            vt = vt.to(torch.bfloat16).to(torch.float32)
         # re-pair for the next round: new[i] = old[pi[i]]
         a = a.index_select(-2, pi_t).index_select(-1, pi_t)
         vt = vt.index_select(-2, pi_t)
@@ -161,7 +174,7 @@ def jacobi_eigh_plain(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
 
 
 _JACOBI_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 _tables: dict = {}
 _held: dict = {}
 
@@ -410,29 +423,31 @@ def _check_input(a: torch.Tensor) -> dict:
 
 
 def jacobi_eigh(a: torch.Tensor, sweeps: int = 5, eps: float = 1e-12,
-                descending: bool = False):
+                descending: bool = False, v_dtype=torch.float32):
     """Kernel 3 wrapper: batched symmetric eigendecomposition, sorted.
     a: (B, n, n) float32, n even ≤ 832 (32 on the train path, 48 for the
     eval profile's guarded finish; 64 and 80 with PE 64). CUDA tensors
     launch ``csrc/jacobi.cu`` (one launch counted: the warp-per-matrix
     kernel at n = 32, the thread-per-2x2-block kernel at n = 48, 64 and
     80, the cluster pair kernel at any other n, on the plan's cluster and
-    items a thread); CPU tensors run :func:`jacobi_eigh_plain`."""
+    items a thread); CPU tensors run :func:`jacobi_eigh_plain`.
+    ``v_dtype``: float32 or bfloat16 (Vᵀ rounded each round)."""
     if a.device.type == "cpu":
-        return jacobi_eigh_plain(a, sweeps, eps, descending)
+        return jacobi_eigh_plain(a, sweeps, eps, descending, v_dtype)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")
     _check_input(a)
-    return _launch(a, sweeps, eps, descending)
+    return _launch(a, sweeps, eps, descending, v_dtype=v_dtype)
 
 
 def _launch(a: torch.Tensor, sweeps: int, eps: float, descending: bool,
-            cluster: int = 0, items: int = 0):
+            cluster: int = 0, items: int = 0, v_dtype=torch.float32):
     """Launch ``csrc/jacobi.cu`` on the CUDA tensor a (B, n, n) float32,
     counted in ``jacobi_eigh.launches``. ``cluster`` and ``items`` force
     the cluster pair kernel's blocks per matrix and 2×2 blocks a thread
     (0: the plan's); the card tests and ``ops/jacobi_instances.py`` sweep
-    them."""
+    them. ``v_dtype`` bfloat16 launches the kernels' bf16-V variants."""
+    v_bf16 = storage_dtype(v_dtype) == torch.bfloat16
     b, n, _ = a.shape
     plan = jacobi_launch_plan(n, b, cluster_held(a.device), cluster, items)
     a = a.contiguous()
@@ -448,6 +463,7 @@ def _launch(a: torch.Tensor, sweeps: int, eps: float, descending: bool,
             scratch.data_ptr() if scratch.numel() else None,
             b, n, sweeps, 1 if descending else 0, eps,
             0 if fixed else plan["cluster"], 0 if fixed else plan["items"],
+            1 if v_bf16 else 0,
             torch.cuda.current_stream(a.device).cuda_stream)
     _build.check(err, "jacobi")
     jacobi_eigh.launches += 1

@@ -54,6 +54,14 @@ kernel. The plans by width:
   triangle and mirrored, so it is symmetric bit for bit.
 
 Larger N or k raises.
+
+M may be float32 or bfloat16 (the reference's ``GCC_TPU_ADJ_DTYPE=bf16``
+stores the operator in bf16, ``gcc_tpu/ops/pe_pallas.py:49``). A bf16 M
+is its own bf16 copy: the rounds take it as it is, and the f32 polish and
+finish widen it as they read it, so the result is that of the f32 M that
+holds the same values. Every plan reads a bf16 M as it reads an f32 one,
+at half the bytes: the copy into the rounds' bf16 tiles converts nothing,
+and the f32 panels of the polish widen each value as it lands.
 """
 
 from __future__ import annotations
@@ -113,9 +121,10 @@ def pe_subspace_iterate_plain(m: torch.Tensor, q0: torch.Tensor,
                               ns_steps: int = 4, power_lo: bool = True,
                               polish: int = 2, final_ns: int = 8
                               ) -> torch.Tensor:
-    """Plain PyTorch version of Kernel 2. m (B, N, N), q0 (B, N, k) →
-    (B, N, k). ``power_lo`` selects bf16 inputs for the round products
-    (the production setting); polish and the final NS are f32."""
+    """Plain PyTorch version of Kernel 2. m (B, N, N) float32 or bfloat16
+    (widened: the values are what count), q0 (B, N, k) → (B, N, k).
+    ``power_lo`` selects bf16 inputs for the round products (the
+    production setting); polish and the final NS are f32."""
     rounds = max(1, iters // orth_every)
     ident = lambda x: x  # noqa: E731
     lo = _bf16_round if power_lo else ident
@@ -317,7 +326,7 @@ def pe_launch_plan(n: int, k: int, batch: int = 1,
     return _cluster_plan(n_pad, kp, name or "streamed")
 
 
-_PE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+_PE_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
 
 
 def _pe_lib() -> ctypes.CDLL:
@@ -345,9 +354,10 @@ def general_clusters(cluster: int) -> int:
 
 def _check_inputs(m, q0, orth_every, ns_steps, polish, final_ns) -> dict:
     """Raise on what the kernel does not take; the launch plan else."""
-    if m.dtype != torch.float32 or q0.dtype != torch.float32:
-        raise TypeError(f"pe_subspace_iterate takes float32 m and q0, got "
-                        f"{m.dtype} and {q0.dtype}")
+    if m.dtype not in (torch.float32, torch.bfloat16) \
+            or q0.dtype != torch.float32:
+        raise TypeError(f"pe_subspace_iterate takes float32 or bfloat16 m "
+                        f"and float32 q0, got {m.dtype} and {q0.dtype}")
     if q0.dim() != 3 or m.dim() != 3:
         raise ValueError(f"pe_subspace_iterate takes m (B, N, N) and q0 "
                          f"(B, N, k), got {tuple(m.shape)}, {tuple(q0.shape)}")
@@ -366,8 +376,8 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
                         orth_every: int = 4, ns_steps: int = 4,
                         power_lo: bool = True, polish: int = 2,
                         final_ns: int = 8) -> torch.Tensor:
-    """Kernel 2 wrapper: m (B, N, N) float32, q0 (B, N, k) float32 →
-    (B, N, k). CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
+    """Kernel 2 wrapper: m (B, N, N) float32 or bfloat16, q0 (B, N, k)
+    float32 → (B, N, k) float32. CUDA tensors launch ``csrc/pe.cu`` (one launch counted);
     CPU tensors run :func:`pe_subspace_iterate_plain`. N ≤ 832 (padded
     to a multiple of 32), k ≤ 832; ``power_lo`` both ways and any
     ``iters``/``orth_every``/``ns_steps``/``polish``/``final_ns``."""
@@ -395,6 +405,7 @@ def pe_subspace_iterate(m: torch.Tensor, q0: torch.Tensor, iters: int = 24,
             scratch.data_ptr() if scratch.numel() else None, b, n_pad, k,
             iters,
             orth_every, ns_steps, polish, final_ns, 1 if power_lo else 0,
+            1 if m.dtype == torch.bfloat16 else 0,
             torch.cuda.current_stream(m.device).cuda_stream)
     _build.check(err, "pe")
     pe_subspace_iterate.launches += 1

@@ -310,11 +310,11 @@ def make_dp_train_step(n_max: int | None = None, group=None):
     def step(state, batch_q, batch_k):
         with data_parallel(group):
             if isinstance(batch_q, WireBatch):
+                enc = state.cfg.encoder
                 batch_q, batch_k = featurize_pair(
-                    batch_q, batch_k,
-                    state.cfg.encoder.positional_embedding_size, n_max,
-                    device=state.device,
-                    pe_method=state.cfg.encoder.pe_method)
+                    batch_q, batch_k, enc.positional_embedding_size, n_max,
+                    device=state.device, pe_method=enc.pe_method,
+                    adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype)
             return train_step(state, batch_q, batch_k)
 
     return step

@@ -170,7 +170,7 @@ def giant_pe_iterate(pg, q0: torch.Tensor, iters: int = 64,
 
 def giant_pe_finish(pg, q: torch.Tensor, node_mask: torch.Tensor,
                     num_real_nodes: int, pos_size: int = 32,
-                    group=None) -> torch.Tensor:
+                    group=None, v_dtype=torch.float32) -> torch.Tensor:
     """The Rayleigh–Ritz finish of :func:`giant_laplacian_pe` on the
     iterated basis q (N_pad, k), k even: the guarded generalized whitening
     when k exceeds the kept width, Ritz vectors, then positional.py's
@@ -179,19 +179,23 @@ def giant_pe_finish(pg, q: torch.Tensor, node_mask: torch.Tensor,
     all-reduced matrices with ``group`` (q and node_mask this rank's
     rows). The reference's branch for an odd k (``jnp.linalg.eigh``) has
     no counterpart: :func:`giant_pe_basis` always gives an even width,
-    and Kernel 3 raises on an odd one."""
+    and Kernel 3 raises on an odd one. ``v_dtype`` is Kernel 3's Vᵀ
+    storage in both solves (the reference's ``GCC_TPU_JACOBI_V_DTYPE``
+    reaches them, ``giant_features.py:183, 196``); the giant path has no
+    adjacency lever."""
     matvec = _shifted_matvec(pg, group)
     all_sum = functools.partial(_all_sum, group=group)
     k_keep = min(pos_size, max(1, num_real_nodes))
     if q.shape[1] > k_keep:
-        q = guarded_whitening(q[None], 1e-6,
-                              lambda s: jacobi_eigh(s, descending=True),
-                              all_sum)[0]
+        q = guarded_whitening(
+            q[None], 1e-6,
+            lambda s: jacobi_eigh(s, descending=True, v_dtype=v_dtype),
+            all_sum)[0]
     # Rayleigh–Ritz on M + I (the shift changes neither eigenvectors nor
     # their order).
     t = all_sum(q.T @ matvec(q))
     t = 0.5 * (t + t.T)
-    _, u = jacobi_eigh(t[None], descending=True)
+    _, u = jacobi_eigh(t[None], descending=True, v_dtype=v_dtype)
     n_real = torch.full((1,), num_real_nodes, device=q.device)
     return canonical_pe((q @ u[0, :, :k_keep])[None], n_real,
                         node_mask[None], pos_size,
@@ -202,7 +206,7 @@ def giant_pe_finish(pg, q: torch.Tensor, node_mask: torch.Tensor,
 def giant_laplacian_pe(pg, q0: torch.Tensor, node_mask: torch.Tensor,
                        num_real_nodes: int, pos_size: int = 32,
                        iters: int = 64, orth_every: int = 8,
-                       group=None) -> torch.Tensor:
+                       group=None, v_dtype=torch.float32) -> torch.Tensor:
     """Top-`pos_size` eigenvectors of M for one partitioned giant graph
     (``giant_features.py:110-228``): :func:`giant_pe_iterate` then
     :func:`giant_pe_finish`.
@@ -214,10 +218,12 @@ def giant_laplacian_pe(pg, q0: torch.Tensor, node_mask: torch.Tensor,
     ``group`` (the partition axis across its ranks), pg is this rank's
     :class:`~gcc_tpu_torch.parallel.partitioned.PartitionShard` (or the
     whole partition) and q0, node_mask are its block of N_pad / D rows.
-    Returns (N_pad, pos_size) f32 (this rank's rows with ``group``)."""
+    ``v_dtype``: Kernel 3's Vᵀ storage in the finish. Returns
+    (N_pad, pos_size) f32 (this rank's rows with ``group``)."""
     return giant_pe_finish(pg, giant_pe_iterate(pg, q0, iters, orth_every,
                                                 group),
-                           node_mask, num_real_nodes, pos_size, group)
+                           node_mask, num_real_nodes, pos_size, group,
+                           v_dtype)
 
 
 def giant_pe_basis(n_pad: int, num_real_nodes: int, pos_size: int = 32,
@@ -345,8 +351,9 @@ def giant_graph_embedding(model, g, parts: int | None = None,
     host partitions, as the reference's single controller does, places
     only its own shard, and computes its block of rows; every rank
     returns the same embedding. guards: PE guard columns (default: the
-    eval profile's 16). Returns the (output_dim,) L2-normalized embedding
-    on `device`, without a host sync."""
+    eval profile's 16). The PE's finish stores Kernel 3's Vᵀ in the
+    encoder configuration's ``jacobi_v_dtype``. Returns the (output_dim,)
+    L2-normalized embedding on `device`, without a host sync."""
     device = resolve_device(device)
     check_giant_encoder(model)
     _require_degree_input(model)
@@ -378,7 +385,8 @@ def giant_graph_embedding(model, g, parts: int | None = None,
     mask = (torch.arange(lo, hi, device=device) < n).to(torch.float32)
     with torch.no_grad():
         pe = giant_laplacian_pe(pg_pe, q0, mask, num_real_nodes=n,
-                                pos_size=pos_size, iters=iters, group=group)
+                                pos_size=pos_size, iters=iters, group=group,
+                                v_dtype=model.cfg.jacobi_v_dtype)
         return giant_gin_encode(model, pg_enc,
                                 giant_input_features(model, g, pe, lo), mask,
                                 group=group)

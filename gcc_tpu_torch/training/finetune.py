@@ -106,7 +106,8 @@ def _featurize(state: FinetuneState, batch: PaddedSubgraphBatch):
     enc = state.cfg.encoder
     return featurize_batch(batch, enc.positional_embedding_size,
                            pe_method=enc.pe_method, profile="eval",
-                           device=state.device)
+                           device=state.device, adj_dtype=enc.adj_dtype,
+                           v_dtype=enc.jacobi_v_dtype)
 
 
 def finetune_step(state: FinetuneState, batch: PaddedSubgraphBatch,

@@ -225,7 +225,8 @@ def optimizer_update(state, loss: torch.Tensor,
 
 def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
                       pos_size: int, n_max: int | None = None,
-                      device="cuda", pe_method: str = "subspace"
+                      device="cuda", pe_method: str = "subspace",
+                      adj_dtype=torch.float32, v_dtype=torch.float32
                       ) -> BatchFeatures:
     """Featurize a K-step dispatch — (K, E_tot) edges / (K, 3, B) meta per
     view, or one unstacked step — in one batched call. Returns
@@ -246,14 +247,16 @@ def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     edges = torch.stack([eq, ek], dim=1).reshape(2 * k_steps, e_tot)
     meta = torch.stack([mq, mk], dim=1).reshape(2 * k_steps, 3, bsz)
     feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
-                              pe_method=pe_method)
+                              pe_method=pe_method, adj_dtype=adj_dtype,
+                              v_dtype=v_dtype)
     return feats.map(lambda x: x.reshape((k_steps, 2 * bsz) + x.shape[1:]))
 
 
 def featurize_stacked_dp(wires_q: CompactWireBatch,
                          wires_k: CompactWireBatch, pos_size: int,
                          n_max: int | None = None, device="cuda",
-                         pe_method: str = "subspace") -> BatchFeatures:
+                         pe_method: str = "subspace", adj_dtype=torch.float32,
+                         v_dtype=torch.float32) -> BatchFeatures:
     """Featurize a DP-stacked dispatch — (K, D, e_dev) edges / (K, D, 3,
     b) meta (``PipelineConfig.devices``; on a rank, its slice of the
     device axis) — in one batched call (``pretrain.py:543-579``).
@@ -277,7 +280,8 @@ def featurize_stacked_dp(wires_q: CompactWireBatch,
     edges = torch.stack([eq, ek], dim=2).reshape(k_steps * d * 2, e_dev)
     meta = torch.stack([mq, mk], dim=2).reshape(k_steps * d * 2, 3, b)
     feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
-                              pe_method=pe_method)
+                              pe_method=pe_method, adj_dtype=adj_dtype,
+                              v_dtype=v_dtype)
     return feats.map(lambda x: x.reshape((k_steps, d * 2 * b) + x.shape[1:]))
 
 
@@ -292,7 +296,8 @@ def split_feats_qk_dp(feats: BatchFeatures, d: int, b: int):
 
 
 def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
-                   n_max: int, device="cuda", pe_method: str = "subspace"
+                   n_max: int, device="cuda", pe_method: str = "subspace",
+                   adj_dtype=torch.float32, v_dtype=torch.float32
                    ) -> tuple[BatchFeatures, BatchFeatures]:
     """Featurize one step's padded query and key views (the
     ``compact_wire=False`` pipeline's ``WireBatch`` pair) in one call
@@ -304,7 +309,7 @@ def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
     f = featurize_batch(concat_padded(expand_wire(wire_q, n_max),
                                       expand_wire(wire_k, n_max)),
                         pos_size, pe_method=pe_method, profile="train",
-                        device=device)
+                        device=device, adj_dtype=adj_dtype, v_dtype=v_dtype)
     bsz = f.node_mask.shape[0] // 2
     return f.map(lambda x: x[:bsz]), f.map(lambda x: x[bsz:])
 
@@ -339,7 +344,8 @@ def e2e_split_slots(n_q: torch.Tensor, n_k: torch.Tensor, classes):
 
 def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
                         pos_size: int, pe_method: str, classes,
-                        n_max: int | None = None, device="cuda"):
+                        n_max: int | None = None, device="cuda",
+                        v_dtype=torch.float32):
     """Size-routed featurization of a stacked E2E dispatch
     (``gcc_tpu/training/pretrain.py:342-470``). Per step the pairs are
     slotted by :func:`e2e_split_slots` into the ascending ``classes``
@@ -347,6 +353,10 @@ def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     flat scatter-add over both views' packed edges, routed by slot rank,
     dropping edges outside the class's bucket, and its PE is one
     train-profile call (on the card: one launch each of Kernels 2 and 3).
+
+    The adjacency is f32 whatever ``EncoderConfig.adj_dtype`` says, as the
+    reference's split builds it (``pretrain.py:424``); ``v_dtype`` reaches
+    its Jacobi finishes.
 
     Returns (feats_tuple, overflow): one BatchFeatures per class with
     (K, 2·cap, ...) leaves — per step [:cap] the query views, [cap:] the
@@ -407,7 +417,7 @@ def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
         nm_flat = node_mask.reshape(rows, n_b)
         pos = laplacian_positional_embedding(
             nm_flat, n_nodes.reshape(rows), pos_size, adj=adj,
-            method=pe_method, profile="train")
+            method=pe_method, profile="train", v_dtype=v_dtype)
         deg = node_degrees(adj).to(torch.int32)
         shape = lambda x: x.reshape((k_steps, 2 * c_b) + x.shape[1:])  # noqa: E731
         out.append(BatchFeatures(pos=shape(pos), degrees=shape(deg),
@@ -460,11 +470,13 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     are those of the global batch."""
     cfg = state.cfg
     contrast = cfg.contrast
+    enc = cfg.encoder
+    levers = dict(adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype)
     if isinstance(wires_q, WireBatch):
         feats_q, feats_k = featurize_pair(
             wires_q, wires_k, cfg.encoder.positional_embedding_size,
             n_max=n_max, device=state.device,
-            pe_method=cfg.encoder.pe_method)
+            pe_method=cfg.encoder.pe_method, **levers)
         return _stack_metrics([train_step(state, feats_q, feats_k)])
     if np.ndim(wires_q.meta) == 4:
         # DP-stacked wire ((K, D, ...), packed.py:142-163): the steps of
@@ -476,7 +488,8 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
         feats = featurize_stacked_dp(wires_q, wires_k,
                                      cfg.encoder.positional_embedding_size,
                                      n_max=n_max, device=state.device,
-                                     pe_method=cfg.encoder.pe_method)
+                                     pe_method=cfg.encoder.pe_method,
+                                     **levers)
         return _stack_metrics([
             train_step(state, *split_feats_qk_dp(feats.map(
                 lambda x, t=t: x[t]), d, b))
@@ -489,7 +502,8 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     if classes:
         feats, overflow = featurize_e2e_split(
             wires_q, wires_k, cfg.encoder.positional_embedding_size,
-            cfg.encoder.pe_method, classes, n_max=n_max, device=state.device)
+            cfg.encoder.pe_method, classes, n_max=n_max, device=state.device,
+            v_dtype=enc.jacobi_v_dtype)
         metrics = _stack_metrics([
             e2e_split_step(state, tuple(f.map(lambda x: x[t]) for f in feats))
             for t in range(overflow.shape[0])])
@@ -498,7 +512,7 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     feats = featurize_stacked(wires_q, wires_k,
                               cfg.encoder.positional_embedding_size,
                               n_max=n_max, device=state.device,
-                              pe_method=cfg.encoder.pe_method)
+                              pe_method=cfg.encoder.pe_method, **levers)
     bsz = feats.node_mask.shape[1] // 2
     per_step = []
     for t in range(feats.node_mask.shape[0]):

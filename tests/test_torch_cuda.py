@@ -599,3 +599,79 @@ def test_jacobi_cluster_kernel_beyond_118(cuda_device, n, batch):
         assert jacobi.jacobi_eigh.launches == before + 1
         w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=sweeps, descending=desc)
         assert torch.equal(w, w0) and torch.equal(v, v0)
+
+
+# ---- the bf16 storage levers (EncoderConfig.adj_dtype, jacobi_v_dtype) ----
+
+@pytest.mark.parametrize("n_max,e_tot", [(128, 4096), (256, 8192)])
+def test_featurize_bf16_kernel_matches_plain(cuda_device, n_max, e_tot):
+    """Kernel 1's bf16 variant at the training shapes (4096 graphs): adj,
+    m_shift and deg bit for bit the plain version's, adj equal to the f32
+    kernel's (counts below 256 are exact in bf16)."""
+    edges, meta = _wire(np.random.default_rng(n_max), 128, 32, n_max, e_tot)
+    e = torch.as_tensor(edges, device=cuda_device)
+    m = torch.as_tensor(meta, device=cuda_device)
+    before = aggregate.fused_adjacency_featurize.launches
+    got = aggregate.fused_adjacency_featurize(e, m, n_max, 8, "bfloat16")
+    assert aggregate.fused_adjacency_featurize.launches == before + 1
+    want = aggregate.fused_adjacency_featurize_plain(e, m, n_max, 8,
+                                                     "bfloat16")
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    f32 = aggregate.fused_adjacency_featurize(e, m, n_max, 8)
+    assert torch.equal(got[0].float(), f32[0])
+
+
+@pytest.mark.parametrize("n_max,k,graphs,plan", [
+    (128, 32, 4096, "shared"),
+    (512, 48, 64, "streamed"),
+    (128, 64, 4096, "wide"),
+    (256, 96, 128, "general"),
+])
+def test_pe_bf16_m_matches_plain(cuda_device, n_max, k, graphs, plan):
+    """Kernel 2 on a bf16 operator, one shape per plan (chip_smoke's): the
+    plans' limits against the plain version, and bit for bit the f32
+    kernel on the same values widened (a bf16 M is its own bf16 copy, and
+    the f32 steps widen it as they read it)."""
+    assert pe.pe_launch_plan(n_max, k, graphs)["plan"] == plan
+    big = n_max > 256
+    m_shift, q0 = _pe_case(cuda_device, n_max, k, graphs,
+                           e_tot=16384 if big else 4096,
+                           id_bits=16 if big else 8)
+    m16 = m_shift.to(torch.bfloat16)
+    _pe_compare(m16, q0)
+    for lo in (False, True):
+        got = pe.pe_subspace_iterate(m16, q0, iters=16, power_lo=lo)
+        wide = pe.pe_subspace_iterate(m16.float(), q0, iters=16,
+                                      power_lo=lo)
+        assert torch.equal(got, wide)
+
+
+@pytest.mark.parametrize("n,batch,kernel", [
+    (32, 4096, "warp"), (48, 64, "pair"), (64, 4096, "pair"),
+    (96, 128, "cluster"), (512, 4, "device")])
+def test_jacobi_bf16_v_matches_plain(cuda_device, n, batch, kernel):
+    """Kernel 3's bf16-V variant, one shape per kernel (chip_smoke's), 3
+    sweeps, a diagonal matrix with repeated eigenvalues first: bit for bit
+    the plain version with v_dtype bf16, eigenvalues equal to the f32-V
+    launch's, V's entries bf16 values."""
+    a = torch.randn(batch, n, n, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(n))
+    a = 0.5 * (a + a.transpose(1, 2))
+    a[0] = torch.diag(torch.arange(n, device=cuda_device).float() // 2)
+    plan = jacobi.jacobi_launch_plan(n, batch, jacobi.cluster_held())
+    assert plan["variant"].startswith({"warp": "warp", "pair": "thread",
+                                       "cluster": "cluster",
+                                       "device": "cluster"}[kernel])
+    assert (plan["placement"] == "device") == (kernel == "device")
+    before = jacobi.jacobi_eigh.launches
+    w, v = jacobi.jacobi_eigh(a, sweeps=3, descending=True,
+                              v_dtype="bfloat16")
+    assert jacobi.jacobi_eigh.launches == before + 1
+    w0, v0 = jacobi.jacobi_eigh_plain(a, sweeps=3, descending=True,
+                                      v_dtype="bfloat16")
+    assert torch.equal(w, w0) and torch.equal(v, v0)
+    w32, _ = jacobi.jacobi_eigh(a, sweeps=3, descending=True)
+    assert torch.equal(w, w32)
+    assert torch.equal(v, v.to(torch.bfloat16).float())

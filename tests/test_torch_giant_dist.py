@@ -572,6 +572,47 @@ def test_placed_shard_holds_its_share(schedule, world):
         part.place_shard(pg, world, "cpu")
 
 
+def _cli_generate_args(tmp: str) -> list[str]:
+    """A checkpoint and a graph-classification dataset under `tmp` whose
+    middle graph is beyond --n-max; the `cli generate` arguments (without
+    --out) that embed it on the CPU."""
+    from gcc_tpu_torch.training.checkpoint import save_checkpoint
+    from gcc_tpu_torch.training.pretrain import create_pretrain_state
+
+    cfg = _train_cfg()
+    run_dir = os.path.join(tmp, "run")
+    os.makedirs(run_dir)
+    save_checkpoint(run_dir, create_pretrain_state(cfg, 10, device="cpu"),
+                    cfg)
+    graphs = [_small_graph(20, 1), _csr(GIANT_SEEDS[0]), _small_graph(25, 2)]
+    root = os.path.join(tmp, "data", "REDDIT-BINARY")
+    os.makedirs(root)
+    offsets = np.cumsum([0] + [g.num_nodes for g in graphs])
+    edges = np.concatenate([
+        np.stack([np.repeat(np.arange(g.num_nodes), np.diff(g.indptr)),
+                  g.indices], axis=1) + off + 1
+        for g, off in zip(graphs, offsets)])
+    prefix = os.path.join(root, "REDDIT-BINARY")
+    np.savetxt(prefix + "_A.txt", edges, fmt="%d", delimiter=",")
+    np.savetxt(prefix + "_graph_indicator.txt",
+               np.repeat(np.arange(3), [g.num_nodes for g in graphs]) + 1,
+               fmt="%d")
+    np.savetxt(prefix + "_graph_labels.txt", [0, 1, 0], fmt="%d")
+    return ["generate", "--ckpt", os.path.join(run_dir, "current"),
+            "--dataset", "rdt-b", "--data-root", os.path.join(tmp, "data"),
+            "--n-max", str(N_MAX), "--e-max", str(E_MAX), "--device", "cpu"]
+
+
+def _torchrun_generate(args: list[str], out: str):
+    """Popen of the two-rank `cli generate` under torchrun."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
+         "--nproc-per-node", "2", "--master-addr", "localhost",
+         "--master-port", str(_free_port()), "-m", "gcc_tpu_torch.cli",
+         *args, "--out", out], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=_child_env(), cwd=ROOT)
+
+
 def test_cli_generate_across_two_ranks(tmp_path):
     """`cli generate` under torchrun with 2 gloo ranks (--device cpu) on a
     graph-classification dataset whose middle graph is beyond --n-max:
@@ -579,41 +620,51 @@ def test_cli_generate_across_two_ranks(tmp_path):
     only rank 0 writes the .npy; its rows equal the one-process command's
     (dense-bucket rows bit for bit, the giant row within 1e-5)."""
     from gcc_tpu_torch import cli
-    from gcc_tpu_torch.training.checkpoint import save_checkpoint
-    from gcc_tpu_torch.training.pretrain import create_pretrain_state
 
-    cfg = _train_cfg()
-    run_dir = str(tmp_path / "run")
-    os.makedirs(run_dir)
-    save_checkpoint(run_dir, create_pretrain_state(cfg, 10, device="cpu"),
-                    cfg)
-    graphs = [_small_graph(20, 1), _csr(GIANT_SEEDS[0]), _small_graph(25, 2)]
-    root = tmp_path / "data" / "REDDIT-BINARY"
-    root.mkdir(parents=True)
-    offsets = np.cumsum([0] + [g.num_nodes for g in graphs])
-    edges = np.concatenate([
-        np.stack([np.repeat(np.arange(g.num_nodes), np.diff(g.indptr)),
-                  g.indices], axis=1) + off + 1
-        for g, off in zip(graphs, offsets)])
-    np.savetxt(root / "REDDIT-BINARY_A.txt", edges, fmt="%d", delimiter=",")
-    np.savetxt(root / "REDDIT-BINARY_graph_indicator.txt",
-               np.repeat(np.arange(3), [g.num_nodes for g in graphs]) + 1,
-               fmt="%d")
-    np.savetxt(root / "REDDIT-BINARY_graph_labels.txt", [0, 1, 0], fmt="%d")
-    args = ["generate", "--ckpt", os.path.join(run_dir, "current"),
-            "--dataset", "rdt-b", "--data-root", str(tmp_path / "data"),
-            "--n-max", str(N_MAX), "--e-max", str(E_MAX), "--device", "cpu"]
+    args = _cli_generate_args(str(tmp_path))
     two = str(tmp_path / "two.npy")
-    res = subprocess.run(
-        [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1",
-         "--nproc-per-node", "2", "--master-addr", "localhost",
-         "--master-port", str(_free_port()), "-m", "gcc_tpu_torch.cli",
-         *args, "--out", two], capture_output=True, text=True,
-        env=_child_env(), cwd=ROOT, timeout=CHILD_TIMEOUT)
-    assert res.returncode == 0, res.stderr[-4000:]
-    assert res.stdout.count("saved (3, 16)") == 1, res.stdout
+    proc = _torchrun_generate(args, two)
+    try:
+        stdout, stderr = proc.communicate(timeout=CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise
+    assert proc.returncode == 0, stderr[-4000:]
+    assert stdout.count("saved (3, 16)") == 1, stdout
     one = str(tmp_path / "one.npy")
     cli.main(args + ["--out", one])
     got, want = np.load(two), np.load(one)
     np.testing.assert_array_equal(got[[0, 2]], want[[0, 2]])
     np.testing.assert_allclose(got[1], want[1], rtol=0, atol=1e-5)
+
+
+def _stress(rounds: int, parallel: int) -> None:
+    """Run the two-rank `cli generate` of test_cli_generate_across_two_ranks
+    `parallel` at once, `rounds` times, and print the failures by kind:
+    a rank that aborts in its interpreter's teardown ("terminate called
+    without an active exception") showed only under such load.
+
+        python tests/test_torch_giant_dist.py stress 24 4
+    """
+    import collections
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = _cli_generate_args(tmp)
+        fails, runs = collections.Counter(), 0
+        for r in range(rounds):
+            procs = [_torchrun_generate(args, os.path.join(tmp, f"{i}.npy"))
+                     for i in range(parallel)]
+            for p in procs:
+                _, err = p.communicate(timeout=CHILD_TIMEOUT)
+                runs += 1
+                if p.returncode:
+                    fails["terminate called without an active exception"
+                          if "terminate called" in err
+                          else err.strip().splitlines()[-1][:120]] += 1
+            print(f"round {r + 1}: {runs} runs, failures {dict(fails)}",
+                  flush=True)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["stress"]:
+    _stress(int(sys.argv[2]), int(sys.argv[3]))

@@ -371,7 +371,10 @@ def test_fold_local_standardization():
 
 def test_recipe_is_the_reference_child():
     """The (TrainConfig, PipelineConfig) pair of scripts/pe_ab.py:66-81,
-    field for field, with epochs and seed taken as arguments."""
+    field for field, with epochs and seed taken as arguments. The port's
+    encoder has two fields the reference's lacks, its storage levers
+    (the reference reads them from the environment): they default to
+    float32, the reference's setting without the variables."""
     from gcc_tpu.config import (
         ContrastConfig,
         EncoderConfig,
@@ -391,6 +394,9 @@ def test_recipe_is_the_reference_child():
         num_workers=1, mode="thread", emit="routed", super_batch=62,
         n_small=128)
     got = dataclasses.asdict(cfg)
+    levers = {k: got["encoder"].pop(k)
+              for k in ("adj_dtype", "jacobi_v_dtype")}
+    assert levers == {"adj_dtype": "float32", "jacobi_v_dtype": "float32"}
     assert {k: got[k] for k in dataclasses.asdict(want)} == \
         dataclasses.asdict(want)
     got_p = dataclasses.asdict(pcfg)
