@@ -14,7 +14,11 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    dispatches, which hold the pairs with a subgraph of more than 128
    nodes) and holds each kernel against its plain PyTorch version on
    them at the main path's shapes, timing both (CUDA events):
-   featurize at N = 128 and 256 (4096 graphs), the PE subspace
+   featurize at N = 128 and 256 (4096 graphs; also at the E2E size
+   split's class shapes, 3840 graphs at N = 128 and 256 at N = 256, a
+   path that builds its adjacency without Kernel 1; and bit for bit on
+   the two wires where a pair repeats 300 times, in f32 and bf16), the
+   PE subspace
    iteration at (4096, 128, 128, k=32) and (4096, 256, 256, 32), the
    Jacobi Rayleigh-Ritz finish at (4096, 32, 32), 3 sweeps (beside
    torch.linalg.eigh on the same batch). Also, untimed in the kernels
@@ -209,7 +213,8 @@ ODD_BATCH = 1037  # no multiple of the 132 SMs, nor of a block's 4 warps
 # (CUDA events around the wrapper), for the lines that print a time beside
 # it; none of them enters the kernels line. FIRST: the port's first kernels
 # (PE: one block per graph on the CUDA cores; Jacobi: one block per matrix;
-# featurize is unchanged since). Eval shapes: the streamed plan's first
+# featurize's first design stayed until its redesign: PER_TILE).
+# Eval shapes: the streamed plan's first
 # version (one block per graph, every product an f32 FMA, Q^T in a device
 # scratch) and the block-per-matrix Jacobi kernel with two barriers a
 # round, timed without work queued ahead of it. PE 64's Jacobi widths:
@@ -230,10 +235,15 @@ GENERAL_V1 = ("the general plan's first version (f32 FMAs on bf16-rounded "
               "operands, Q in device memory), H100 80GB HBM3, 700 W")
 DEVICE_JACOBI = ("the block-per-matrix kernel over a device scratch (queued "
                  "behind other work), H100 80GB HBM3, 700 W")
+PER_TILE = ("the per-tile featurize design of PRs 1-15 (every tile block "
+            "recounting the graph's edges, one value a store), H100 80GB "
+            "HBM3, 700 W")
 EARLIER_MS = {("pe", 128): (20.28, FIRST), ("pe", 256): (66.61, FIRST),
               ("jacobi", 32): (0.951, FIRST),
-              ("featurize", 128): (0.1915, FIRST),
-              ("featurize", 256): (0.8022, FIRST),
+              ("featurize", 128): (0.1908, PER_TILE),
+              ("featurize", 256): (0.7963, PER_TILE),
+              ("featurize", "128bf16"): (0.1789, PER_TILE),
+              ("featurize", "256bf16"): (0.7801, PER_TILE),
               ("pe", 512): (2.8744, STREAMED_V1),
               ("pe", 832): (7.6530, STREAMED_V1),
               ("jacobi", 64): (0.1981, BLOCK_JACOBI),
@@ -401,15 +411,19 @@ def wire_segments(item, device):
             torch.stack([mq, mk], 1).reshape(2 * k, 3, -1))
 
 
-def check_featurize(edges, meta, n_max, check, dtype=None):
-    """Kernel 1 against its plain version, timed. f32: adjacency and
-    degrees equal, m_shift within 1e-6 (rsqrt may differ by an ulp).
-    ``dtype`` bfloat16 (the adjacency lever): all three bit for bit, the
-    adjacency equal to the f32 kernel's (counts below 256 are exact in
-    bf16), and the f32 kernel timed beside it on the same wire."""
+def check_featurize(edges, meta, n_max, check, dtype=None, id_bits=8,
+                    key=None):
+    """Kernel 1 against its plain version, timed (queued behind other
+    work: a launch takes ~0.1 ms, near the host's rate of enqueueing).
+    f32: adjacency and degrees equal, m_shift within 1e-6 (rsqrt may
+    differ by an ulp). ``dtype`` bfloat16 (the adjacency lever): all three
+    bit for bit, the adjacency equal to the f32 kernel's (counts below
+    256 are exact in bf16), and the f32 kernel timed beside it on the
+    same wire. ``key`` names the row (EARLIER_MS) where it is not N."""
     import torch
 
     from gcc_tpu_torch.ops.aggregate import (
+        featurize_launch_plan,
         fused_adjacency_featurize,
         fused_adjacency_featurize_plain,
     )
@@ -417,42 +431,98 @@ def check_featurize(edges, meta, n_max, check, dtype=None):
     dtype = dtype or torch.float32
     lo = dtype == torch.bfloat16
     tag = " bf16" if lo else ""
-    adj, ms, deg = fused_adjacency_featurize(edges, meta, n_max, 8, dtype)
+    if key is None:
+        key = f"{n_max}bf16" if lo else n_max
+    plan = featurize_launch_plan(n_max, edges.shape[1], dtype)
+    adj, ms, deg = fused_adjacency_featurize(edges, meta, n_max, id_bits,
+                                             dtype)
     torch.cuda.synchronize()
-    adj0, ms0, deg0 = fused_adjacency_featurize_plain(edges, meta, n_max, 8,
-                                                      dtype)
+    adj0, ms0, deg0 = fused_adjacency_featurize_plain(edges, meta, n_max,
+                                                      id_bits, dtype)
     err = (ms.float() - ms0.float()).abs().max().item()
     check(torch.equal(adj, adj0) and torch.equal(deg, deg0),
-          f"featurize{tag} N={n_max}: adjacency and degrees equal the plain "
+          f"featurize{tag} {key}: adjacency and degrees equal the plain "
           "version")
     limit = 0.0 if lo else 1e-6
-    check(err <= limit, f"featurize{tag} N={n_max}: m_shift max abs err "
+    check(err <= limit, f"featurize{tag} {key}: m_shift max abs err "
           f"{err:.3g} <= {limit:g}")
     g = adj.shape[0]
-    ms_k = timed_ms(lambda: fused_adjacency_featurize(edges, meta, n_max, 8,
-                                                      dtype), 20)
+    ms_k = timed_ms(lambda: fused_adjacency_featurize(
+        edges, meta, n_max, id_bits, dtype), 20, run_ahead=True)
     ms_p = timed_ms(lambda: fused_adjacency_featurize_plain(
-        edges, meta, n_max, 8, dtype), 5)
+        edges, meta, n_max, id_bits, dtype), 5)
     nbytes = edges.numel() * edges.element_size() + meta.numel() * 4 \
         + g * n_max * n_max * 2 * adj.element_size() + g * n_max * 4
     ops = 3 * g * n_max * n_max
     bound = max(nbytes / PEAK_BYTES, ops / PEAK_F32) * 1e3
     f32_ms = None
     if lo:
-        adj32 = fused_adjacency_featurize(edges, meta, n_max, 8)[0]
+        adj32 = fused_adjacency_featurize(edges, meta, n_max, id_bits)[0]
         check(torch.equal(adj.float(), adj32),
-              f"featurize bf16 N={n_max}: adjacency equals the f32 kernel's")
+              f"featurize bf16 {key}: adjacency equals the f32 kernel's")
         del adj32
-        f32_ms = timed_ms(lambda: fused_adjacency_featurize(edges, meta,
-                                                            n_max, 8), 20)
-    print(f"featurize{tag} N={n_max} graphs={g}: kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms, bound {bound:.4f} ms (bytes)"
+        f32_ms = timed_ms(lambda: fused_adjacency_featurize(
+            edges, meta, n_max, id_bits), 20, run_ahead=True)
+    print(f"featurize{tag} {key} graphs={g} N={n_max} path={plan['path']} "
+          f"cluster={plan['cluster']} stores={plan['store_bytes']} B: kernel "
+          f"{ms_k:.4f} ms, plain {ms_p:.4f} ms, bound {bound:.4f} ms (bytes)"
+          + versus("featurize", key, ms_k, bound)
           + (f"; the f32 kernel {f32_ms:.4f} ms on the same wire" if lo
-             else versus("featurize", n_max, ms_k, bound)), flush=True)
+             else ""), flush=True)
     return dict(ms=ms_k, plain_ms=ms_p, bound_ms=bound, max_abs_err=err,
                 bound_by="bytes" if nbytes / PEAK_BYTES >= ops / PEAK_F32
                 else "operations", shape=f"({g}, {n_max}, {n_max}){tag}",
+                cluster=plan["cluster"],
                 **({"f32_ms": f32_ms} if lo else {})), (adj, ms, deg)
+
+
+def e2e_class_graphs(n_b: int) -> int:
+    """Graphs a dispatch of the E2E headline puts in its size class of
+    bucket n_b (both views of E2E_STEPS steps)."""
+    from gcc_tpu_torch.training.pretrain import parse_e2e_split
+
+    caps = dict(parse_e2e_split(E2E_SPEC, E2E_BATCH, N_MAX))
+    return E2E_STEPS * 2 * caps[n_b]
+
+
+def f1_wires():
+    """The two wires on which Kernel 1's degrees must be the sums of the
+    stored entries (a bf16 count stops at 256), from the tests' fixtures:
+    (name, edges, meta, n_max, id_bits), numpy."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from featurize_wires import heavy_wire, pair_wire_256
+
+    return [("heavy N=512",) + heavy_wire(), ("pair N=256",) + pair_wire_256()]
+
+
+def check_f1_wires(check):
+    """Kernel 1 on both F1 wires, f32 and bf16: adj, m_shift and deg bit
+    for bit the plain version's on the same card tensors."""
+    import torch
+
+    from gcc_tpu_torch.ops.aggregate import (
+        featurize_launch_plan,
+        fused_adjacency_featurize,
+        fused_adjacency_featurize_plain,
+    )
+
+    for name, edges, meta, n_max, id_bits in f1_wires():
+        e = torch.as_tensor(edges, device="cuda")
+        m = torch.as_tensor(meta, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            got = fused_adjacency_featurize(e, m, n_max, id_bits, dtype)
+            want = fused_adjacency_featurize_plain(e, m, n_max, id_bits,
+                                                   dtype)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            plan = featurize_launch_plan(n_max, e.shape[1], dtype)
+            rows = (0, 1, 3) if n_max == 512 else (0, 1, 3, 255)
+            print(f"featurize F1 wire {name} {str(dtype)[6:]} "
+                  f"(path={plan['path']}, cluster={plan['cluster']}): "
+                  f"degrees of nodes {rows} {got[2][0, list(rows)].tolist()},"
+                  f" largest entry {got[0].float().max().item():g}",
+                  flush=True)
+            check(same, f"featurize F1 wire {name} {str(dtype)[6:]}: adj, "
+                  "m_shift and deg bit for bit the plain version's")
 
 
 def pe_flops(n: int, k: int, iters=16, orth_every=4, ns_steps=4, polish=2,
@@ -2919,6 +2989,15 @@ def main() -> int:
             feat, (adj, m_shift, deg) = check_featurize(edges, meta, name_n,
                                                         check)
             results[("featurize", name_n)] = feat
+            # The E2E split's class of this bucket at its graphs a dispatch
+            # (printed, not in the kernels line: the split builds its
+            # adjacency with one index_add_, as the reference's does).
+            segs = e2e_class_graphs(name_n) // BATCH
+            check_featurize(edges[:segs], meta[:segs], name_n, check,
+                            key=f"e2e{name_n}")
+            print(f"featurize e2e{name_n}: Kernel 1 launches on the E2E path:"
+                  " 0 (featurize_e2e_split builds the classes' adjacency "
+                  "without it)", flush=True)
             n_nodes = meta[:, 0, :].reshape(-1)
             pe_res, q = check_pe(m_shift, n_nodes, k_pos, check)
             results[("pe", name_n)] = pe_res
@@ -2960,6 +3039,7 @@ def main() -> int:
             del m_shift, q, s_g, t_rr
             torch.cuda.empty_cache()
 
+        check_f1_wires(check)
         phase("kernels at the training and eval shapes")
 
         # --- training path ----------------------------------------------

@@ -177,52 +177,150 @@ def fused_adjacency_featurize_plain(edges: torch.Tensor, meta: torch.Tensor,
     return adj, m_shift, compact_degrees(adj)
 
 
-_FEATURIZE_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+# Kernel 1's launch plan (``csrc/featurize.cu`` make_plan; the CPU tests
+# hold these to the source's constants).
+FEATURIZE_MAX_N = 2048       # the widest bucket the kernel takes
+BAND_MAX_N = 256             # the widest N of the band path
+BAND_ROWS = 128              # rows a band block owns at most
+COUNT16_LIMIT = 65536        # e_tot below it: 16-bit counts are exact
+TILE_ENTRIES = 8192          # counts a tile block holds
+FEATURIZE_THREADS = 256      # threads a block, at most
+FEATURIZE_VEC = 8            # values a thread stores at once
+FEATURIZE_MAX_CLUSTER = 8    # the portable cluster size
+MAX_SMEM = 232_448           # shared memory a Hopper block may use
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def featurize_launch_plan(n_max: int, e_tot: int, dtype=torch.float32,
+                          cluster: int = 0) -> dict:
+    """Launch plan of Kernel 1 for a bucket of ``n_max`` nodes and a wire of
+    ``e_tot`` slots a segment, as ``gcc_featurize_plan`` in
+    ``csrc/featurize.cu`` computes it:
+
+    * ``path`` "band" (N <= 256 and e_tot < 65536): a thread block
+      cluster of ``cluster`` = ceil(N / 128) blocks per graph, each owning
+      ``rows`` rows as 16-bit counts in shared memory; every edge is read
+      and counted once per graph, one launch;
+    * ``path`` "tile" (256 < N <= 2048, or e_tot >= 65536): blocks of
+      ``rows`` = 8192 / N' rows (N' = N rounded up to 8) with 32-bit
+      counts, ``blocks_per_graph`` of them, two launches (degrees into a
+      device scratch of ``scratch_bytes`` a graph, then the stores).
+
+    Both take one rsqrt per node and no division per entry, with threads
+    laid out as (N' / 8 threads a row) × (rows at a time), 8 values a
+    thread and row; ``store_bytes`` is what one store writes (16 — 4 f32
+    or 8 bf16 values — where every row of ``dtype`` values starts 16-byte
+    aligned, else 8, 4 or 2 as the rows allow).
+    ``smem_bytes``: the counts, their degree sums and inv[] of every
+    column. ``cluster`` forces the band path's cluster size (0: the
+    plan's). Raises ``ValueError`` with the numbers on what no path
+    takes."""
+    lo = storage_dtype(dtype) == torch.bfloat16
+    if not 0 < n_max <= FEATURIZE_MAX_N or e_tot < 0:
+        raise ValueError(f"featurize kernel takes 0 < n_max <= "
+                         f"{FEATURIZE_MAX_N} and e_tot >= 0, got n_max="
+                         f"{n_max}, e_tot={e_tot}")
+    n_pad = _round_up(n_max, FEATURIZE_VEC)
+    gx = n_pad // FEATURIZE_VEC
+    gy = max(1, FEATURIZE_THREADS // gx)
+    size = 2 if lo else 4
+    row_bytes = n_max * size
+    store = next(w for w in (16, 8, 4, size) if row_bytes % w == 0)
+    if n_max <= BAND_MAX_N and e_tot < COUNT16_LIMIT:
+        c = cluster or -(-n_max // BAND_ROWS)
+        rows = -(-n_max // c) if 1 <= c <= n_max else 0
+        smem = rows * n_pad * 2 + 4 * _round_up(rows, 4) + 4 * n_pad
+        if not 1 <= c <= min(FEATURIZE_MAX_CLUSTER, n_max) \
+                or smem > MAX_SMEM:
+            raise ValueError(f"featurize band path takes a cluster of 1 to "
+                             f"{FEATURIZE_MAX_CLUSTER} blocks whose band fits "
+                             f"{MAX_SMEM} B, got cluster={c} at n_max={n_max}"
+                             f" ({smem} B)")
+        return dict(path="band", cluster=c, rows=rows, count_bits=16,
+                    threads=gx * gy, block=(gx, gy), smem_bytes=smem,
+                    blocks_per_graph=c, launches=1, store_bytes=store,
+                    scratch_bytes=0)
+    if cluster:
+        raise ValueError(f"featurize tile path (n_max={n_max}, e_tot={e_tot})"
+                         f" takes no cluster, got {cluster}")
+    rows = max(1, TILE_ENTRIES // n_pad)
+    return dict(path="tile", cluster=1, rows=rows, count_bits=32,
+                threads=gx * gy, block=(gx, gy),
+                smem_bytes=rows * n_pad * 4 + 4 * _round_up(rows, 4)
+                + 4 * n_pad,
+                blocks_per_graph=-(-n_max // rows), launches=2,
+                store_bytes=store, scratch_bytes=4 * n_max)
+
+
+_FEATURIZE_ARGS = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
 
 
 def _featurize_lib() -> ctypes.CDLL:
     lib = _build.load("featurize")
     lib.gcc_featurize_launch.argtypes = _FEATURIZE_ARGS
     lib.gcc_featurize_launch.restype = ctypes.c_int
+    lib.gcc_featurize_plan.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.gcc_featurize_plan.restype = ctypes.c_int
     return lib
+
+
+def _check_wire(edges: torch.Tensor, meta: torch.Tensor, id_bits: int):
+    if edges.dim() != 2 or meta.dim() != 3 or meta.shape[1] != 3 \
+            or meta.shape[0] != edges.shape[0]:
+        raise ValueError(f"featurize takes edges (S, E_tot) and meta (S, 3, "
+                         f"B), got {tuple(edges.shape)}, {tuple(meta.shape)}")
+    if not 1 <= id_bits <= 16:
+        raise ValueError(f"featurize takes 1 <= id_bits <= 16, got {id_bits}")
 
 
 def fused_adjacency_featurize(edges: torch.Tensor, meta: torch.Tensor,
                               n_max: int, id_bits: int, dtype=torch.float32):
     """Kernel 1 wrapper. edges (S, E_tot) int32 packed, meta (S, 3, B)
     int32 → (adj, m_shift, deg), adj and m_shift in ``dtype`` (float32 or
-    bfloat16), deg float32. CUDA tensors launch ``csrc/featurize.cu`` (and
-    count one launch); CPU tensors run
-    :func:`fused_adjacency_featurize_plain`."""
+    bfloat16), deg float32. CUDA tensors launch ``csrc/featurize.cu`` by
+    :func:`featurize_launch_plan` (and count one launch); CPU tensors run
+    :func:`fused_adjacency_featurize_plain`. Raises, with the numbers, on
+    wire shapes and, on the card, on widths no path takes."""
     dtype = storage_dtype(dtype)
+    _check_wire(edges, meta, id_bits)
     if edges.device.type == "cpu":
         return fused_adjacency_featurize_plain(edges, meta, n_max, id_bits,
                                                dtype)
+    return _launch(edges, meta, n_max, id_bits, dtype)
+
+
+def _launch(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
+            id_bits: int, dtype, cluster: int = 0):
+    """Launch Kernel 1 on CUDA tensors; ``cluster`` forces the band path's
+    cluster size (0: the plan's)."""
     if edges.device.type != "cuda":
         raise ValueError(f"unsupported device {edges.device}")
     if edges.dtype != torch.int32 or meta.dtype != torch.int32:
-        raise TypeError("fused_adjacency_featurize takes int32 edges/meta")
-    if edges.dim() != 2 or meta.dim() != 3 or meta.shape[1] != 3 \
-            or meta.shape[0] != edges.shape[0]:
-        raise ValueError(f"bad wire shapes {tuple(edges.shape)}, "
-                         f"{tuple(meta.shape)}")
+        raise TypeError(f"fused_adjacency_featurize takes int32 edges/meta, "
+                        f"got {edges.dtype}, {meta.dtype}")
     if meta.device != edges.device:
         raise ValueError("edges and meta must be on the same device")
-    if not 0 < n_max <= 2048:
-        raise ValueError(f"featurize kernel takes n_max <= 2048, got {n_max}")
+    dtype = storage_dtype(dtype)
     edges, meta = edges.contiguous(), meta.contiguous()
     s, e_tot = edges.shape
+    plan = featurize_launch_plan(n_max, e_tot, dtype, cluster)
     b = meta.shape[2]
     dev = edges.device
     adj = torch.empty((s * b, n_max, n_max), dtype=dtype, device=dev)
     m_shift = torch.empty_like(adj)
     deg = torch.empty((s * b, n_max), dtype=torch.float32, device=dev)
+    scratch = torch.empty((s * b * plan["scratch_bytes"] // 4,),
+                          dtype=torch.float32, device=dev)
     lib = _featurize_lib()
     with torch.cuda.device(dev):
         err = lib.gcc_featurize_launch(
             edges.data_ptr(), meta.data_ptr(), adj.data_ptr(),
-            m_shift.data_ptr(), deg.data_ptr(), s, e_tot, b, n_max, id_bits,
-            1 if dtype == torch.bfloat16 else 0,
+            m_shift.data_ptr(), deg.data_ptr(), scratch.data_ptr(), s, e_tot,
+            b, n_max, id_bits, 1 if dtype == torch.bfloat16 else 0, cluster,
             torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "featurize")
     fused_adjacency_featurize.launches += 1

@@ -1,9 +1,20 @@
-"""Where Kernel 2's and Kernel 3's time goes, part by part, on the card.
+"""Where Kernel 2's and Kernel 3's time goes, part by part, on the card;
+and Kernel 1 by width, dtype and cluster.
 
 Usage (on a machine with an NVIDIA GPU, from the repository root):
 
     python -m gcc_tpu_torch.ops.kernel_parts [--graphs 4096]
-        [--cases all|train|eval|pe64|general|jacobi]
+        [--cases all|train|eval|pe64|general|jacobi|featurize]
+
+``--cases featurize`` times ``fused_adjacency_featurize`` in f32 and
+bf16 on seeded random wires shaped like the routed pipeline's (32 graphs
+a segment, nodes uniform in [1, N], twice as many directed edges as
+nodes, both directions of each) at the training shapes (4096 graphs at
+N = 128 and 256), at N = 240, and at the E2E size split's class shapes
+(3840 graphs at N = 128, 256 at N = 256), each beside its bytes bound;
+where the package's plan takes a cluster (``aggregate._launch``), also
+at every band cluster that fits. Run it with the parent's package too
+(see below) to compare the two on one card.
 
 Times ``pe_subspace_iterate`` (CUDA events, mean of several launches)
 under schedules that switch its parts off — the bf16 rounds alone, the
@@ -46,7 +57,9 @@ import subprocess
 
 import torch
 
-from gcc_tpu_torch.ops import jacobi
+import numpy as np
+
+from gcc_tpu_torch.ops import aggregate, jacobi
 from gcc_tpu_torch.ops.jacobi import jacobi_eigh
 from gcc_tpu_torch.ops.pe import pe_launch_plan, pe_subspace_iterate
 
@@ -92,6 +105,77 @@ def _jacobi_plan(n: int, g: int) -> str:
             f"items={plan.get('items', '-')}")
 
 
+PEAK_BYTES = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
+
+
+def featurize_wire(graphs: int, n_max: int, b: int = 32, seed: int = 0,
+                   device="cuda"):
+    """(edges (S, E_tot) int32, meta (S, 3, B) int32) on ``device``: S =
+    graphs / b segments; graph j has n_j ~ U[1, N] nodes and n_j random
+    undirected edges, both directions stored one after the other (8-bit
+    ids); E_tot = 2·b·N."""
+    rng = np.random.default_rng(seed)
+    s = graphs // b
+    n = rng.integers(1, n_max + 1, (s, b))
+    gid = np.repeat(np.arange(s * b), n.ravel())
+    u = (rng.random(gid.size) * n.ravel()[gid]).astype(np.int64)
+    v = (rng.random(gid.size) * n.ravel()[gid]).astype(np.int64)
+    packed = np.stack([u | (v << 8), v | (u << 8)], 1).ravel()
+    seg = np.repeat(gid // b, 2)
+    first = np.concatenate([[0], np.cumsum(2 * n.sum(1))[:-1]])
+    e_tot = 2 * b * n_max
+    edges = np.zeros((s, e_tot), np.int32)
+    edges[seg, np.arange(packed.size) - first[seg]] = packed
+    meta = np.stack([n, 2 * n, np.zeros_like(n)], 1).astype(np.int32)
+    return (torch.as_tensor(edges, device=device),
+            torch.as_tensor(meta, device=device))
+
+
+def featurize_cases() -> None:
+    """Kernel 1 by shape and dtype (and band cluster, where the package's
+    wrapper takes one), each beside its bytes bound."""
+    plan_of = getattr(aggregate, "featurize_launch_plan", None)
+    for graphs, n in ((4096, 128), (4096, 256), (4096, 240), (3840, 128),
+                      (256, 256)):
+        edges, meta = featurize_wire(graphs, n)
+        for dtype in (torch.float32, torch.bfloat16):
+            size = 2 if dtype == torch.bfloat16 else 4
+            nbytes = edges.numel() * 4 + meta.numel() * 4 \
+                + graphs * n * n * 2 * size + graphs * n * 4
+            bound = nbytes / PEAK_BYTES * 1e3
+            clusters = [0]
+            if plan_of is not None:
+                base = plan_of(n, edges.shape[1], dtype)
+                if base["path"] == "band":
+                    clusters += [c for c in range(1, 5) if c != base["cluster"]
+                                 and _fits(plan_of, n, edges.shape[1], dtype,
+                                           c)]
+            for c in clusters:
+                def fn():
+                    if c:
+                        return aggregate._launch(edges, meta, n, 8, dtype, c)
+                    return aggregate.fused_adjacency_featurize(
+                        edges, meta, n, 8, dtype)
+
+                ms = timed_ms(fn, 20)
+                how = (f"path={plan_of(n, edges.shape[1], dtype, c)['path']} "
+                       f"cluster={c or base['cluster']}" if plan_of
+                       else "per-tile design")
+                print(f"featurize ({graphs}, {n}, {n}) {str(dtype)[6:]} {how}"
+                      f": {ms:.4f} ms, bound {bound:.4f} ms (bytes), "
+                      f"{100 * bound / ms:.1f}%", flush=True)
+        del edges, meta
+        torch.cuda.empty_cache()
+
+
+def _fits(plan_of, n: int, e_tot: int, dtype, cluster: int) -> bool:
+    try:
+        plan_of(n, e_tot, dtype, cluster)
+    except ValueError:
+        return False
+    return True
+
+
 SCHEDULES = (
     ("whole (train profile)", dict()),
     ("bf16 rounds only", dict(polish=0, final_ns=0)),
@@ -117,7 +201,7 @@ def main() -> None:
     ap.add_argument("--graphs", type=int, default=4096)
     ap.add_argument("--cases", default="all",
                     choices=("all", "train", "eval", "pe64", "general",
-                             "jacobi"))
+                             "jacobi", "featurize"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_parts: needs an NVIDIA card")
@@ -136,7 +220,9 @@ def main() -> None:
     general = ((256, 96, 174, 128), (512, 128, 381, 64), (832, 256, 677, 16))
     pe_cases = {"all": train + evals + pe64 + general, "train": train,
                 "eval": evals, "pe64": pe64, "general": general,
-                "jacobi": ()}[args.cases]
+                "jacobi": (), "featurize": ()}[args.cases]
+    if args.cases in ("all", "featurize"):
+        featurize_cases()
     for n, k, live, g in pe_cases:
         a = torch.rand(g, n, n, device=dev, generator=gen) / n
         m = a + a.transpose(1, 2) + torch.eye(n, device=dev)

@@ -98,6 +98,7 @@ from gcc_tpu_torch.training.pretrain import (  # noqa: E402
     featurize_stacked,
     train_step,
 )
+from featurize_wires import heavy_wire as _heavy_wire  # noqa: E402
 from test_torch_generate import (  # noqa: E402
     E_MAX,
     N_MAX,
@@ -190,24 +191,6 @@ def _reference_chain(edges, meta, n_max, id_bits):
     m_shift = (m + (pad[:, :, None] * eye) + eye).astype(m.dtype)
     deg = adj.sum(axis=2).astype(jnp.int32)
     return adj, m_shift, deg
-
-
-def _heavy_wire():
-    """One 400-node graph in the 512 bucket (16-bit ids) with in-degrees
-    of 301 and 259 from distinct sources (bf16 sums 300 and 260) and a
-    pair repeated 300 times (a bf16 count stops at 256), beside a graph
-    with no edges."""
-    src = np.concatenate([np.arange(1, 302), np.arange(4, 263),
-                          np.full(300, 2), np.arange(5, 40)])
-    dst = np.concatenate([np.zeros(301, int), np.full(259, 3),
-                          np.full(300, 1), np.arange(6, 41)])
-    packed = src.astype(np.int64) | (dst.astype(np.int64) << 16)
-    edges = np.zeros((1, 1024), np.int32)
-    edges[0, :packed.size] = packed
-    meta = np.zeros((1, 3, 2), np.int32)
-    meta[0, :, 0] = [400, packed.size, 0]
-    meta[0, :, 1] = [10, 0, 3]
-    return edges, meta, 512, 16
 
 
 def _wire(case):

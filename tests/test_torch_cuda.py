@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from featurize_wires import heavy_wire, pair_wire_256
 from gcc_tpu_torch.features.positional import subspace_start
 from gcc_tpu_torch.ops import aggregate, jacobi, pe
 
@@ -675,3 +676,154 @@ def test_jacobi_bf16_v_matches_plain(cuda_device, n, batch, kernel):
     w32, _ = jacobi.jacobi_eigh(a, sweeps=3, descending=True)
     assert torch.equal(w, w32)
     assert torch.equal(v, v.to(torch.bfloat16).float())
+
+
+# ---- Kernel 1: the band and tile paths, degrees from the stored entries --
+
+def _featurize_against_plain(device, edges, meta, n_max, id_bits, dtype,
+                             cluster=0):
+    """Kernel 1 (its plan's path, or the band path at a forced cluster)
+    against the plain version on the same card tensors: adj and deg bit
+    for bit; m_shift bit for bit in bf16, within 1e-6 in f32 (rsqrt may
+    differ by an ulp; measured 0). One launch counted a call."""
+    e = torch.as_tensor(edges, device=device)
+    m = torch.as_tensor(meta, device=device)
+    before = aggregate.fused_adjacency_featurize.launches
+    if cluster:
+        got = aggregate._launch(e, m, n_max, id_bits, dtype, cluster)
+    else:
+        got = aggregate.fused_adjacency_featurize(e, m, n_max, id_bits, dtype)
+    assert aggregate.fused_adjacency_featurize.launches == before + 1
+    want = aggregate.fused_adjacency_featurize_plain(e, m, n_max, id_bits,
+                                                     dtype)
+    assert got[0].dtype == got[1].dtype == aggregate.storage_dtype(dtype)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    err = (got[1].float() - want[1].float()).abs().max().item()
+    assert err <= (0.0 if dtype == "bfloat16" else 1e-6), err
+    return got
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("wire", [heavy_wire, pair_wire_256])
+def test_featurize_f1_wires_bit_for_bit(cuda_device, wire, dtype):
+    """The two wires where a pair repeats 300 times (N = 512 with 16-bit
+    ids: the tile path; N = 256 with 8-bit ids: the band path, a cluster
+    of 2): adj, m_shift and deg bit for bit the plain version's in both
+    dtypes, the degrees the sums of the stored entries (a bf16 count stops
+    at 256)."""
+    edges, meta, n_max, id_bits = wire()
+    plan = aggregate.featurize_launch_plan(n_max, edges.shape[1], dtype)
+    assert plan["path"] == ("tile" if n_max == 512 else "band")
+    adj, m_shift, deg = _featurize_against_plain(cuda_device, edges, meta,
+                                                 n_max, id_bits, dtype)
+    e = torch.as_tensor(edges, device=cuda_device)
+    m = torch.as_tensor(meta, device=cuda_device)
+    plain_ms = aggregate.fused_adjacency_featurize_plain(e, m, n_max, id_bits,
+                                                         dtype)[1]
+    assert torch.equal(m_shift, plain_ms)
+    lo = dtype == "bfloat16"
+    if n_max == 512:
+        want = [300.0, 256.0, 0.0, 260.0] if lo else [301.0, 300.0, 0.0,
+                                                      259.0]
+        assert deg[0, :4].tolist() == want
+    else:
+        assert deg[0, [0, 1, 3, 255]].tolist() == (
+            [255.0, 256.0, 296.0, 256.0] if lo else [255.0, 300.0, 296.0,
+                                                     300.0])
+    assert adj.float().max().item() == (256.0 if lo else 300.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_max", [100, 240, 250, 17])
+def test_featurize_ragged_widths(cuda_device, n_max, dtype):
+    """N = 100 (no multiple of 8: 16-byte stores in f32, 8-byte in bf16),
+    N = 240 (a cluster of 2 bands of 120 rows, 16-byte stores), N = 250
+    (8-byte f32 and 4-byte bf16 stores) and N = 17 (a value a store)."""
+    edges, meta = _wire(np.random.default_rng(n_max), 8, 8, n_max, 2048)
+    plan = aggregate.featurize_launch_plan(n_max, 2048, dtype)
+    assert plan["path"] == "band"
+    assert plan["cluster"] == (1 if n_max <= 128 else 2)
+    _featurize_against_plain(cuda_device, edges, meta, n_max, 8, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_max", [128, 256])
+def test_featurize_one_graph_and_no_edges(cuda_device, n_max, dtype):
+    """A batch of one graph, and a graph with no edges (adj 0, deg 0,
+    m_shift the identity on its real rows and 0 on the padding)."""
+    rng = np.random.default_rng(1)
+    u, v = rng.integers(0, 90, 150), rng.integers(0, 90, 150)
+    edges = np.zeros((1, 512), np.int32)
+    edges[0, :300] = np.stack([u | (v << 8), v | (u << 8)], 1).ravel()
+    meta = np.array([[[90], [300], [0]]], np.int32)
+    _featurize_against_plain(cuda_device, edges, meta, n_max, 8, dtype)
+    meta[0, 1, 0] = 0
+    meta[0, 0, 0] = 40
+    adj, m_shift, deg = _featurize_against_plain(cuda_device, edges, meta,
+                                                 n_max, 8, dtype)
+    eye = torch.eye(n_max, device=cuda_device)
+    eye[40:] = 0
+    assert not adj.any() and not deg.any()
+    assert torch.equal(m_shift[0].float(), eye)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_max,cluster", [(256, 1), (256, 4), (128, 2),
+                                           (240, 3), (64, 8)])
+def test_featurize_band_forced_clusters(cuda_device, n_max, cluster, dtype):
+    """The band path at every cluster shape it takes (bands of 256 rows
+    down to 8, ragged last bands): the same bits as the plain version."""
+    edges, meta = _wire(np.random.default_rng(cluster), 8, 8, n_max, 4096)
+    _featurize_against_plain(cuda_device, edges, meta, n_max, 8, dtype,
+                             cluster)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n_max,e_tot", [(128, 65536), (300, 4096)])
+def test_featurize_tile_path(cuda_device, n_max, e_tot, dtype):
+    """The tile path where a 16-bit count could overflow (e_tot >= 65536)
+    and past N = 256 (N = 300, a scalar tail a row)."""
+    id_bits = 8 if n_max <= 256 else 16
+    edges, meta = _wire(np.random.default_rng(e_tot), 2, 8, n_max, e_tot,
+                        id_bits)
+    assert aggregate.featurize_launch_plan(n_max, e_tot)["path"] == "tile"
+    _featurize_against_plain(cuda_device, edges, meta, n_max, id_bits, dtype)
+
+
+def test_featurize_refuses_beyond_2048(cuda_device):
+    e = torch.zeros((1, 8), dtype=torch.int32, device=cuda_device)
+    m = torch.zeros((1, 3, 1), dtype=torch.int32, device=cuda_device)
+    before = aggregate.fused_adjacency_featurize.launches
+    with pytest.raises(ValueError, match="n_max=4096"):
+        aggregate.fused_adjacency_featurize(e, m, 4096, 16)
+    with pytest.raises(TypeError, match="int32"):
+        aggregate.fused_adjacency_featurize(e.long(), m, 128, 8)
+    assert aggregate.fused_adjacency_featurize.launches == before
+
+
+def test_featurize_plan_mirrors_the_source(cuda_device):
+    """featurize_launch_plan (Python) and gcc_featurize_plan (csrc/
+    featurize.cu) agree on every width, wire size, dtype and forced
+    cluster, and refuse the same."""
+    import ctypes
+
+    lib = aggregate._featurize_lib()
+    out = (ctypes.c_int * 10)()
+    for n in list(range(1, 300, 7)) + [128, 240, 256, 512, 2047, 2048, 2049]:
+        for e_tot in (0, 6656, 65535, 65536):
+            for lo, dtype in ((0, "float32"), (1, "bfloat16")):
+                for cluster in (0, 1, 2, 3, 8, 9):
+                    err = lib.gcc_featurize_plan(n, e_tot, lo, cluster, out)
+                    try:
+                        plan = aggregate.featurize_launch_plan(n, e_tot, dtype,
+                                                               cluster)
+                    except ValueError:
+                        assert err != 0, (n, e_tot, lo, cluster)
+                        continue
+                    assert err == 0, (n, e_tot, lo, cluster)
+                    assert list(out) == [
+                        0 if plan["path"] == "band" else 1, plan["cluster"],
+                        plan["rows"], plan["count_bits"], plan["threads"],
+                        plan["smem_bytes"], plan["blocks_per_graph"],
+                        plan["launches"], plan["store_bytes"],
+                        plan["scratch_bytes"]], (n, e_tot, lo, cluster)
