@@ -173,6 +173,14 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    every column printed beside it), one routed dispatch at PE 64, and
    encode calls at PE 32 (n_max 512), PE 80 (n_max 256) and PE 496
    (n_max 832).
+14c. The measurement entry points: `python -m gcc_tpu_torch.bench` moco
+   and e2e in-process (gcc_tpu_torch.bench.run) at full width, batch and
+   queue on this script's corpus (the bench's own), cut to 4 chunks with
+   the first dropped, then `gcc_tpu_torch.scripts.giant_bench` at 50,000
+   nodes; launch counters zeroed before each (moco: all three kernels;
+   e2e: Kernels 2 and 3; the giant graph: Kernel 3 twice a call; no
+   plain-version call), each JSON line printed and held well-formed and
+   finite, vs_roofline null.
 15. Prints one {"kernels": [...]} JSON line (one entry per kernel and
    shape, with the path that runs it), the nvidia-smi line again, and as
    the last line {"ok": true, "device": {...}}.
@@ -348,6 +356,11 @@ PE_SPREAD_SEEDS = (1, 2, 3, 4, 5, 6)
 SLOW_LIBRARY_MS = 1000.0
 # Data parallel at world size 1: routed dispatches of each run.
 DP_DISPATCHES = 2
+# The measurement entry points, cut in chunks only: 4 chunks of the
+# bench's 12, the first dropped (widths, batch and queue unchanged); the
+# giant bench at its own 50,000 nodes.
+BENCH_CHUNKS, BENCH_WARM_CHUNKS = 4, 1
+GIANT_BENCH_NODES = 50_000
 
 
 def fail(msg: str) -> int:
@@ -2866,6 +2879,63 @@ def bf16_levers_path(ops, cfg, small_items, large_items, check, results):
             ("jacobi", "n512bf16"): enc_launches[496]["jacobi"]}
 
 
+def bench_path(ops, corpus_dir, check) -> None:
+    """The measurement entry points on the card: ``gcc_tpu_torch.bench``
+    moco and e2e in-process at their full widths, batches and queues, cut
+    to BENCH_CHUNKS chunks (BENCH_WARM_CHUNKS dropped), on the corpus the
+    script made (the bench's own); then ``scripts.giant_bench`` at its
+    50,000 nodes. Launch counters are zeroed before each and read after:
+    moco runs all three kernels, e2e Kernels 2 and 3 (its size split
+    builds the adjacency without Kernel 1), the giant graph Kernel 3 (its
+    PE finish, twice a call); no plain-version call. Each JSON line must
+    be well-formed and finite, with a finite loss and vs_roofline null."""
+    import torch
+
+    from gcc_tpu_torch import bench
+    from gcc_tpu_torch.scripts import giant_bench
+
+    want = {"moco": ("featurize", "pe", "jacobi"), "e2e": ("pe", "jacobi")}
+    for name, kernels in want.items():
+        line, launches, plain, dt = counted(ops, lambda: bench.run(
+            bench.CONFIGS[name], corpus=corpus_dir, device="cuda",
+            n_chunks=BENCH_CHUNKS, warm_chunks=BENCH_WARM_CHUNKS))
+        d = line["detail"]
+        print(f"bench {name}: {dt:.1f} s, kernel launches {launches}",
+              flush=True)
+        numbers = [line["value"], line["vs_baseline"], d["step_ms"],
+                   d["device_step_ms"], d["steps_per_s"], d["loss"],
+                   *d["device_step_trials_ms"], *d["chunk_rates_M"]]
+        check(line["metric"] == "edge_messages/s/chip"
+              and line["unit"] == "edge-messages/s"
+              and len(d["chunk_rates_M"]) == BENCH_CHUNKS
+              and len(d["device_step_trials_ms"]) == bench.DEVICE_TRIALS
+              and bool(d["gpu"]), f"bench {name}: line well-formed")
+        check(all(isinstance(x, (int, float)) and math.isfinite(x)
+                  and x > 0 for x in numbers),
+              f"bench {name}: value, step times, rates and loss finite")
+        check(line["vs_roofline"] is None and d["vs_roofline_device"] is None,
+              f"bench {name}: vs_roofline and vs_roofline_device null")
+        check(all(launches[k] > 0 for k in kernels)
+              and all(launches[k] == 0 for k in launches if k not in kernels)
+              and not any(plain.values()),
+              f"bench {name}: kernels {kernels} launched, no others, no "
+              "plain-version call")
+        torch.cuda.empty_cache()
+    out, launches, plain, dt = counted(ops, lambda: giant_bench.run(
+        nodes=GIANT_BENCH_NODES, device="cuda"))
+    print(json.dumps(out), flush=True)
+    print(f"giant_bench: {dt:.1f} s, kernel launches {launches}", flush=True)
+    check(out["nodes"] == GIANT_BENCH_NODES and all(
+        math.isfinite(x) and x > 0 for x in (
+            out["first_encode_s"], out["warm_encode_s"],
+            out["edge_msgs_per_s_encode"], *out["warm_trials_s"])),
+        "giant_bench: line well-formed and finite")
+    check(launches["jacobi"] == 2 * (1 + giant_bench.WARM_TRIALS)
+          and not any(plain.values()),
+          f"giant_bench: Kernel 3 twice a call {launches}, no plain-version "
+          "call")
+
+
 def main() -> int:
     try:
         import torch
@@ -3131,6 +3201,10 @@ def main() -> int:
         lever_launches = bf16_levers_path(ops, cfg, small_items, large_items,
                                           check, results)
         phase("bf16 storage levers")
+
+        # --- the measurement entry points ---------------------------------
+        bench_path(ops, corpus_dir, check)
+        phase("bench")
 
     sources = {"featurize": ("gcc_tpu_torch/csrc/featurize.cu",
                              "gcc_tpu/ops/featurize_pallas.py:92"),

@@ -1,0 +1,7 @@
+"""The port's measurement scripts, counterparts of the repository's
+``scripts/`` of the same names: ``giant_bench`` (the giant path's wall
+time), ``refscale_bench`` (host sampler pairs/s at the reference's corpus
+scale), ``hub_ab`` (the sampler's hub-row A/B) and ``bench_scaling``
+(data-parallel weak scaling). Run each with ``python -m
+gcc_tpu_torch.scripts.<name>``; each prints its JSON and writes it only to
+its ``--out`` path (default under ``build/gcc_tpu_torch/``)."""
