@@ -87,6 +87,18 @@ Usage (from the repository root, on a machine with an NVIDIA H100):
    plain versions at the instruments' shapes: (64, 256, 256) and (32,
    256, 256) at k = 48 on RWR views of role v2, (64, 48, 48) and (32, 48,
    48) on their Rayleigh-Ritz matrices, and untimed on 64 family graphs.
+9c. Runs the accuracy A/Bs (`gcc_tpu_torch.scripts`) cut in depth on
+   the phase-3 corpus: pe_ab's arms subspace-g0, subspace (16 guards),
+   eigh and subspace-g0-stacked, each one dispatch of 8 steps at full
+   width and the role-v2 transfer (8 blocks, eval PE pinned to exact
+   eigh), with the launch counters zeroed around each arm; e2e_canonical
+   for one dispatch and the same transfer; graph_readout_ab's encode of
+   24 family graphs from the g0 checkpoint and its 15 compositions; every
+   .npz held to its shape and to finite values. Then Kernel 2 at k = 48
+   and Kernel 3's pair kernel on its Gram and Rayleigh-Ritz matrices at
+   the 16-guard training arm's shapes, (3968, 128, 128) and (3968, 48,
+   48) — a recipe dispatch of 62 steps — held against their plain
+   versions and timed.
 10. Runs entire graphs beyond the dense bucket through
    generate_graph_embeddings (from the serve path's checkpoint, n_max
    512): 3 graphs within n_max, 16 REDDIT-shaped graphs of 1,000-3,782
@@ -361,6 +373,12 @@ DP_DISPATCHES = 2
 # giant bench at its own 50,000 nodes.
 BENCH_CHUNKS, BENCH_WARM_CHUNKS = 4, 1
 GIANT_BENCH_NODES = 50_000
+# The accuracy A/Bs, cut in depth: these pe_ab arms (the three PE methods
+# and the stacked emission), one dispatch of AB_STEPS steps each, a
+# role-v2 graph of AB_BLOCKS blocks, the readout grid on
+# AB_GRAPHS_PER_CLASS graphs a family; the recipe's dispatch is 62 steps.
+AB_ARMS = ("subspace-g0", "subspace", "eigh", "subspace-g0-stacked")
+AB_STEPS, AB_BLOCKS, AB_GRAPHS_PER_CLASS, AB_RECIPE_STEPS = 8, 8, 4, 62
 
 
 def fail(msg: str) -> int:
@@ -1791,6 +1809,123 @@ def instruments_path(ops, ckpt, out_dir, check, results):
     return out_launches
 
 
+def accuracy_ab_path(ops, small_items, corpus_dir, out_dir, check, results):
+    """The accuracy A/Bs (``gcc_tpu_torch.scripts.pe_ab``,
+    ``e2e_canonical``, ``graph_readout_ab``) cut in depth: the pe_ab arms
+    AB_ARMS each train one dispatch of AB_STEPS steps at full width on the
+    phase-3 corpus and encode a role-v2 graph of AB_BLOCKS blocks with the
+    eval PE pinned to exact eigh, with the launch counters zeroed around
+    each arm (a training dispatch: Kernel 1 once, Kernel 2 once, Kernel 3
+    once, twice at 16 guards; none for the eigh arm; the pinned eval none);
+    e2e_canonical one epoch of one dispatch (Kernels 2 and 3 once per size
+    class) and the same transfer; graph_readout_ab's encode of
+    AB_GRAPHS_PER_CLASS graphs a family from the g0 checkpoint (the eval
+    profile: Kernel 2 once, Kernel 3 twice per encode call). Every .npz is
+    held to its shape and to finite values, and the readout grid's 15
+    compositions are assembled from it (scored where scikit-learn is,
+    which this machine may lack). Then Kernels 2 and 3 at the 16-guard training arm's
+    shapes, which no other path runs: the PE iteration at k = 48 on a
+    recipe dispatch of bucket 128 (62 steps, 3,968 graphs) and Kernel 3's
+    pair kernel on the Gram and Rayleigh-Ritz matrices of its output, held
+    against their plain versions. Returns the rows' launches."""
+    import numpy as np
+    import torch
+
+    from gcc_tpu_torch.scripts import e2e_canonical, graph_readout_ab, pe_ab
+
+    root = os.path.join(out_dir, "pe_ab")
+    os.makedirs(root, exist_ok=True)
+    # The recipe's corpus is phase 3's (the same generator and seed).
+    os.symlink(corpus_dir, os.path.join(root, "corpus"))
+    log = lambda s: None  # noqa: E731
+    arm_launches = {}
+    for arm in AB_ARMS:
+        rec, launches, plain, dt = counted(ops, lambda arm=arm: pe_ab.run_arm(
+            root, arm, 0, epochs=1, blocks=AB_BLOCKS,
+            num_samples=AB_STEPS * BATCH, log_fn=log))
+        arm_launches[arm] = launches
+        g16 = pe_ab.ARMS[arm].pe_guards and pe_ab.ARMS[arm].pe_method \
+            == "subspace"
+        want = {"featurize": 1, "pe": 0, "jacobi": 0} \
+            if pe_ab.ARMS[arm].pe_method == "eigh" else \
+            {"featurize": 1, "pe": 1, "jacobi": 2 if g16 else 1}
+        print(f"pe_ab {arm}: {rec['steps']} steps, train {rec['train_s']} s, "
+              f"role-v2 transfer ({rec['eval_nodes']} nodes, eval PE "
+              f"{rec['eval_pe']}) {rec['eval_s']} s, {dt:.1f} s in all; avg "
+              f"loss {rec['avg_loss']:.4f}; kernel launches {launches}",
+              flush=True)
+        check(launches == want and not any(plain.values()),
+              f"pe_ab {arm}: launches {launches} == {want}, no plain-version "
+              "call")
+        check(math.isfinite(rec["avg_loss"]), f"pe_ab {arm}: loss finite")
+        z = np.load(pe_ab.result_paths(root, arm, 0, "v2")[2])
+        check(z["emb"].shape == (rec["eval_nodes"], 64)
+              and z["labels"].shape == (rec["eval_nodes"], 9)
+              and bool(np.isfinite(z["emb"]).all()),
+              f"pe_ab {arm}: .npz emb {z['emb'].shape}, labels "
+              f"{z['labels'].shape}, finite")
+
+    # -- e2e_canonical, one epoch of one dispatch -------------------------
+    e2e_dir = os.path.join(out_dir, "e2e_canonical")
+    os.makedirs(e2e_dir, exist_ok=True)
+    os.symlink(corpus_dir, os.path.join(e2e_dir, "corpus"))
+    rec, launches, plain, dt = counted(ops, lambda: e2e_canonical.run(
+        e2e_dir, epochs=1, num_samples=E2E_STEPS * E2E_BATCH,
+        blocks=AB_BLOCKS, log_fn=log))
+    print(f"e2e_canonical: {rec['config']}, train {rec['train_s']} s, loss "
+          f"{rec['avg_loss_final_epoch']:.4f}, {dt:.1f} s in all; kernel "
+          f"launches {launches}", flush=True)
+    check(launches == {"featurize": 0, "pe": 2, "jacobi": 2}
+          and not any(plain.values()),
+          f"e2e_canonical: Kernels 2 and 3 once per size class {launches}")
+    z = np.load(os.path.join(e2e_dir, "e2e_canonical.npz"))
+    check(z["emb"].shape == (rec["eval_nodes"], 64)
+          and bool(np.isfinite(z["emb"]).all())
+          and math.isfinite(rec["avg_loss_final_epoch"]),
+          f"e2e_canonical: .npz emb {z['emb'].shape} finite, loss finite")
+
+    # -- graph_readout_ab's encode from the g0 checkpoint ----------------
+    ckpt = os.path.join(root, pe_ab.finished_run(
+        pe_ab.result_paths(root, "subspace-g0", 0, "v2")[0], AB_STEPS),
+        "current")
+    ro_dir = os.path.join(out_dir, "readouts")
+    paths, launches, plain, dt = counted(ops, lambda: graph_readout_ab.encode(
+        [ckpt], ro_dir, graphs_per_class=AB_GRAPHS_PER_CLASS, log_fn=log))
+    n_graphs = 6 * AB_GRAPHS_PER_CLASS
+    calls = -(-n_graphs // GEN_BATCH)
+    print(f"graph_readout_ab encode: {n_graphs} graphs in {dt:.2f} s; kernel "
+          f"launches {launches}", flush=True)
+    check(launches == {"featurize": 0, "pe": calls, "jacobi": 2 * calls}
+          and not any(plain.values()),
+          f"graph_readout_ab: Kernel 2 once, Kernel 3 twice per encode call "
+          f"{launches}")
+    variants = graph_readout_ab.assemble_variants(
+        graph_readout_ab.load_readouts(paths[0]))
+    check(len(variants) == 15 and all(
+        v.shape[0] == n_graphs and np.isfinite(v).all()
+        for v in variants.values()),
+          f"graph_readout_ab: 15 compositions of {n_graphs} rows, finite "
+          f"({len(variants)})")
+
+    # -- Kernels 2 and 3 at the 16-guard training arm's shapes -----------
+    from gcc_tpu_torch.ops.aggregate import fused_adjacency_featurize
+
+    edges, meta = wire_segments(small_items[0], "cuda")
+    edges, meta = edges[:2 * AB_RECIPE_STEPS], meta[:2 * AB_RECIPE_STEPS]
+    _, m_shift, _ = fused_adjacency_featurize(edges, meta, N_SMALL,
+                                              small_items[0][0].id_bits)
+    n_nodes = meta[:, 0, :].reshape(-1)
+    results[("pe", "g16")], q = check_pe(m_shift, n_nodes, K_EVAL, check,
+                                         key="g16")
+    s_g, t_rr = guarded_rr_matrices(m_shift, q)
+    check_jacobi(s_g, check, timed=False)
+    results[("jacobi", "g16")] = check_jacobi(t_rr, check, key="g16")
+    del m_shift, q, s_g, t_rr
+    torch.cuda.empty_cache()
+    g16 = arm_launches["subspace"]
+    return {("pe", "g16"): g16["pe"], ("jacobi", "g16"): g16["jacobi"]}
+
+
 def row_cosine_errors(a, b, n, seed=0):
     """Mean and max |a·aᵀ - b·bᵀ| over the first n rows (pairs of rows of
     two (N, k) blocks, on the card), or over a seeded sample of
@@ -3171,6 +3306,12 @@ def main() -> int:
             ops, ckpt, os.path.join(work, "instruments"), check, results)
         phase("downstream instruments")
 
+        # --- the accuracy A/Bs, cut in depth ------------------------------
+        ab_launches = accuracy_ab_path(ops, small_items, corpus_dir,
+                                       os.path.join(work, "ab"), check,
+                                       results)
+        phase("accuracy A/Bs")
+
         # --- giant graphs beyond the dense bucket -------------------------
         giant_launches, giant_info = giant_path(ops, cfg2, ckpt, check,
                                                 results)
@@ -3229,6 +3370,8 @@ def main() -> int:
              for (name, key), n in ft_launches.items()]
     rows += [(name, key, "instruments", {name: n})
              for (name, key), n in instr_launches.items()]
+    rows += [(name, key, "accuracy A/Bs", {name: n})
+             for (name, key), n in ab_launches.items()]
     rows += [(name, key, "giant", {name: n})
              for (name, key), n in giant_launches.items()]
     rows += [(name, key, "padded", {name: n})

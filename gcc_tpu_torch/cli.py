@@ -79,6 +79,7 @@ def _add_train_flags(p):
     p.add_argument("--exp", default="")
     p.add_argument("--dataset", default="corpus")
     add_lever_flags(p)
+    add_pe_flags(p)
 
 
 def add_lever_flags(p):
@@ -93,6 +94,24 @@ def add_lever_flags(p):
     p.add_argument("--jacobi-v-dtype", default=None, choices=STORAGE_DTYPES,
                    help="storage of the Jacobi finishes' eigenvectors "
                         "(default float32)")
+
+
+def add_pe_flags(p):
+    """The reference's GCC_TPU_PE_GUARDS as an option; omitted, a
+    checkpoint's own setting holds (each profile's guards for a new
+    run)."""
+    p.add_argument("--pe-guards", type=int, default=None,
+                   help="guard columns of the subspace PE on every profile "
+                        "(default: train 0, eval 16)")
+
+
+def _with_flags(cfg, args):
+    """``cfg`` with the storage levers and PE guards the command line
+    gives."""
+    from gcc_tpu_torch.config import with_levers
+
+    return with_levers(cfg, args.adj_dtype, args.jacobi_v_dtype,
+                       args.pe_guards)
 
 
 def _add_device_flag(p):
@@ -129,6 +148,7 @@ def _cfg_from_args(args):
             set2set_lstm_layer=args.set2set_lstm_layer,
             adj_dtype=args.adj_dtype or "float32",
             jacobi_v_dtype=args.jacobi_v_dtype or "float32",
+            pe_guards=args.pe_guards,
         ),
         contrast=ContrastConfig(
             moco=args.moco, nce_k=args.nce_k, nce_t=args.nce_t,
@@ -213,7 +233,6 @@ def _pretrain(args):
 
 
 def cmd_finetune(args):
-    from gcc_tpu_torch.config import with_levers
     from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
     from gcc_tpu_torch.training.checkpoint import load_checkpoint, load_config
     from gcc_tpu_torch.training.finetune import (
@@ -230,7 +249,7 @@ def cmd_finetune(args):
         cfg = _cfg_from_args(args)
     cfg = dataclasses.replace(cfg, epochs=args.epochs, seed=args.seed,
                               batch_size=args.batch_size)
-    cfg = with_levers(cfg, args.adj_dtype, args.jacobi_v_dtype)
+    cfg = _with_flags(cfg, args)
 
     if args.dataset in GRAPH_CLASSIFICATION_DSETS:
         from gcc_tpu_torch.data.tu import load_tu_dataset
@@ -265,14 +284,12 @@ def cmd_generate(args):
 def _generate(args, group):
     import torch.distributed as dist
 
-    from gcc_tpu_torch.config import with_levers
     from gcc_tpu_torch.data.formats import GRAPH_CLASSIFICATION_DSETS
     from gcc_tpu_torch.generate import generate_embeddings, node_subgraphs
     from gcc_tpu_torch.training.checkpoint import load_config, load_encoder
 
     run_dir = os.path.dirname(args.ckpt)
-    cfg = with_levers(load_config(run_dir), args.adj_dtype,
-                      args.jacobi_v_dtype)
+    cfg = _with_flags(load_config(run_dir), args)
     enc = load_encoder(args.ckpt, cfg, device=args.device)
 
     if args.dataset in GRAPH_CLASSIFICATION_DSETS:
@@ -396,6 +413,7 @@ def main(argv=None):
                         "'composite' = mean-pooled input + per-layer "
                         "L2'd conv sums (generate.composite_graph_readout)")
     add_lever_flags(p)
+    add_pe_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_generate)
 

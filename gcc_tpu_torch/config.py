@@ -62,6 +62,12 @@ class EncoderConfig:
     # sidecar written before these fields loads as float32.
     adj_dtype: str = "float32"
     jacobi_v_dtype: str = "float32"
+    # The subspace PE's guard columns on every profile, which the
+    # reference reads from GCC_TPU_PE_GUARDS
+    # (gcc_tpu/features/positional.py:373-388). None keeps each profile's
+    # own: train 0, eval 16 (the giant path's eval 16 too). A sidecar
+    # written before this field loads with None.
+    pe_guards: int | None = None
 
     def __post_init__(self):
         for name in ("adj_dtype", "jacobi_v_dtype"):
@@ -69,6 +75,10 @@ class EncoderConfig:
                 raise ValueError(f"EncoderConfig.{name} is one of "
                                  f"{STORAGE_DTYPES}, got "
                                  f"{getattr(self, name)!r}")
+        if self.pe_guards is not None and not (
+                isinstance(self.pe_guards, int) and self.pe_guards >= 0):
+            raise ValueError("EncoderConfig.pe_guards is None or an int >= "
+                             f"0, got {self.pe_guards!r}")
 
     @property
     def node_input_dim(self) -> int:
@@ -180,16 +190,28 @@ class TrainConfig:
 
 
 def with_levers(cfg: TrainConfig, adj_dtype: str | None = None,
-                jacobi_v_dtype: str | None = None) -> TrainConfig:
-    """``cfg`` with the encoder's storage levers replaced where given
-    (None keeps the configuration's, e.g. a checkpoint's)."""
+                jacobi_v_dtype: str | None = None,
+                pe_guards: int | None = None) -> TrainConfig:
+    """``cfg`` with the encoder's storage levers and PE guards replaced
+    where given (None keeps the configuration's, e.g. a checkpoint's)."""
     changes = {k: v for k, v in (("adj_dtype", adj_dtype),
-                                 ("jacobi_v_dtype", jacobi_v_dtype))
+                                 ("jacobi_v_dtype", jacobi_v_dtype),
+                                 ("pe_guards", pe_guards))
                if v is not None}
     if not changes:
         return cfg
     return dataclasses.replace(
         cfg, encoder=dataclasses.replace(cfg.encoder, **changes))
+
+
+def without_switches(cfg: TrainConfig) -> TrainConfig:
+    """``cfg`` with the storage levers and PE guards at their defaults:
+    what the reference computes in a process where none of its variables
+    is set (an A/B's evaluation of a checkpoint trained with them)."""
+    defaults = EncoderConfig()
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, **{k: getattr(defaults, k) for k in (
+            "adj_dtype", "jacobi_v_dtype", "pe_guards")}))
 
 
 def _from_dict(cls: Any, d: dict) -> Any:

@@ -14,7 +14,10 @@ compute the PE on both.
 ``adj_dtype`` and ``v_dtype`` (``EncoderConfig.adj_dtype`` and
 ``jacobi_v_dtype``; the reference's ``GCC_TPU_ADJ_DTYPE`` and
 ``GCC_TPU_JACOBI_V_DTYPE``) store the adjacency chain and Kernel 3's Vᵀ
-in bf16. The degree feature follows each route as the reference's does:
+in bf16. ``guards`` (``EncoderConfig.pe_guards``; the reference's
+``GCC_TPU_PE_GUARDS``) reaches the PE unchanged: None keeps the
+profile's own guard columns.
+The degree feature follows each route as the reference's does:
 :func:`featurize_compact` takes the row sum in the adjacency's dtype
 (``featurize.py:128``: rounded to bf16, so an in-degree of 257 reads
 256), :func:`featurize_batch` in f32 (``featurize.py:41``).
@@ -54,10 +57,11 @@ class BatchFeatures(NamedTuple):
 def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
                     pe_method: str = "eigh", profile: str = "train",
                     device="cuda", adj_dtype=torch.float32,
-                    v_dtype=torch.float32) -> BatchFeatures:
+                    v_dtype=torch.float32, guards=None) -> BatchFeatures:
     """Upload a padded host batch and featurize it
     (``featurize.py:32-48``). ``profile`` selects the subspace PE's guard
-    columns ("train" → 0, "eval" → 16); the eigh method ignores it."""
+    columns ("train" → 0, "eval" → 16) unless ``guards`` is given; the
+    eigh method ignores both."""
     device = resolve_device(device)
 
     def up(x):
@@ -69,7 +73,7 @@ def featurize_batch(batch: PaddedSubgraphBatch, pos_size: int,
                                 batch.n_max, adj_dtype)
     pos = laplacian_positional_embedding(
         node_mask, up(batch.n_nodes), pos_size, adj=adj, method=pe_method,
-        profile=profile, v_dtype=v_dtype)
+        profile=profile, v_dtype=v_dtype, guards=guards)
     return BatchFeatures(pos=pos, degrees=node_degrees(adj).to(torch.int32),
                          seed_flag=up(batch.seed_flag), node_mask=node_mask,
                          adj=adj)
@@ -79,7 +83,7 @@ def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
                       id_bits: int, pos_size: int,
                       pe_method: str = "subspace",
                       profile: str = "train", adj_dtype=torch.float32,
-                      v_dtype=torch.float32) -> BatchFeatures:
+                      v_dtype=torch.float32, guards=None) -> BatchFeatures:
     """Featurize stacked compact wire segments (``featurize.py:76-134``).
 
     Args:
@@ -97,6 +101,7 @@ def featurize_compact(edges: torch.Tensor, meta: torch.Tensor, n_max: int,
                                                   adj_dtype)
     pos = laplacian_positional_embedding(node_mask, n_nodes, pos_size,
                                          m_shift, adj=adj, method=pe_method,
-                                         profile=profile, v_dtype=v_dtype)
+                                         profile=profile, v_dtype=v_dtype,
+                                         guards=guards)
     return BatchFeatures(pos=pos, degrees=deg.to(torch.int32),
                          seed_flag=seed_flag, node_mask=node_mask, adj=adj)

@@ -18,7 +18,10 @@ Jacobi solve, on the Gram matrix) and drops the guards after the
 rotation. The reference reads its switches from the environment
 (``GCC_TPU_PE_GUARDS``, ``GCC_TPU_PE_RR``, ``GCC_TPU_PE_RR_SWEEPS``);
 here they are the keyword arguments ``guards``, ``rr`` and ``rr_sweeps``
-with the same defaults. (``GCC_TPU_JACOBI_LAYOUT`` picks between two
+with the same defaults. Every entry point takes ``guards`` from
+``EncoderConfig.pe_guards``, which the accuracy A/Bs turn; ``rr`` and
+``rr_sweeps`` are for the tests that hold the finishes against each
+other, as the reference's two variables are. (``GCC_TPU_JACOBI_LAYOUT`` picks between two
 numerically identical memory layouts of the reference's Jacobi; the
 port's Jacobi has one layout and no such argument.)
 

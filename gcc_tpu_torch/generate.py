@@ -80,7 +80,7 @@ def _encode_chunks(cfg: TrainConfig, enc: GraphEncoder, subgraphs, n_max,
             cfg.encoder.positional_embedding_size,
             pe_method=cfg.encoder.pe_method, profile="eval", device=device,
             adj_dtype=cfg.encoder.adj_dtype,
-            v_dtype=cfg.encoder.jacobi_v_dtype)
+            v_dtype=cfg.encoder.jacobi_v_dtype, guards=cfg.encoder.pe_guards)
         yield enc(feats, return_all_outputs=return_all_outputs), keep
 
 

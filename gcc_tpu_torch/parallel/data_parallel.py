@@ -314,7 +314,8 @@ def make_dp_train_step(n_max: int | None = None, group=None):
                 batch_q, batch_k = featurize_pair(
                     batch_q, batch_k, enc.positional_embedding_size, n_max,
                     device=state.device, pe_method=enc.pe_method,
-                    adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype)
+                    adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype,
+                    guards=enc.pe_guards)
             return train_step(state, batch_q, batch_k)
 
     return step

@@ -351,9 +351,12 @@ def giant_graph_embedding(model, g, parts: int | None = None,
     host partitions, as the reference's single controller does, places
     only its own shard, and computes its block of rows; every rank
     returns the same embedding. guards: PE guard columns (default: the
-    eval profile's 16). The PE's finish stores Kernel 3's Vᵀ in the
-    encoder configuration's ``jacobi_v_dtype``. Returns the (output_dim,)
-    L2-normalized embedding on `device`, without a host sync."""
+    encoder configuration's ``pe_guards`` where set, as the reference's
+    ``GCC_TPU_PE_GUARDS``, else the eval profile's 16; the finish keeps
+    its own 5 sweeps and Jacobi, as the reference's does). The PE's
+    finish stores Kernel 3's Vᵀ in the encoder configuration's
+    ``jacobi_v_dtype``. Returns the (output_dim,) L2-normalized embedding
+    on `device`, without a host sync."""
     device = resolve_device(device)
     check_giant_encoder(model)
     _require_degree_input(model)
@@ -366,6 +369,8 @@ def giant_graph_embedding(model, g, parts: int | None = None,
     if next(model.parameters()).device.type != device.type:
         raise ValueError(f"the encoder lives on "
                          f"{next(model.parameters()).device}, not {device}")
+    if guards is None:
+        guards = model.cfg.pe_guards
     if guards is None:
         guards = pe_guards("eval")
     n = g.num_nodes

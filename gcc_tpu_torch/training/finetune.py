@@ -107,7 +107,7 @@ def _featurize(state: FinetuneState, batch: PaddedSubgraphBatch):
     return featurize_batch(batch, enc.positional_embedding_size,
                            pe_method=enc.pe_method, profile="eval",
                            device=state.device, adj_dtype=enc.adj_dtype,
-                           v_dtype=enc.jacobi_v_dtype)
+                           v_dtype=enc.jacobi_v_dtype, guards=enc.pe_guards)
 
 
 def finetune_step(state: FinetuneState, batch: PaddedSubgraphBatch,

@@ -226,12 +226,13 @@ def optimizer_update(state, loss: torch.Tensor,
 def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
                       pos_size: int, n_max: int | None = None,
                       device="cuda", pe_method: str = "subspace",
-                      adj_dtype=torch.float32, v_dtype=torch.float32
-                      ) -> BatchFeatures:
+                      adj_dtype=torch.float32, v_dtype=torch.float32,
+                      guards=None) -> BatchFeatures:
     """Featurize a K-step dispatch — (K, E_tot) edges / (K, 3, B) meta per
     view, or one unstacked step — in one batched call. Returns
     BatchFeatures with (K, 2·B, ...) fields: per step, [:B] is the query
-    half and [B:] the key half (pretrain.py:290-318)."""
+    half and [B:] the key half (pretrain.py:290-318). ``guards``:
+    ``EncoderConfig.pe_guards``, as in every featurize function here."""
     device = resolve_device(device)
     n_max = wires_q.n_max or n_max
     if n_max is None:
@@ -248,7 +249,7 @@ def featurize_stacked(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
     meta = torch.stack([mq, mk], dim=1).reshape(2 * k_steps, 3, bsz)
     feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
                               pe_method=pe_method, adj_dtype=adj_dtype,
-                              v_dtype=v_dtype)
+                              v_dtype=v_dtype, guards=guards)
     return feats.map(lambda x: x.reshape((k_steps, 2 * bsz) + x.shape[1:]))
 
 
@@ -256,7 +257,8 @@ def featurize_stacked_dp(wires_q: CompactWireBatch,
                          wires_k: CompactWireBatch, pos_size: int,
                          n_max: int | None = None, device="cuda",
                          pe_method: str = "subspace", adj_dtype=torch.float32,
-                         v_dtype=torch.float32) -> BatchFeatures:
+                         v_dtype=torch.float32, guards=None
+                         ) -> BatchFeatures:
     """Featurize a DP-stacked dispatch — (K, D, e_dev) edges / (K, D, 3,
     b) meta (``PipelineConfig.devices``; on a rank, its slice of the
     device axis) — in one batched call (``pretrain.py:543-579``).
@@ -281,7 +283,7 @@ def featurize_stacked_dp(wires_q: CompactWireBatch,
     meta = torch.stack([mq, mk], dim=2).reshape(k_steps * d * 2, 3, b)
     feats = featurize_compact(edges, meta, n_max, wires_q.id_bits, pos_size,
                               pe_method=pe_method, adj_dtype=adj_dtype,
-                              v_dtype=v_dtype)
+                              v_dtype=v_dtype, guards=guards)
     return feats.map(lambda x: x.reshape((k_steps, d * 2 * b) + x.shape[1:]))
 
 
@@ -297,8 +299,8 @@ def split_feats_qk_dp(feats: BatchFeatures, d: int, b: int):
 
 def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
                    n_max: int, device="cuda", pe_method: str = "subspace",
-                   adj_dtype=torch.float32, v_dtype=torch.float32
-                   ) -> tuple[BatchFeatures, BatchFeatures]:
+                   adj_dtype=torch.float32, v_dtype=torch.float32,
+                   guards=None) -> tuple[BatchFeatures, BatchFeatures]:
     """Featurize one step's padded query and key views (the
     ``compact_wire=False`` pipeline's ``WireBatch`` pair) in one call
     (``gcc_tpu/training/pretrain.py:597-616``): both expanded with
@@ -309,7 +311,8 @@ def featurize_pair(wire_q: WireBatch, wire_k: WireBatch, pos_size: int,
     f = featurize_batch(concat_padded(expand_wire(wire_q, n_max),
                                       expand_wire(wire_k, n_max)),
                         pos_size, pe_method=pe_method, profile="train",
-                        device=device, adj_dtype=adj_dtype, v_dtype=v_dtype)
+                        device=device, adj_dtype=adj_dtype, v_dtype=v_dtype,
+                        guards=guards)
     bsz = f.node_mask.shape[0] // 2
     return f.map(lambda x: x[:bsz]), f.map(lambda x: x[bsz:])
 
@@ -345,7 +348,7 @@ def e2e_split_slots(n_q: torch.Tensor, n_k: torch.Tensor, classes):
 def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
                         pos_size: int, pe_method: str, classes,
                         n_max: int | None = None, device="cuda",
-                        v_dtype=torch.float32):
+                        v_dtype=torch.float32, guards=None):
     """Size-routed featurization of a stacked E2E dispatch
     (``gcc_tpu/training/pretrain.py:342-470``). Per step the pairs are
     slotted by :func:`e2e_split_slots` into the ascending ``classes``
@@ -417,7 +420,8 @@ def featurize_e2e_split(wires_q: CompactWireBatch, wires_k: CompactWireBatch,
         nm_flat = node_mask.reshape(rows, n_b)
         pos = laplacian_positional_embedding(
             nm_flat, n_nodes.reshape(rows), pos_size, adj=adj,
-            method=pe_method, profile="train", v_dtype=v_dtype)
+            method=pe_method, profile="train", v_dtype=v_dtype,
+            guards=guards)
         deg = node_degrees(adj).to(torch.int32)
         shape = lambda x: x.reshape((k_steps, 2 * c_b) + x.shape[1:])  # noqa: E731
         out.append(BatchFeatures(pos=shape(pos), degrees=shape(deg),
@@ -471,7 +475,8 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     cfg = state.cfg
     contrast = cfg.contrast
     enc = cfg.encoder
-    levers = dict(adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype)
+    levers = dict(adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype,
+                  guards=enc.pe_guards)
     if isinstance(wires_q, WireBatch):
         feats_q, feats_k = featurize_pair(
             wires_q, wires_k, cfg.encoder.positional_embedding_size,
@@ -503,7 +508,7 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
         feats, overflow = featurize_e2e_split(
             wires_q, wires_k, cfg.encoder.positional_embedding_size,
             cfg.encoder.pe_method, classes, n_max=n_max, device=state.device,
-            v_dtype=enc.jacobi_v_dtype)
+            v_dtype=enc.jacobi_v_dtype, guards=enc.pe_guards)
         metrics = _stack_metrics([
             e2e_split_step(state, tuple(f.map(lambda x: x[t]) for f in feats))
             for t in range(overflow.shape[0])])

@@ -419,11 +419,12 @@ def test_modules_import_nothing_of_the_reference():
     code = (
         "import sys\n"
         "import gcc_tpu_torch.bench\n"
-        "from gcc_tpu_torch.scripts import bench_scaling, giant_bench, "
-        "hub_ab, refscale_bench\n"
+        "from gcc_tpu_torch.scripts import bench_scaling, e2e_canonical, "
+        "giant_bench, graph_readout_ab, hub_ab, pe_ab, refscale_bench\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'optax', 'orbax', 'gcc_tpu', 'bench', 'scripts', "
-        "'__graft_entry__', 'refscale_bench')]\n"
+        "'__graft_entry__', 'refscale_bench', 'pe_ab', 'e2e_canonical', "
+        "'graph_readout_ab', 'role_benchmark', 'graph_benchmark')]\n"
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], check=True, cwd=ROOT,
                    timeout=120)

@@ -372,9 +372,9 @@ def test_fold_local_standardization():
 def test_recipe_is_the_reference_child():
     """The (TrainConfig, PipelineConfig) pair of scripts/pe_ab.py:66-81,
     field for field, with epochs and seed taken as arguments. The port's
-    encoder has two fields the reference's lacks, its storage levers
-    (the reference reads them from the environment): they default to
-    float32, the reference's setting without the variables."""
+    encoder has three fields the reference's lacks, its storage levers and
+    PE guards (the reference reads them from the environment): they
+    default to the reference's settings without the variables."""
     from gcc_tpu.config import (
         ContrastConfig,
         EncoderConfig,
@@ -395,8 +395,9 @@ def test_recipe_is_the_reference_child():
         n_small=128)
     got = dataclasses.asdict(cfg)
     levers = {k: got["encoder"].pop(k)
-              for k in ("adj_dtype", "jacobi_v_dtype")}
-    assert levers == {"adj_dtype": "float32", "jacobi_v_dtype": "float32"}
+              for k in ("adj_dtype", "jacobi_v_dtype", "pe_guards")}
+    assert levers == {"adj_dtype": "float32", "jacobi_v_dtype": "float32",
+                      "pe_guards": None}
     assert {k: got[k] for k in dataclasses.asdict(want)} == \
         dataclasses.asdict(want)
     got_p = dataclasses.asdict(pcfg)
@@ -422,14 +423,20 @@ def test_entry_points_default_to_the_card(tmp_path):
 
 
 def test_the_package_imports_nothing_of_the_reference():
+    """The instruments and the accuracy A/B scripts import neither jax nor
+    gcc_tpu nor the reference scripts they copy."""
     pattern = re.compile(r"^\s*(import|from)\s+(jax|gcc_tpu\b|gcc_tpu\.|"
-                         r"role_benchmark|graph_benchmark|sim_benchmark)",
-                         re.M)
+                         r"role_benchmark|graph_benchmark|sim_benchmark|"
+                         r"pe_ab|e2e_canonical|graph_readout_ab)", re.M)
     root = os.path.dirname(instruments.__file__)
     files = sorted(f for f in os.listdir(root) if f.endswith(".py"))
     assert files == ["__init__.py", "__main__.py", "finetune.py",
                      "graph_families.py", "pretrain.py", "role.py",
                      "similarity.py"]
-    for name in files:
-        with open(os.path.join(root, name)) as f:
-            assert not pattern.search(f.read()), name
+    scripts = os.path.join(os.path.dirname(root), "scripts")
+    paths = [os.path.join(root, f) for f in files] + [
+        os.path.join(scripts, f) for f in ("pe_ab.py", "e2e_canonical.py",
+                                           "graph_readout_ab.py")]
+    for path in paths:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
