@@ -1,0 +1,8 @@
+"""The card's idle share in the traced stretch of the pretrain traffic
+(counts/shares.py)."""
+
+from benchmark.counts import shares
+
+
+def read(rec):
+    return shares.idle(rec, "pretrain")
