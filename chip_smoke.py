@@ -785,15 +785,17 @@ def rr_matrices(m_shift, q):
 
 def profiled_idle_share(fn, label: str) -> None:
     """Wall time, kernel launches, device busy time and idle share of
-    fn() under torch.profiler (kernel records only), and its top
-    kernels."""
+    fn() under torch.profiler (kernel records only), its top kernels,
+    and the host time of each of the program's spans inside it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gcc_tpu_torch.utils.profiling import span_table, tracing
+
     torch.cuda.synchronize()
     t_all = time.time()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with tracing(), profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA]) as prof:
         t0 = time.time()
         fn()
         torch.cuda.synchronize()
@@ -805,11 +807,12 @@ def profiled_idle_share(fn, label: str) -> None:
 
     # Kernel records only: an operator's device time is its kernels', and
     # a user annotation's device range (the optimizer's
-    # "Optimizer.step#Adam.step") spans kernels counted on their own.
+    # "Optimizer.step#Adam.step", the program's "gcc.*" spans) spans
+    # kernels counted on their own.
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and not getattr(e, "is_user_annotation", False)
-               and not e.key.startswith("Optimizer.")]
+               and not e.key.startswith(("Optimizer.", "gcc."))]
     busy_ms = sum(dev_us(e) for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
     print(f"profiled {label}: wall {wall_ms:.1f} ms (profiler on), "
@@ -819,6 +822,9 @@ def profiled_idle_share(fn, label: str) -> None:
     for e in sorted(kernels, key=dev_us, reverse=True)[:10]:
         print(f"  {dev_us(e) / 1e3:9.3f} ms  {e.count:6d} x  {e.key[:90]}",
               flush=True)
+    for name, row in span_table().items():
+        print(f"  span {name}: {row['count']} x, host {row['total_ms']:.3f}"
+              f" ms, self {row['self_ms']:.3f} ms", flush=True)
 
 
 def first_steps(wire, steps: int):

@@ -384,7 +384,9 @@ def main(argv=None):
     p.add_argument("--resume", default="", help="checkpoint path to resume")
     p.add_argument("--tensorboard", action="store_true")
     p.add_argument("--profile-dir", default="",
-                   help="capture a torch.profiler trace here")
+                   help="write a torch.profiler trace of the second "
+                        "dispatch (host ops, kernels and the gcc.* spans) "
+                        "here as trace.json, its spans as spans.json")
     _add_train_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_pretrain)

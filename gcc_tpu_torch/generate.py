@@ -35,6 +35,7 @@ from gcc_tpu_torch.models import GraphEncoder
 from gcc_tpu_torch.parallel.giant_features import giant_graph_embedding
 from gcc_tpu_torch.sampling import native
 from gcc_tpu_torch.sampling.sampler import entire_graph_subgraph, rwr_budgets
+from gcc_tpu_torch.utils.profiling import span
 
 
 def _encoder_of(model) -> GraphEncoder:
@@ -75,13 +76,18 @@ def _encode_chunks(cfg: TrainConfig, enc: GraphEncoder, subgraphs, n_max,
         keep = len(chunk)
         if keep < batch_size:
             chunk = chunk + [chunk[-1]] * (batch_size - keep)
-        feats = featurize_batch(
-            batch_subgraphs(chunk, n_max=n_max, e_max=e_max),
-            cfg.encoder.positional_embedding_size,
-            pe_method=cfg.encoder.pe_method, profile="eval", device=device,
-            adj_dtype=cfg.encoder.adj_dtype,
-            v_dtype=cfg.encoder.jacobi_v_dtype, guards=cfg.encoder.pe_guards)
-        yield enc(feats, return_all_outputs=return_all_outputs), keep
+        with span("gcc.generate.batch"):
+            batch = batch_subgraphs(chunk, n_max=n_max, e_max=e_max)
+        with span("gcc.generate.featurize"):
+            feats = featurize_batch(
+                batch, cfg.encoder.positional_embedding_size,
+                pe_method=cfg.encoder.pe_method, profile="eval",
+                device=device, adj_dtype=cfg.encoder.adj_dtype,
+                v_dtype=cfg.encoder.jacobi_v_dtype,
+                guards=cfg.encoder.pe_guards)
+        with span("gcc.generate.encode"):
+            out = enc(feats, return_all_outputs=return_all_outputs)
+        yield out, keep
 
 
 def generate_embeddings(
@@ -102,7 +108,8 @@ def generate_embeddings(
     mode, where both reference views are the identical whole graph)."""
     device = resolve_device(device)
     batch_size = _guarded_batch_size(batch_size, n_max)
-    with _eval_mode(_encoder_of(model), device) as enc:
+    with span("gcc.generate.call"), \
+            _eval_mode(_encoder_of(model), device) as enc:
         def run(subs):
             # Device tensors are gathered once at the end, so the encode
             # calls queue up without a host round trip per chunk.
@@ -113,7 +120,8 @@ def generate_embeddings(
         emb = run(subgraphs)
         if subgraphs_k is not None:
             emb = (emb + run(subgraphs_k)) / 2.0
-        return emb.cpu().numpy()
+        with span("gcc.generate.fetch"):
+            return emb.cpu().numpy()
 
 
 def node_subgraphs(

@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 import multiprocessing as mp
 import queue as queue_mod
+import time
 from typing import Iterator
 
 import numpy as np
@@ -565,6 +566,11 @@ class PretrainPipeline:
     assignment, reference graph_dataset.py:76), worker w sampling with
     seed + 7919·(w + 1). graph_ids restricts sampling to a subset of the
     corpus (None = all).
+
+    Counters, always on (:meth:`stats`): ``gets``, the items taken;
+    ``wait_ns``, the time ``__next__`` spent blocked on the queue (or
+    sampling, with ``num_workers=0``); ``ready_items``, the items the
+    queue held on entry, summed (0 with ``num_workers=0``).
     """
 
     def __init__(self, store: CorpusStore, cfg: SamplerConfig,
@@ -617,6 +623,9 @@ class PretrainPipeline:
         self._workers: list = []
         self._queue = None
         self._stop = None
+        self._gets = 0
+        self._wait_ns = 0
+        self._ready_items = 0
         if pcfg.num_workers > 0:
             self._start_workers()
         else:
@@ -659,21 +668,34 @@ class PretrainPipeline:
         return self
 
     def __next__(self):
-        if self._queue is not None:
-            while True:
-                try:
-                    item = self._queue.get(timeout=5)
-                    break
-                except queue_mod.Empty:
-                    # A worker that died without a word (a forked one
-                    # killed by a signal) would otherwise stall us forever.
-                    if not any(w.is_alive() for w in self._workers):
-                        raise RuntimeError(
-                            "every sampler worker has exited") from None
-            if isinstance(item, _WorkerError):
-                raise RuntimeError(f"sampler worker crashed:\n{item.err}")
+        self._gets += 1
+        if self._queue is None:
+            t0 = time.perf_counter_ns()
+            item = self._shard.next_pair()
+            self._wait_ns += time.perf_counter_ns() - t0
             return item
-        return self._shard.next_pair()
+        self._ready_items += self._queue.qsize()
+        t0 = time.perf_counter_ns()
+        while True:
+            try:
+                item = self._queue.get(timeout=5)
+                break
+            except queue_mod.Empty:
+                # A worker that died without a word (a forked one killed
+                # by a signal) would otherwise stall us forever.
+                if not any(w.is_alive() for w in self._workers):
+                    raise RuntimeError(
+                        "every sampler worker has exited") from None
+        self._wait_ns += time.perf_counter_ns() - t0
+        if isinstance(item, _WorkerError):
+            raise RuntimeError(f"sampler worker crashed:\n{item.err}")
+        return item
+
+    def stats(self) -> dict[str, int]:
+        """The counters: ``gets``, ``wait_ns``, ``ready_items`` (see the
+        class docstring); a window's are the difference of two reads."""
+        return {"gets": self._gets, "wait_ns": self._wait_ns,
+                "ready_items": self._ready_items}
 
     @property
     def steps_per_epoch(self) -> int:

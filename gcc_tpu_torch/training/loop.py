@@ -58,6 +58,9 @@ def run_pretrain(
     resume: checkpoint path — restores the full state including the
     optimizer moments and the queue.
 
+    profile_dir: where to write a ``torch.profiler`` trace of the second
+    dispatch and its spans (``utils.profiling.maybe_profile``).
+
     steps_per_call: optimizer steps per dispatch (one queue item of the
     stacked or routed pipeline, featurized in one batched call; epochs
     are rounded down to a whole number of dispatches). Small datasets
@@ -196,8 +199,7 @@ def run_pretrain(
             open(os.path.join(run_dir, "metrics.jsonl") if is_main
                  else os.devnull, "a") as mfile, \
             (data_parallel.data_parallel() if dp
-             else contextlib.nullcontext()), \
-            maybe_profile(profile_dir):
+             else contextlib.nullcontext()):
         steps_per_epoch = pipe.steps_per_epoch
         total_steps = steps_per_epoch * cfg.epochs
         state = create_pretrain_state(cfg, total_steps, seed=cfg.seed,
@@ -262,38 +264,50 @@ def run_pretrain(
                    f"steps/epoch skipped")
         global_step = 0
         t_start = time.time()
-        for epoch in range(1, cfg.epochs + 1):
-            t_epoch = time.time()
-            data_t = 0.0
-            for _ in range(calls_per_epoch):
-                t0 = time.time()
-                metrics = dispatch()
-                # Host time of the dispatch: sampler wait plus queueing
-                # the device work (the two are not told apart here).
-                data_t += time.time() - t0
-                pending.append((global_step, metrics))
-                global_step += k_steps
-                # Drain metrics with lag to keep the dispatches queued.
-                while len(pending) > max(1, metrics_lag // k_steps):
+        # The profiler, if any, starts after set-up: it skips the first
+        # dispatch and records the second (utils.profiling.maybe_profile).
+        with maybe_profile(profile_dir) as profile_step:
+            for epoch in range(1, cfg.epochs + 1):
+                t_epoch = time.time()
+                data_t = 0.0
+                seen = pipe.stats()
+                for _ in range(calls_per_epoch):
+                    t0 = time.time()
+                    metrics = dispatch()
+                    # Host time of the dispatch: the sampler wait (the
+                    # pipeline's counter) and queueing the device work.
+                    data_t += time.time() - t0
+                    profile_step()
+                    pending.append((global_step, metrics))
+                    global_step += k_steps
+                    # Drain metrics with lag to keep the dispatches queued.
+                    while len(pending) > max(1, metrics_lag // k_steps):
+                        drain(pending.pop(0))
+                # Epoch boundary: drain all in-flight metrics (the transfers
+                # wait for the device; saving then copies the state off it).
+                while pending:
                     drain(pending.pop(0))
-            # Epoch boundary: drain all in-flight metrics (the transfers
-            # wait for the device; saving then copies the state off it).
-            while pending:
-                drain(pending.pop(0))
-            if epoch % cfg.save_freq == 0:
-                save_checkpoint(run_dir, state, cfg, step=epoch)
-            save_checkpoint(run_dir, state, cfg)
-            log_fn(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s "
-                   f"(host dispatch {data_t:.1f}s), avg loss "
-                   f"{loss_meter.avg:.4f}")
-            summary = {
-                "epoch": epoch,
-                "avg_loss": loss_meter.avg,
-                "steps": global_step,
-                "steps_per_epoch_skipped": skipped_steps,
-                "wall": time.time() - t_start,
-            }
-            loss_meter.reset()
+                if epoch % cfg.save_freq == 0:
+                    save_checkpoint(run_dir, state, cfg, step=epoch)
+                save_checkpoint(run_dir, state, cfg)
+                now = pipe.stats()
+                wait_s = (now["wait_ns"] - seen["wait_ns"]) * 1e-9
+                # Items the sampler had ready at each get: its headroom.
+                ready = ((now["ready_items"] - seen["ready_items"])
+                         / max(1, now["gets"] - seen["gets"]))
+                log_fn(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s "
+                       f"(host dispatch {data_t:.1f}s: sampler wait "
+                       f"{wait_s:.1f}s with {ready:.1f} items ready a get, "
+                       f"enqueue {data_t - wait_s:.1f}s), avg loss "
+                       f"{loss_meter.avg:.4f}")
+                summary = {
+                    "epoch": epoch,
+                    "avg_loss": loss_meter.avg,
+                    "steps": global_step,
+                    "steps_per_epoch_skipped": skipped_steps,
+                    "wall": time.time() - t_start,
+                }
+                loss_meter.reset()
     summary["run_dir"] = run_dir
     return summary
 

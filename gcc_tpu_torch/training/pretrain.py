@@ -73,6 +73,7 @@ from gcc_tpu_torch.ops.aggregate import node_degrees
 from gcc_tpu_torch.parallel import data_parallel
 from gcc_tpu_torch.training.optim import build_optimizer, clip_gradients_
 from gcc_tpu_torch.training.schedules import lr_at
+from gcc_tpu_torch.utils.profiling import span
 from gcc_tpu_torch.wire import wire_to_device
 
 
@@ -155,40 +156,45 @@ def train_step(state: PretrainState, feats_q: BatchFeatures,
     cfg = state.cfg
     moco = cfg.contrast.moco
     model, ema = state.model, state.ema_model
-    model.train()
-    if moco:
-        ema.train()
-        with torch.no_grad():
-            k_emb = ema(feats_k, gen=state.dropout_gen)
-        q_emb = model(feats_q, gen=state.dropout_gen)
-        logits = moco_logits(state.queue, q_emb, k_emb, cfg.contrast.nce_t)
-        labels = torch.zeros(logits.shape[0], dtype=torch.int64,
-                             device=logits.device)
-        if cfg.contrast.use_softmax:
-            loss = nce_softmax_loss(logits, labels)
-            prob = batch_mean(logits[:, 0])
-        else:
-            # n_data: the reference's MemoryMoCo outputSize = samples per
-            # epoch across workers (num_workers = 0 counts as one).
-            n_data = cfg.num_samples * max(1, cfg.num_workers)
-            probs, state.nce_z = legacy_nce_probs(logits, n_data, state.nce_z)
-            loss = nce_softmax_loss(probs, labels)
-            prob = batch_mean(probs[:, 0])
-    else:
-        q_emb = model(feats_q, gen=state.dropout_gen)
-        k_emb = model(feats_k, gen=state.dropout_gen)
-        loss, prob = in_batch_loss(q_emb, k_emb, cfg.contrast.nce_t)
-    grad_norm = optimizer_update(state, loss)
-    if moco:
-        with torch.no_grad():
-            alpha = cfg.contrast.alpha
-            ema_params = list(ema.parameters())
-            torch._foreach_mul_(ema_params, alpha)
-            torch._foreach_add_(ema_params, list(model.parameters()),
-                                alpha=1.0 - alpha)
-        enqueue(state.queue, k_emb)
-    state.step += 1
-    return _metrics(loss, prob, grad_norm)
+    with span("gcc.train.step"):
+        model.train()
+        with span("gcc.train.forward"):
+            if moco:
+                ema.train()
+                with torch.no_grad():
+                    k_emb = ema(feats_k, gen=state.dropout_gen)
+                q_emb = model(feats_q, gen=state.dropout_gen)
+                logits = moco_logits(state.queue, q_emb, k_emb,
+                                     cfg.contrast.nce_t)
+                labels = torch.zeros(logits.shape[0], dtype=torch.int64,
+                                     device=logits.device)
+                if cfg.contrast.use_softmax:
+                    loss = nce_softmax_loss(logits, labels)
+                    prob = batch_mean(logits[:, 0])
+                else:
+                    # n_data: the reference's MemoryMoCo outputSize =
+                    # samples per epoch across workers (num_workers = 0
+                    # counts as one).
+                    n_data = cfg.num_samples * max(1, cfg.num_workers)
+                    probs, state.nce_z = legacy_nce_probs(logits, n_data,
+                                                          state.nce_z)
+                    loss = nce_softmax_loss(probs, labels)
+                    prob = batch_mean(probs[:, 0])
+            else:
+                q_emb = model(feats_q, gen=state.dropout_gen)
+                k_emb = model(feats_k, gen=state.dropout_gen)
+                loss, prob = in_batch_loss(q_emb, k_emb, cfg.contrast.nce_t)
+        grad_norm = optimizer_update(state, loss)
+        if moco:
+            with span("gcc.train.momentum"), torch.no_grad():
+                alpha = cfg.contrast.alpha
+                ema_params = list(ema.parameters())
+                torch._foreach_mul_(ema_params, alpha)
+                torch._foreach_add_(ema_params, list(model.parameters()),
+                                    alpha=1.0 - alpha)
+                enqueue(state.queue, k_emb)
+        state.step += 1
+        return _metrics(loss, prob, grad_norm)
 
 
 def _metrics(loss: torch.Tensor, prob: torch.Tensor,
@@ -210,16 +216,18 @@ def optimizer_update(state, loss: torch.Tensor,
     warmup-linear rate of update ``state.step``. Returns the gradient's
     global norm before clipping (a device scalar)."""
     cfg = state.cfg
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    params = [p for group in state.optimizer.param_groups
-              for p in group["params"]]
-    grad_norm = clip_gradients_(params, cfg.optim, clip_mode)
-    lr = lr_at(state.step, cfg.optim.learning_rate, state.total_steps,
-               cfg.optim.warmup)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.step()
+    with span("gcc.train.backward"):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+    with span("gcc.train.optimizer"):
+        params = [p for group in state.optimizer.param_groups
+                  for p in group["params"]]
+        grad_norm = clip_gradients_(params, cfg.optim, clip_mode)
+        lr = lr_at(state.step, cfg.optim.learning_rate, state.total_steps,
+                   cfg.optim.warmup)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.step()
     return grad_norm
 
 
@@ -441,18 +449,21 @@ def e2e_split_step(state: PretrainState, feats_tuple
     loss on the concatenated embeddings; the same update as
     :func:`train_step`."""
     model = state.model
-    model.train()
-    embs = ([], [])
-    for view in (0, 1):
-        for f in feats_tuple:
-            c = f.node_mask.shape[0] // 2
-            embs[view].append(model(f.map(lambda x: x[view * c:(view + 1) * c]),
-                                    gen=state.dropout_gen))
-    loss, prob = in_batch_loss(torch.cat(embs[0]), torch.cat(embs[1]),
-                               state.cfg.contrast.nce_t)
-    grad_norm = optimizer_update(state, loss)
-    state.step += 1
-    return _metrics(loss, prob, grad_norm)
+    with span("gcc.train.step"):
+        model.train()
+        embs = ([], [])
+        with span("gcc.train.forward"):
+            for view in (0, 1):
+                for f in feats_tuple:
+                    c = f.node_mask.shape[0] // 2
+                    embs[view].append(model(
+                        f.map(lambda x: x[view * c:(view + 1) * c]),
+                        gen=state.dropout_gen))
+            loss, prob = in_batch_loss(torch.cat(embs[0]), torch.cat(embs[1]),
+                                       state.cfg.contrast.nce_t)
+        grad_norm = optimizer_update(state, loss)
+        state.step += 1
+        return _metrics(loss, prob, grad_norm)
 
 
 def _stack_metrics(per_step: list[dict]) -> dict[str, torch.Tensor]:
@@ -472,16 +483,22 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
     steps run on the D·b graphs of each step; inside a
     ``data_parallel`` context the wire is this rank's slice and the steps
     are those of the global batch."""
+    with span("gcc.train.dispatch"):
+        return _dispatch(state, wires_q, wires_k, n_max)
+
+
+def _dispatch(state: PretrainState, wires_q, wires_k, n_max):
     cfg = state.cfg
     contrast = cfg.contrast
     enc = cfg.encoder
     levers = dict(adj_dtype=enc.adj_dtype, v_dtype=enc.jacobi_v_dtype,
                   guards=enc.pe_guards)
     if isinstance(wires_q, WireBatch):
-        feats_q, feats_k = featurize_pair(
-            wires_q, wires_k, cfg.encoder.positional_embedding_size,
-            n_max=n_max, device=state.device,
-            pe_method=cfg.encoder.pe_method, **levers)
+        with span("gcc.train.featurize"):
+            feats_q, feats_k = featurize_pair(
+                wires_q, wires_k, cfg.encoder.positional_embedding_size,
+                n_max=n_max, device=state.device,
+                pe_method=cfg.encoder.pe_method, **levers)
         return _stack_metrics([train_step(state, feats_q, feats_k)])
     if np.ndim(wires_q.meta) == 4:
         # DP-stacked wire ((K, D, ...), packed.py:142-163): the steps of
@@ -490,11 +507,11 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
         # split needs a 3-dim meta and does not apply, as in the
         # reference.
         d, b = wires_q.meta.shape[1], wires_q.meta.shape[3]
-        feats = featurize_stacked_dp(wires_q, wires_k,
-                                     cfg.encoder.positional_embedding_size,
-                                     n_max=n_max, device=state.device,
-                                     pe_method=cfg.encoder.pe_method,
-                                     **levers)
+        with span("gcc.train.featurize"):
+            feats = featurize_stacked_dp(
+                wires_q, wires_k, cfg.encoder.positional_embedding_size,
+                n_max=n_max, device=state.device,
+                pe_method=cfg.encoder.pe_method, **levers)
         return _stack_metrics([
             train_step(state, *split_feats_qk_dp(feats.map(
                 lambda x, t=t: x[t]), d, b))
@@ -505,19 +522,22 @@ def train_dispatch(state: PretrainState, wires_q, wires_k,
                                   np.shape(wires_q.meta)[-1],
                                   wires_q.n_max or n_max)
     if classes:
-        feats, overflow = featurize_e2e_split(
-            wires_q, wires_k, cfg.encoder.positional_embedding_size,
-            cfg.encoder.pe_method, classes, n_max=n_max, device=state.device,
-            v_dtype=enc.jacobi_v_dtype, guards=enc.pe_guards)
+        with span("gcc.train.featurize"):
+            feats, overflow = featurize_e2e_split(
+                wires_q, wires_k, cfg.encoder.positional_embedding_size,
+                cfg.encoder.pe_method, classes, n_max=n_max,
+                device=state.device, v_dtype=enc.jacobi_v_dtype,
+                guards=enc.pe_guards)
         metrics = _stack_metrics([
             e2e_split_step(state, tuple(f.map(lambda x: x[t]) for f in feats))
             for t in range(overflow.shape[0])])
         metrics["e2e_split_overflow"] = overflow
         return metrics
-    feats = featurize_stacked(wires_q, wires_k,
-                              cfg.encoder.positional_embedding_size,
-                              n_max=n_max, device=state.device,
-                              pe_method=cfg.encoder.pe_method, **levers)
+    with span("gcc.train.featurize"):
+        feats = featurize_stacked(wires_q, wires_k,
+                                  cfg.encoder.positional_embedding_size,
+                                  n_max=n_max, device=state.device,
+                                  pe_method=cfg.encoder.pe_method, **levers)
     bsz = feats.node_mask.shape[1] // 2
     per_step = []
     for t in range(feats.node_mask.shape[0]):

@@ -16,6 +16,7 @@ import torch
 
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.graph.batch import CompactWireBatch
+from gcc_tpu_torch.utils.profiling import span
 
 
 def _to_device(arr: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -38,13 +39,14 @@ def wire_to_device(wire: CompactWireBatch, device="cuda"
     if torch.is_tensor(wire.edges):
         return wire.edges.to(device), wire.meta.to(device)
     edges = np.asarray(wire.edges)
-    if edges.dtype == np.uint16:
-        e = _to_device(edges.view(np.int16), device)
-        e = e.to(torch.int32) & 0xFFFF
-    elif edges.dtype == np.int32:
-        e = _to_device(edges, device)
-    else:
+    if edges.dtype not in (np.uint16, np.int32):
         raise TypeError(f"wire edges must be uint16 or int32, not "
                         f"{edges.dtype}")
-    meta = _to_device(np.asarray(wire.meta, np.int32), device)
+    with span("gcc.wire.upload"):
+        if edges.dtype == np.uint16:
+            e = _to_device(edges.view(np.int16), device)
+            e = e.to(torch.int32) & 0xFFFF
+        else:
+            e = _to_device(edges, device)
+        meta = _to_device(np.asarray(wire.meta, np.int32), device)
     return e, meta
