@@ -786,12 +786,15 @@ def rr_matrices(m_shift, q):
 def profiled_idle_share(fn, label: str) -> None:
     """Wall time, kernel launches, device busy time and idle share of
     fn() under torch.profiler (kernel records only), its top kernels,
-    and the host time of each of the program's spans inside it."""
+    the host time of each of the program's spans inside it, and the
+    train step's graph counters (replays, captures, eager calls)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from gcc_tpu_torch.models import step_graphs
     from gcc_tpu_torch.utils.profiling import span_table, tracing
 
+    graphs_seen = step_graphs.counts.snapshot()
     torch.cuda.synchronize()
     t_all = time.time()
     with tracing(), profile(activities=[ProfilerActivity.CPU,
@@ -825,6 +828,9 @@ def profiled_idle_share(fn, label: str) -> None:
     for name, row in span_table().items():
         print(f"  span {name}: {row['count']} x, host {row['total_ms']:.3f}"
               f" ms, self {row['self_ms']:.3f} ms", flush=True)
+    print("  " + step_graphs.describe(graphs_seen,
+                                      step_graphs.counts.snapshot()),
+          flush=True)
 
 
 def first_steps(wire, steps: int):

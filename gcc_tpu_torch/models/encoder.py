@@ -12,6 +12,9 @@ F.normalize(p=2, eps=1e-5) of the graph embedding.
 Train/eval follows ``module.train()`` / ``module.eval()``: train mode
 normalizes by batch statistics (and updates the running buffers) and
 applies GIN's final dropout with the generator passed to ``forward``.
+
+Inside a train step on the card a call replays CUDA graphs of this
+forward (``models/step_graphs.py``); everywhere else it runs eagerly.
 """
 
 from __future__ import annotations
@@ -26,12 +29,14 @@ from gcc_tpu_torch.models.gin import UnsupervisedGIN
 from gcc_tpu_torch.models.layers import DegreeEmbedding, init_linear_
 from gcc_tpu_torch.models.mpnn import UnsupervisedMPNN
 from gcc_tpu_torch.models.set2set import Set2Set
+from gcc_tpu_torch.models.step_graphs import StepGraphs
 
 
 class GraphEncoder(nn.Module):
     def __init__(self, cfg: EncoderConfig):
         super().__init__()
         self.cfg = cfg
+        self.step_graphs = StepGraphs()
         # Without degree input the features are [PE, seed flag]
         # (gcc_tpu/models/encoder.py:39-44), node_input_dim pos + 1.
         self.degree_embedding = (
@@ -72,6 +77,12 @@ class GraphEncoder(nn.Module):
         also the GIN's pooled list (input features, then every conv
         layer), the ingredients of the composite readout — None for the
         other encoders."""
+        if return_all_outputs:
+            return self._encode(feats, gen, return_all_outputs=True)
+        return self.step_graphs(self, feats, gen, self._encode)
+
+    def _encode(self, feats: BatchFeatures, gen: torch.Generator | None,
+                return_all_outputs: bool = False):
         parts = [feats.pos]
         if self.degree_embedding is not None:
             parts.append(self.degree_embedding(feats.degrees))

@@ -24,6 +24,7 @@ import torch.distributed as dist
 from gcc_tpu_torch.config import TrainConfig
 from gcc_tpu_torch.device import resolve_device
 from gcc_tpu_torch.graph.corpus import CorpusStore
+from gcc_tpu_torch.models import step_graphs
 from gcc_tpu_torch.parallel import data_parallel, multihost
 from gcc_tpu_torch.sampling import native
 from gcc_tpu_torch.sampling.pipeline import PipelineConfig, PretrainPipeline
@@ -271,6 +272,7 @@ def run_pretrain(
                 t_epoch = time.time()
                 data_t = 0.0
                 seen = pipe.stats()
+                graphs_seen = step_graphs.counts.snapshot()
                 for _ in range(calls_per_epoch):
                     t0 = time.time()
                     metrics = dispatch()
@@ -295,10 +297,12 @@ def run_pretrain(
                 # Items the sampler had ready at each get: its headroom.
                 ready = ((now["ready_items"] - seen["ready_items"])
                          / max(1, now["gets"] - seen["gets"]))
+                graphs = step_graphs.describe(graphs_seen,
+                                              step_graphs.counts.snapshot())
                 log_fn(f"epoch {epoch} done in {time.time() - t_epoch:.1f}s "
                        f"(host dispatch {data_t:.1f}s: sampler wait "
                        f"{wait_s:.1f}s with {ready:.1f} items ready a get, "
-                       f"enqueue {data_t - wait_s:.1f}s), avg loss "
+                       f"enqueue {data_t - wait_s:.1f}s; {graphs}), avg loss "
                        f"{loss_meter.avg:.4f}")
                 summary = {
                     "epoch": epoch,

@@ -92,7 +92,9 @@ def clip_gradients_(params, cfg: OptimConfig,
         for g in grads:
             g.clamp_(-1.0, 1.0)
     elif cfg.clip_norm > 0:
+        # g / norm * clip_norm where the norm reaches the limit, g
+        # (divided and multiplied by 1) elsewhere: two foreach launches.
         keep = norm < cfg.clip_norm
-        for g in grads:
-            g.copy_(torch.where(keep, g, g / norm * cfg.clip_norm))
+        torch._foreach_div_(grads, torch.where(keep, 1.0, norm))
+        torch._foreach_mul_(grads, torch.where(keep, 1.0, cfg.clip_norm))
     return norm

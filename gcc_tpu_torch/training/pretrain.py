@@ -34,6 +34,10 @@ slots each step's pairs into ascending node buckets, one featurize per
 bucket, and :func:`e2e_split_step` encodes each view's bucket in its own
 BatchNorm forward before the in-batch loss on the concatenated
 embeddings.
+
+On the card, outside a data-parallel step, both steps replay CUDA graphs
+of their encoder calls (``models/step_graphs.py``): the loss, the clip,
+Adam, the EMA and the enqueue stay eager, with every hook they fire.
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from gcc_tpu_torch.graph.batch import (
     concat_padded,
     expand_wire,
 )
-from gcc_tpu_torch.models import GraphEncoder
+from gcc_tpu_torch.models import GraphEncoder, step_graphs
 from gcc_tpu_torch.ops.aggregate import node_degrees
 from gcc_tpu_torch.parallel import data_parallel
 from gcc_tpu_torch.training.optim import build_optimizer, clip_gradients_
@@ -156,7 +160,7 @@ def train_step(state: PretrainState, feats_q: BatchFeatures,
     cfg = state.cfg
     moco = cfg.contrast.moco
     model, ema = state.model, state.ema_model
-    with span("gcc.train.step"):
+    with span("gcc.train.step"), step_graphs.stepping():
         model.train()
         with span("gcc.train.forward"):
             if moco:
@@ -449,7 +453,7 @@ def e2e_split_step(state: PretrainState, feats_tuple
     loss on the concatenated embeddings; the same update as
     :func:`train_step`."""
     model = state.model
-    with span("gcc.train.step"):
+    with span("gcc.train.step"), step_graphs.stepping():
         model.train()
         embs = ([], [])
         with span("gcc.train.forward"):
