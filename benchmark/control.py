@@ -29,7 +29,7 @@ from benchmark.harness.weights import make_encoder_tensors, make_queue, \
     split  # noqa: E402
 from benchmark.reference import features as rf  # noqa: E402
 from benchmark.reference import train as rt  # noqa: E402
-from benchmark.reference.encoder import encode  # noqa: E402
+from benchmark.reference.encoder import encode, model_name  # noqa: E402
 from benchmark.reference.wire import dense  # noqa: E402
 
 PREC = "tf32"
@@ -44,7 +44,8 @@ def _encoder_tensors(config, seed_weights, device, with_queue: bool):
     model = GraphEncoder(train_config(config).encoder)
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
     gen = torch.Generator(device=device).manual_seed(seed_weights)
-    tensors = make_encoder_tensors(shapes, gen, device)
+    tensors = make_encoder_tensors(shapes, gen, device,
+                                   model_name(config))
     queue = (make_queue(config["nce_k"], config["output_size"], gen, device)
              if with_queue else None)
     params, buffers = split({n: t.cpu() for n, t in tensors.items()}, model)
@@ -71,11 +72,8 @@ def pretrain_control(config, traffic, seed, device, limits):
     check_steps = traffic["check_steps"]
     # The control's own outputs, in the program's place: its PE of every
     # graph and its steps, all at TF32.
-    tags = (["key", "query"] if config["moco"]
-            else ["query"] * _calls_per_step(first, config))
-    shell = {"forwards": [{"tag": tag, "step": t}
-                          for t in range(config["steps_per_dispatch"])
-                          for tag in tags]}
+    shell = {"forwards": check.layout_forwards(
+        first, config, config["steps_per_dispatch"])}
     per_forward = check.forward_graphs(first, shell, config)
     feats = check.reference_features(
         per_forward, config["positional_embedding_size"], "train", device,
@@ -103,20 +101,6 @@ def pretrain_control(config, traffic, seed, device, limits):
                      else None)
     return check.pretrain(first, shell, out["losses"], params0, buffers0,
                           queue0, s_drop, config, device, limits)
-
-
-def _calls_per_step(first, config) -> int:
-    """Encoder calls a step of an E2E dispatch makes: two a size class
-    under the split, else two."""
-    import numpy as np
-
-    from benchmark.reference.wire import split_classes
-
-    if not config["e2e_split"]:
-        return 2
-    return 2 * len(split_classes(config["e2e_split"],
-                                 np.asarray(first[0].meta).shape[-1],
-                                 first[0].n_max or config["n_max"]))
 
 
 def embed_control(config, traffic, seed, device, limits):
@@ -193,6 +177,7 @@ def main(argv=None) -> int:
         extra = json.loads(args.override)
         config.update(extra.get("config", {}))
         traffic.update(extra.get("traffic", {}))
+    common.require_model(config)
     device = common.device_check(args.device, cell["chips"])
     run = embed_control if traffic["kind"] == "embed" else pretrain_control
     for seed in args.seed:

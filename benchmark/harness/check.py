@@ -45,17 +45,14 @@ def keep_on_host(cap, check_steps: int) -> dict:
             "keys": None if cap.keys is None else cap.keys.cpu()}
 
 
-def _leaf_gap(prog: dict, ref: dict, names) -> float:
-    """Worst leaf's |‖prog‖ - ‖ref‖| over the larger of ‖ref‖ and the
+def _leaf_gaps(prog: dict, ref: dict, names) -> list[float]:
+    """Each leaf's |‖prog‖ - ‖ref‖| over the larger of its ‖ref‖ and the
     median leaf's ‖ref‖."""
     norms = {n: float(torch.linalg.vector_norm(ref[n].double()))
              for n in names}
     med = float(np.median(list(norms.values())))
-    worst = 0.0
-    for n in names:
-        p = float(torch.linalg.vector_norm(prog[n].double()))
-        worst = max(worst, abs(p - norms[n]) / max(norms[n], med, 1e-30))
-    return worst
+    return [abs(float(torch.linalg.vector_norm(prog[n].double())) - norms[n])
+            / max(norms[n], med, 1e-30) for n in names]
 
 
 def _pe_numbers(gaps) -> tuple[float, float]:
@@ -72,9 +69,16 @@ def _pe_numbers(gaps) -> tuple[float, float]:
     return float(q[0]), float(g.mean())
 
 
+# The encoder's settings a configuration may hold, all handed to the
+# reference's model.
+ENCODER_KEYS = ("model", "num_layers", "hidden_size", "output_size",
+                "positional_embedding_size", "degree_embedding_size",
+                "max_degree", "final_dropout", "num_heads", "set2set_iter",
+                "set2set_lstm_layer", "use_selayer")
+
+
 def encoder_cfg(config: dict) -> dict:
-    keys = ("num_layers", "max_degree", "final_dropout", "output_size")
-    return {k: config[k] for k in keys}
+    return {k: config[k] for k in ENCODER_KEYS if k in config}
 
 
 def train_cfg(config: dict) -> dict:
@@ -83,6 +87,23 @@ def train_cfg(config: dict) -> dict:
               "weight_decay", "clip_norm", "warmup", "total_steps"):
         out[k] = config[k]
     return out
+
+
+def layout_forwards(first, config: dict, steps: int) -> list[dict]:
+    """The encoder calls of a dispatch's first ``steps`` steps by the
+    program's documented layout, as ``forward_graphs`` reads captured ones:
+    MoCo's key then query call a step; E2E's query encoder twice a step,
+    or twice a size class under the split."""
+    if config["moco"]:
+        tags = ["key", "query"]
+    elif not config["e2e_split"]:
+        tags = ["query"] * 2
+    else:
+        classes = split_classes(config["e2e_split"],
+                                np.asarray(first[0].meta).shape[-1],
+                                first[0].n_max or config["n_max"])
+        tags = ["query"] * (2 * len(classes))
+    return [{"tag": tag, "step": t} for t in range(steps) for tag in tags]
 
 
 def forward_graphs(first, captured, config: dict):
@@ -178,7 +199,7 @@ def pretrain(first, captured, losses, params0, buffers0, queue0, s_drop,
                                                         out["losses"]))
     names = list(out["grad0"])
     grad_ref = {k: v.cpu() for k, v in out["grad0"].items()}
-    grad_gap = _leaf_gap(captured["grad0"], grad_ref, names)
+    grad_gap = max(_leaf_gaps(captured["grad0"], grad_ref, names))
     gnorm = {n: float(torch.linalg.vector_norm(grad_ref[n].double()))
              for n in names}
     med = float(np.median(list(gnorm.values())))
@@ -191,7 +212,10 @@ def pretrain(first, captured, losses, params0, buffers0, queue0, s_drop,
               ("pe_rowcos_mean", pe_mean),
               ("loss_gap", loss_gap),
               ("grad_gap", grad_gap),
-              ("change_gap", _leaf_gap(change_prog, change_ref, moving))]
+              # The median leaf: the worst one swings with the rounding of
+              # a few elements that Adam moves by their sign (PERF.md §2).
+              ("change_median_gap", float(np.median(
+                  _leaf_gaps(change_prog, change_ref, moving))))]
     if config["moco"]:
         keys_ref = torch.cat(out["keys"]).cpu()
         checks.append(("key_gap", float((captured["keys"] - keys_ref)

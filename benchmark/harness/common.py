@@ -14,6 +14,8 @@ import time
 
 import numpy as np
 
+from benchmark.reference.encoder import model_name
+
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 # Modules whose presence in the process after the window refuses the run:
@@ -73,6 +75,22 @@ def traffic_path(name: str) -> str:
 
 def limits_path(workload: str) -> str:
     return os.path.join(BENCH_DIR, "limits", f"{workload}.json")
+
+
+def require_model(config: dict) -> None:
+    """Exit without a result, naming what is missing, where the
+    configuration's model lacks its plain reference
+    (``reference/models/<model>.py``) or its counts
+    (``counts/models/<model>.py``)."""
+    model = model_name(config)
+    missing = [os.path.join("benchmark", part, "models", f"{model}.py")
+               for part in ("reference", "counts")
+               if not os.path.exists(os.path.join(BENCH_DIR, part, "models",
+                                                  f"{model}.py"))]
+    if missing:
+        raise SystemExit(f"benchmark: configuration {config.get('name')!r} "
+                         f"names model {model!r}, whose files are missing: "
+                         + ", ".join(missing))
 
 
 def metric_reader(name: str):

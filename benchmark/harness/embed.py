@@ -9,8 +9,12 @@ each call timed from submit to the numpy result. A pre-forward hook keeps
 the PE and degree feature of the calls that the seed picks for the check:
 every ``check_every``-th call from a seeded offset, up to ``check_calls``,
 so that each picked call encodes another slice of the pool.
-A traced run then profiles a stretch of further calls. Last, with the
-program's encoder freed, the reference checks the picked calls.
+A traced run also runs one call with the program's spans on before the
+window and keeps their table, and after the window profiles a stretch of
+further calls with the spans on, keeping each view's bucket and graph
+sizes (one encoder call a view, or several of one bucket where the
+program's adjacency memory guard splits it). Last, with the program's
+encoder freed, the reference checks the picked calls.
 """
 
 from __future__ import annotations
@@ -23,12 +27,13 @@ import numpy as np
 
 from benchmark.counts import encoder as enc_counts
 from benchmark.counts import step as step_counts
-from benchmark.harness import check
+from benchmark.harness import check, probes
 from benchmark.harness.common import derived_seeds, quantile
 from benchmark.harness.corpus import dataset_graph
 from benchmark.harness.pretrain import train_config
 from benchmark.harness.trace import Stretch
 from benchmark.harness.weights import make_encoder_tensors, split
+from benchmark.reference.encoder import model_name
 
 
 def call_ops(sizes_q, sizes_k, config: dict, guards: int) -> float:
@@ -88,7 +93,7 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
     model = GraphEncoder(cfg.encoder).to(device)
     gen = torch.Generator(device=device).manual_seed(s_weights)
     shapes = {n: tuple(t.shape) for n, t in model.state_dict().items()}
-    tensors = make_encoder_tensors(shapes, gen, device)
+    tensors = make_encoder_tensors(shapes, gen, device, model_name(config))
     model.load_state_dict(tensors)
     params, buffers = split({n: t.detach().cpu() for n, t in tensors.items()},
                             model)
@@ -109,11 +114,14 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
     handle = model.register_forward_pre_hook(keep)
     for i in range(traffic["warm_calls"]):
         call(per_pool - 1 - i)
+    rec = {"kind": "embed", "device": device.type}
+    if args.trace:
+        # The host's phases of one call, spans on, on a warmed slice.
+        rec["spans"] = probes.span_table(lambda: call(per_pool - 1), device)
 
     stride = traffic["check_every"]
     offset = s_sample % stride
     sampled = []
-    rec = {"kind": "embed"}
     call_s, failed, not_finite = [], 0, []
     rec["setup_s"] = time.time() - t_start
     t0 = time.perf_counter()
@@ -169,19 +177,23 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
     if args.trace:
         calls = traffic["trace_calls"]
         stretch = Stretch(device)
-        stretch.start()
-        for c in range(i, i + calls):
-            call(c)
-        stretch.stop()
+        # Spans on in the stretch too: the trace's idle time under each.
+        with probes.spans_on():
+            stretch.start()
+            for c in range(i, i + calls):
+                call(c)
+            stretch.stop()
         tr = stretch.read()
         tr["calls"] = calls
-        works = []
+        works, views = [], []
         for c in range(i, i + calls):
             for n, e in sizes[c % per_pool]:
                 works += list(step_counts.featurize(
                     n, e, config["positional_embedding_size"], guards,
                     compact=False).values())
+                views.append({"bucket": n_max, "n_nodes": n, "n_edges": e})
         tr["featurize_work"] = works
+        tr["encoder_calls"] = views
         rec["trace"] = tr
     del model
     gc.collect()

@@ -8,8 +8,11 @@ moment after step 1, the weights and the enqueued keys after the checked
 steps. The same state then warms the cell's other shapes (routed MoCo's
 other bucket on a copy of the state) and goes on into the window. The
 window submits dispatches until ``--seconds`` have passed and ends with a
-synchronization. A traced run then profiles a stretch of the next
-dispatch. Last, with the program's state freed, the reference checks the
+synchronization. A traced run also runs one dispatch with the program's
+spans on before the window and keeps their table, and after the window
+profiles a stretch of the next dispatch, keeping every encoder call's
+graph sizes in it. Every run keeps the window's pipeline and step-graph
+counters. Last, with the program's state freed, the reference checks the
 first dispatch.
 """
 
@@ -24,11 +27,18 @@ import time
 import numpy as np
 
 from benchmark.counts import step as step_counts
-from benchmark.harness import check
+from benchmark.harness import check, probes
 from benchmark.harness.common import derived_seeds, sync
 from benchmark.harness.corpus import ensure_corpus
 from benchmark.harness.trace import Stretch
 from benchmark.harness.weights import make_encoder_tensors, make_queue, split
+from benchmark.reference.encoder import model_name
+
+
+# Encoder settings that a configuration may leave out, keeping
+# EncoderConfig's defaults.
+OPTIONAL_ENCODER_KEYS = ("num_heads", "set2set_iter", "set2set_lstm_layer",
+                         "use_selayer")
 
 
 def train_config(config: dict):
@@ -43,7 +53,8 @@ def train_config(config: dict):
         degree_embedding_size=config["degree_embedding_size"],
         max_degree=config["max_degree"], final_dropout=config["final_dropout"],
         adj_dtype=config["adj_dtype"], jacobi_v_dtype=config["jacobi_v_dtype"],
-        pe_guards=config["pe_guards"])
+        pe_guards=config["pe_guards"],
+        **{k: config[k] for k in OPTIONAL_ENCODER_KEYS if k in config})
     return TrainConfig(
         batch_size=config["batch_size"],
         sampler=SamplerConfig(rw_hops=config["rw_hops"],
@@ -153,6 +164,22 @@ def dispatch_ops(sq, sk, config: dict, guards: int) -> float:
                                                         guards))
 
 
+def encoder_calls(sq, sk, config: dict, steps: int) -> list[dict]:
+    """Every encoder call of a dispatch's first ``steps`` steps (the
+    program's layout, ``check.layout_forwards``): its bucket, and the real
+    nodes and edges of each graph it encodes."""
+    first = (sq, sk)
+    out = []
+    for graphs, bucket in check.forward_graphs(
+            first, {"forwards": check.layout_forwards(first, config, steps)},
+            config):
+        out.append({"bucket": bucket,
+                    "n_nodes": np.array([g[2] for g in graphs], np.int64),
+                    "n_edges": np.array([len(g[0]) for g in graphs],
+                                        np.int64)})
+    return out
+
+
 def _fake_item(item, n_max: int, e_tot: int):
     """Edge-free graphs at bucket n_max: valid content at the real shapes,
     which warms a bucket the first dispatches did not reach."""
@@ -179,14 +206,15 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
     store = CorpusStore.open(ensure_corpus(config["corpus"]))
     pcfg = pipeline_config(config, traffic)
     check_steps = traffic["check_steps"]
-    rec = {"kind": "pretrain"}
+    rec = {"kind": "pretrain", "device": device.type}
     with PretrainPipeline(store, cfg.sampler, pcfg, seed=s_pipe) as pipe:
         state = create_pretrain_state(cfg, total_steps=config["total_steps"],
                                       seed=0, device=device)
         gen = torch.Generator(device=device).manual_seed(s_weights)
         shapes = {n: tuple(t.shape) for n, t in
                   state.model.state_dict().items()}
-        tensors = make_encoder_tensors(shapes, gen, device)
+        tensors = make_encoder_tensors(shapes, gen, device,
+                                       model_name(config))
         state.model.load_state_dict(tensors)
         state.ema_model.load_state_dict(tensors)
         queue0 = make_queue(config["nce_k"], config["output_size"], gen,
@@ -223,10 +251,19 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
         for _ in range(traffic["warm_dispatches"]):
             metrics = train_dispatch(state, *next(pipe), n_max=n_max)
         metrics["loss"][-1].item()
+        if args.trace:
+            # The host's phases of one dispatch, spans on. Here, and not
+            # next to the profiled stretch, which reads otherwise after a
+            # dispatch than after the window's bookkeeping.
+            rec["spans"] = probes.span_table(
+                lambda: train_dispatch(state, *next(pipe), n_max=n_max),
+                device)
 
         # The window.
         items, losses_all, marks = [], [], []
         wait = 0.0
+        stats0 = probes.pipeline_stats(pipe)
+        graphs0 = probes.step_graph_counts()
         rec["setup_s"] = time.time() - t_start
         t0 = time.perf_counter()
         while True:
@@ -241,6 +278,8 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
                 break
         sync(device)
         rec["window_s"] = time.perf_counter() - t0
+        rec["pipeline"] = probes.delta(stats0, probes.pipeline_stats(pipe))
+        rec["step_graphs"] = probes.delta(graphs0, probes.step_graph_counts())
         marks.append(t0 + rec["window_s"])
         print("dispatch seconds " + " ".join(
             f"{b - a:.3f}" for a, b in zip(marks, marks[1:])),
@@ -277,6 +316,7 @@ def run(args, config: dict, traffic: dict, device, t_start: float,
             tr = stretch.read()
             tr["steps"] = trace_steps
             tr["featurize_work"] = featurize_works(sq, sk, config, guards)
+            tr["encoder_calls"] = encoder_calls(sq, sk, config, trace_steps)
             rec["trace"] = tr
         state_device = state.device
         del state, metrics, losses_all, items

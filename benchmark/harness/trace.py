@@ -5,8 +5,9 @@ activity) inside one ``benchmark.stretch`` annotation that ends with a
 synchronization, so every device operation it started lies inside it.
 From the exported trace: the stretch's length, the seconds in which a
 kernel, copy or set ran on the card (overlaps counted once), the kernels'
-device time by name and their count, and the longest idle gaps labelled by
-the host operation that covered them.
+device time by name and their count, the longest idle gaps labelled by
+the host operation that covered them, and, where the stretch ran with the
+program's spans on, the idle seconds under each span.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import time
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 MARK = "benchmark.stretch"
+# The program's spans are profiler annotations named so.
+SPAN_PREFIX = "gcc."
 # A kernel's name in the breakdown is cut to this many characters (the
 # templates' argument lists run to hundreds).
 NAME_CHARS = 100
@@ -67,7 +70,9 @@ class Stretch:
             os.remove(path)
         if isinstance(events, dict):
             events = events.get("traceEvents", [])
-        return summarize(events, self.wall_s)
+        out = summarize(events, self.wall_s)
+        out["idle_by_span"] = idle_by_span(events)
+        return out
 
 
 def _merge(intervals):
@@ -80,16 +85,18 @@ def _merge(intervals):
     return out
 
 
-def summarize(events, wall_s: float | None = None, top: int = 10) -> dict:
-    """The stretch's numbers from chrome-trace events (times in µs)."""
+def _bounds(events):
+    """(start, end, True) of the stretch's mark in µs; infinite ends and
+    False where the trace has none."""
     marks = [e for e in events if e.get("ph") == "X"
              and e.get("name") == MARK and e.get("cat") == "user_annotation"]
-    if marks:
-        lo = float(marks[0]["ts"])
-        hi = lo + float(marks[0]["dur"])
-    else:
-        lo, hi = float("-inf"), float("inf")
-    dev, kernel_s, launches = [], {}, 0
+    if not marks:
+        return float("-inf"), float("inf"), False
+    lo = float(marks[0]["ts"])
+    return lo, lo + float(marks[0]["dur"]), True
+
+
+def _device_intervals(events, lo, hi):
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in DEVICE_CATS:
             continue
@@ -97,7 +104,21 @@ def summarize(events, wall_s: float | None = None, top: int = 10) -> dict:
         b = a + float(e.get("dur", 0.0))
         if b <= lo or a >= hi:
             continue
-        a, b = max(a, lo), min(b, hi)
+        yield e, max(a, lo), min(b, hi)
+
+
+def _gaps(busy, lo, hi):
+    """The idle intervals of the stretch between the merged busy ones."""
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    return [(edges[i], edges[i + 1]) for i in range(0, len(edges) - 1, 2)
+            if edges[i + 1] > edges[i]]
+
+
+def summarize(events, wall_s: float | None = None, top: int = 10) -> dict:
+    """The stretch's numbers from chrome-trace events (times in µs)."""
+    lo, hi, marked = _bounds(events)
+    dev, kernel_s, launches = [], {}, 0
+    for e, a, b in _device_intervals(events, lo, hi):
         dev.append((a, b))
         if e["cat"] == "kernel":
             launches += 1
@@ -105,12 +126,8 @@ def summarize(events, wall_s: float | None = None, top: int = 10) -> dict:
                 + (b - a) * 1e-6
     busy = _merge(dev)
     busy_s = sum(b - a for a, b in busy) * 1e-6
-    window_s = (hi - lo) * 1e-6 if marks else (wall_s or 0.0)
-    gaps = []
-    edges = [lo] + [x for iv in busy for x in iv] + [hi] if marks else []
-    for i in range(0, len(edges) - 1, 2):
-        if edges[i + 1] > edges[i]:
-            gaps.append((edges[i], edges[i + 1]))
+    window_s = (hi - lo) * 1e-6 if marked else (wall_s or 0.0)
+    gaps = _gaps(busy, lo, hi) if marked else []
     gaps.sort(key=lambda g: g[1] - g[0], reverse=True)
     ops = sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
                    e["name"]) for e in events if e.get("ph") == "X"
@@ -135,3 +152,58 @@ def summarize(events, wall_s: float | None = None, top: int = 10) -> dict:
             "breakdown": {"device_ops": [[n[:NAME_CHARS], s]
                                          for n, s in device_ops],
                           "idle_gaps": labelled}}
+
+
+def _host_spans(events, lo, hi):
+    """The program's ``gcc.*`` host spans that overlap the stretch, as
+    (start, end, name), outer before inner."""
+    return sorted(((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)),
+                    e["name"]) for e in events if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and str(e.get("name", "")).startswith(SPAN_PREFIX)
+                   and float(e["ts"]) < hi
+                   and float(e["ts"]) + float(e.get("dur", 0.0)) > lo),
+                  key=lambda x: (x[0], -x[1]))
+
+
+def _span_segments(events, lo, hi):
+    """The stretch cut at every ``gcc.*`` span's ends: (start, end, the
+    innermost open span's name or None), in order."""
+    spans = _host_spans(events, lo, hi)
+    points = sorted({lo, hi} | {min(max(x, lo), hi) for a, b, _ in spans
+                                for x in (a, b)})
+    segs, stack, k = [], [], 0
+    for a, b in zip(points, points[1:]):
+        while stack and stack[-1][1] <= a:
+            stack.pop()
+        while k < len(spans) and spans[k][0] <= a:
+            while stack and stack[-1][1] <= spans[k][0]:
+                stack.pop()
+            if spans[k][1] > a:
+                stack.append(spans[k])
+            k += 1
+        segs.append((a, b, stack[-1][2] if stack else None))
+    return segs
+
+
+def idle_by_span(events) -> dict:
+    """Seconds of the stretch with nothing on the card, by the innermost
+    of the program's ``gcc.*`` host spans open at the time (the device-side
+    projections of spans are not read); {} where the stretch holds no span
+    or has no mark."""
+    lo, hi, marked = _bounds(events)
+    if not marked:
+        return {}
+    busy = _merge([(a, b) for _, a, b in _device_intervals(events, lo, hi)])
+    segs = _span_segments(events, lo, hi)
+    starts = [g[0] for g in segs]
+    out = {}
+    for a, b in _gaps(busy, lo, hi):
+        j = max(0, bisect.bisect_right(starts, a) - 1)
+        while j < len(segs) and segs[j][0] < b:
+            s, t, name = segs[j]
+            cut = min(b, t) - max(a, s)
+            if name and cut > 0:
+                out[name] = out.get(name, 0.0) + cut * 1e-6
+            j += 1
+    return out

@@ -2,57 +2,95 @@
 
 The encoder's tensors are named as the program's encoder names them in its
 state dict; the benchmark loads them there and hands the same tensors to
-the reference. Linear layers: U(±1/sqrt(fan_in)) for weight and bias (the
-PyTorch default GCC trains from); the degree embedding N(0, 1); BatchNorm
-affine 1 and 0; BatchNorm running statistics (read in eval mode) mean
-N(0, 0.1²), variance U(0.5, 2). The MoCo queue: U(±sqrt(3/dim)) (GCC's
-memory_moco.py).
+the reference. Each is drawn by the rule the program initialises it by
+(PyTorch's defaults, which GCC trains from):
+
+- uniform U(±bound), all in one draw in state-dict order: a linear
+  layer's weight and bias, bound 1/sqrt(fan_in), bias-less layers too;
+  a recurrent cell's ``weight_ih``, ``weight_hh``, ``bias_ih``,
+  ``bias_hh``, ``bias_hn``, bound 1/sqrt(hidden); GAT's ``attn_l`` and
+  ``attn_r`` (heads, F), bound 1/sqrt(heads); a parameter the model's
+  reference module gives a bound by ``init_bound(name, shape, shapes)``;
+- the degree embedding N(0, 1);
+- a norm's affine (a BatchNorm's, or a 1-D ``weight`` and its ``bias``) 1
+  and 0;
+- BatchNorm running statistics (read in eval mode): mean U(-0.1, 0.1),
+  variance U(0.5, 2).
+
+The MoCo queue: U(±sqrt(3/dim)) (GCC's memory_moco.py).
 """
 
 from __future__ import annotations
 
 import math
+import re
 
 import torch
 
+from benchmark.reference.encoder import DEFAULT_MODEL, model_module
 
-def _kind(name: str) -> str:
-    if name.endswith("running_mean") or name.endswith("running_var"):
+RECURRENT = re.compile(r"(weight|bias)_(ih|hh|hn)(_l\d+(_reverse)?)?")
+
+
+def _kind(name: str, shapes: dict) -> str:
+    module, _, leaf = name.rpartition(".")
+    if leaf in ("running_mean", "running_var"):
         return "stat"
-    if name.endswith("num_batches_tracked"):
+    if leaf == "num_batches_tracked":
         return "skip"
     if name.startswith("degree_embedding"):
         return "embedding"
-    if ".bn." in name or ".norms." in name:
+    weight = shapes.get(f"{module}.weight")
+    if leaf in ("weight", "bias") and (f"{module}.running_mean" in shapes
+                                       or (weight is not None
+                                           and len(weight) == 1)):
         return "affine"
-    return "linear"
+    return "uniform"
 
 
-def make_encoder_tensors(shapes: dict, gen: torch.Generator,
-                         device) -> dict:
+def _bound(name: str, shape: tuple, shapes: dict, init_bound) -> float:
+    """The uniform bound of parameter ``name`` (see the module docstring)."""
+    if init_bound is not None:
+        bound = init_bound(name, shape, shapes)
+        if bound is not None:
+            return bound
+    module, _, leaf = name.rpartition(".")
+    cell = RECURRENT.fullmatch(leaf)
+    if cell:
+        hidden = shapes[f"{module}.weight_hh{cell[3] or ''}"][1]
+        return 1.0 / math.sqrt(hidden)
+    if leaf in ("attn_l", "attn_r"):
+        return 1.0 / math.sqrt(shape[0])
+    weight = shape if leaf == "weight" else shapes.get(f"{module}.weight")
+    if leaf in ("weight", "bias") and weight is not None and len(weight) >= 2:
+        return 1.0 / math.sqrt(math.prod(weight[1:]))
+    raise ValueError(f"no initial-weight rule for {name} {tuple(shape)}: "
+                     "give the model's reference module an init_bound(name, "
+                     "shape, shapes)")
+
+
+def make_encoder_tensors(shapes: dict, gen: torch.Generator, device,
+                         model: str = DEFAULT_MODEL) -> dict:
     """{name: tensor} for every entry of ``shapes`` (name -> shape, in
-    state-dict order)."""
+    state-dict order) of an encoder of ``model``."""
+    init_bound = getattr(model_module(model), "init_bound", None)
+    kinds = {n: _kind(n, shapes) for n in shapes}
     out = {}
-    lin = [(n, s) for n, s in shapes.items() if _kind(n) == "linear"]
+    lin = [(n, s) for n, s in shapes.items() if kinds[n] == "uniform"]
     total = sum(math.prod(s) for _, s in lin)
     flat = torch.empty(total, device=device).uniform_(-1.0, 1.0,
                                                       generator=gen)
-    fan_in = {}
-    for n, s in lin:
-        if n.endswith(".weight"):
-            fan_in[n[:-len(".weight")]] = s[1]
     off = 0
     for n, s in lin:
         size = math.prod(s)
-        layer = n.rsplit(".", 1)[0]
-        bound = 1.0 / math.sqrt(fan_in[layer])
+        bound = _bound(n, s, shapes, init_bound)
         out[n] = (flat[off:off + size] * bound).view(s)
         off += size
-    emb = [(n, s) for n, s in shapes.items() if _kind(n) == "embedding"]
+    emb = [(n, s) for n, s in shapes.items() if kinds[n] == "embedding"]
     for n, s in emb:
         out[n] = torch.empty(s, device=device).normal_(0.0, 1.0,
                                                        generator=gen)
-    stats = [(n, s) for n, s in shapes.items() if _kind(n) == "stat"]
+    stats = [(n, s) for n, s in shapes.items() if kinds[n] == "stat"]
     total = sum(math.prod(s) for _, s in stats)
     flat = torch.empty(total, device=device).uniform_(0.0, 1.0,
                                                       generator=gen)
@@ -63,11 +101,10 @@ def make_encoder_tensors(shapes: dict, gen: torch.Generator,
         out[n] = (0.5 + 1.5 * u) if n.endswith("var") else (u - 0.5) * 0.2
         off += size
     for n, s in shapes.items():
-        kind = _kind(n)
-        if kind == "affine":
+        if kinds[n] == "affine":
             fill = 1.0 if n.endswith(".weight") else 0.0
             out[n] = torch.full(s, fill, device=device)
-        elif kind == "skip":
+        elif kinds[n] == "skip":
             out[n] = torch.zeros(s, dtype=torch.int64, device=device)
     return {n: out[n].contiguous() for n in shapes}
 

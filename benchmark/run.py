@@ -6,7 +6,9 @@
 The cell, its configuration, its traffic mix and its metrics are found by
 name: ``BENCHMARK.json`` at the checkout's root, ``configs/<config>.json``,
 ``traffic/<traffic>.json`` (whose ``kind`` picks the driver in
-``harness/``), ``metrics/<metric>.py`` and ``limits/<workload>.json``. The
+``harness/``), ``metrics/<metric>.py``, ``limits/<workload>.json``, and
+the configuration's model's ``reference/models/<model>.py`` and
+``counts/models/<model>.py``. The
 run loads and warms up (set-up), measures for ``--seconds``, checks the
 timed path's output against the plain reference, and prints one JSON line
 last: ``correct``, ``attempted``, ``failed``, ``metrics`` (the end-to-end
@@ -49,6 +51,7 @@ def main(argv=None) -> int:
         extra = json.loads(args.override)
         config.update(extra.get("config", {}))
         traffic.update(extra.get("traffic", {}))
+    common.require_model(config)
     device = common.device_check(args.device, cell["chips"])
     import importlib
 
